@@ -1,0 +1,180 @@
+// K3: GQA flash attention with K/V tiles streamed through a `depth`-stage
+// cp.async ring in shared memory (depth 2-4).
+//
+// Replaces: src/repro/kernels/pipeline.py::flash_attention_pipelined
+// (_flash_pipelined_kernel driven by BurstPipeline.stream_step), the
+// Pallas TPU kernel that keeps K/V in HBM and streams them into a rotating
+// VMEM buffer with explicit async copies and DMA semaphores.
+//
+// Bound on an H100: the same work as K2 (flash_attention.cu), so the same
+// bound: compute (fp32 CUDA cores, 67 TFLOP/s) at the long prefill buckets
+// where this variant runs, memory below S ~ 80.
+//
+// Design: the math is K2's (flash::tile_update).  What differs is how K/V
+// arrive: each thread issues 16-byte cp.async copies (global -> shared,
+// bypassing registers and L1) of the raw fp32/bf16 tile into ring slot
+// t % depth, and rows past T are zero-filled by the copy itself.  The
+// schedule is BurstPipeline.stream_step's: fill depth-1 tiles, then at step
+// t wait for tile t (cp.async.wait_group depth-2), sync the block, start the
+// copy of tile t+depth-1 into the slot that step t-1 just finished with,
+// and compute on tile t while the later copies fly.  Exactly one commit
+// group per tile (empty past the end) keeps the wait count uniform.
+// Shared memory at hd = 64, fp32: Q + P = 34 KB plus 34 KB per stage, so
+// depth 4 takes 170 KB of the 227 KB a block may have; the wrapper lowers
+// the depth where a wider head or the stage count would not fit.
+#include "flash_tile.cuh"
+
+namespace {
+
+using namespace flash;
+
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src,
+                                           bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  const int n = valid ? 16 : 0;  // src-size 0: write 16 zero bytes
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem_src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start the copy of one BK x HD tile (rows past `valid` zero-filled).
+template <int HD, typename T>
+__device__ __forceinline__ void issue_tile(T* dst, const T* __restrict__ src,
+                                           size_t ld, int valid) {
+  constexpr int V = Vec16<T>::N;
+  constexpr int kChunks = HD / V;
+  constexpr int KS = KVLayout<HD, T>::kStride;
+  for (int c = threadIdx.x; c < BK * kChunks; c += kThreads) {
+    const int r = c / kChunks;
+    const int d = (c % kChunks) * V;
+    const bool ok = r < valid;
+    cp_async16(dst + r * KS + d, ok ? src + r * ld + d : src, ok);
+  }
+}
+
+template <int HD, typename T, int DEPTH>
+__global__ void __launch_bounds__(kThreads)
+flash_pipelined_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                       T* __restrict__ out, int S, int T_len, int H, int K,
+                       int mask_b, float sm_scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* p_s = q_s + BQ * QLayout<HD>::kStride;
+  T* ring = reinterpret_cast<T*>(p_s + BQ * kPStride);
+  constexpr int kTile = KVLayout<HD, T>::kTileElems;
+  // slot s: K tile at ring + (2s) * kTile, V tile at ring + (2s+1) * kTile
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / K);
+  const uint8_t* mask_b_ptr =
+      mask + (mask_b > 1 ? static_cast<size_t>(b) * S * T_len : 0);
+  const size_t kv_ld = static_cast<size_t>(K) * HD;
+  const int nk = (T_len + BK - 1) / BK;
+
+  auto issue = [&](int t) {
+    const int slot = t % DEPTH;
+    const int k0 = t * BK;
+    const size_t base = ((static_cast<size_t>(b) * T_len + k0) * K + kvh) * HD;
+    issue_tile<HD, T>(ring + (2 * slot) * kTile, k + base, kv_ld, T_len - k0);
+    issue_tile<HD, T>(ring + (2 * slot + 1) * kTile, v + base, kv_ld, T_len - k0);
+  };
+
+  // Fill: tiles 0 .. DEPTH-2, one commit group each.
+#pragma unroll
+  for (int t = 0; t < DEPTH - 1; ++t) {
+    if (t < nk) issue(t);
+    cp_async_commit();
+  }
+  load_tile_f32<HD, T>(q_s, QLayout<HD>::kStride, BQ,
+                       q + ((static_cast<size_t>(b) * S + q0) * H + h) * HD,
+                       static_cast<size_t>(H) * HD, S - q0);
+  RowState<HD> st;
+  st.init();
+
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<DEPTH - 2>();  // this thread's copies of tile t have landed
+    __syncthreads();             // ... and everyone's; slot (t-1) % DEPTH is free
+    if (t + DEPTH - 1 < nk) issue(t + DEPTH - 1);
+    cp_async_commit();
+    const int slot = t % DEPTH;
+    tile_update<HD, T>(st, q_s, ring + (2 * slot) * kTile, ring + (2 * slot + 1) * kTile,
+                       p_s, mask_b_ptr, q0, t * BK, S, T_len, sm_scale);
+  }
+  cp_async_wait<0>();
+  finalize<HD, T>(st, out, b, h, q0, S, H);
+}
+
+template <int HD, typename T, int DEPTH>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* mask,
+                   void* out, int B, int S, int T_len, int H, int K, int mask_b,
+                   float sm_scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<HD, T>(2 * DEPTH);
+  if (smem > 232448) return cudaErrorInvalidConfiguration;
+  auto kern = flash_pipelined_kernel<HD, T, DEPTH>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  dim3 grid((S + BQ - 1) / BQ, H, B);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<T*>(out), S, T_len, H, K,
+      mask_b, sm_scale);
+  return cudaGetLastError();
+}
+
+template <int HD, typename T>
+cudaError_t dispatch_depth(int depth, const void* q, const void* k, const void* v,
+                           const void* mask, void* out, int B, int S, int T_len,
+                           int H, int K, int mask_b, float sm_scale,
+                           cudaStream_t stream) {
+  switch (depth) {
+    case 2: return launch<HD, T, 2>(q, k, v, mask, out, B, S, T_len, H, K, mask_b, sm_scale, stream);
+    case 3: return launch<HD, T, 3>(q, k, v, mask, out, B, S, T_len, H, K, mask_b, sm_scale, stream);
+    case 4: return launch<HD, T, 4>(q, k, v, mask, out, B, S, T_len, H, K, mask_b, sm_scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_hd(int hd, int depth, const void* q, const void* k, const void* v,
+                        const void* mask, void* out, int B, int S, int T_len, int H,
+                        int K, int mask_b, float sm_scale, cudaStream_t stream) {
+  switch (hd) {
+    case 16: return dispatch_depth<16, T>(depth, q, k, v, mask, out, B, S, T_len, H, K, mask_b, sm_scale, stream);
+    case 32: return dispatch_depth<32, T>(depth, q, k, v, mask, out, B, S, T_len, H, K, mask_b, sm_scale, stream);
+    case 64: return dispatch_depth<64, T>(depth, q, k, v, mask, out, B, S, T_len, H, K, mask_b, sm_scale, stream);
+    case 128: return dispatch_depth<128, T>(depth, q, k, v, mask, out, B, S, T_len, H, K, mask_b, sm_scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// As flash_attention_launch (flash_attention.cu), plus `depth` in {2, 3, 4}:
+// the number of K/V ring stages.  A depth whose ring does not fit in 227 KB
+// of shared memory returns cudaErrorInvalidConfiguration without launching.
+REPRO_EXPORT int flash_attention_pipelined_launch(
+    const void* q, const void* k, const void* v, const void* mask, void* out, int B,
+    int S, int T_len, int H, int K, int hd, int mask_b, float sm_scale, int depth,
+    int dtype, int device, void* stream) {
+  cudaError_t e = repro_set_device(device);
+  if (e != cudaSuccess) return e;
+  if (B <= 0 || S <= 0 || T_len <= 0 || K <= 0 || H % K != 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return dispatch_hd<float>(hd, depth, q, k, v, mask, out, B, S, T_len, H, K, mask_b,
+                              sm_scale, s);
+  if (dtype == kBFloat16)
+    return dispatch_hd<__nv_bfloat16>(hd, depth, q, k, v, mask, out, B, S, T_len, H, K,
+                                      mask_b, sm_scale, s);
+  return cudaErrorInvalidValue;
+}

@@ -1,0 +1,51 @@
+"""Public kernel entry points the model layers call.
+
+``flash_attention_gqa`` routes between K2 and K3 and keeps the reference's
+fallback to the plain version for shapes the kernels cannot take (a head
+width they are not built for, H not a multiple of K, a dtype other than
+fp32/bf16).  Tiles are Hopper's (64 x 64, see ``flash_attention.py``), not
+the TPU schedule's.  ``rmsnorm`` is K1.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import (BLOCK_K, DTYPE_CODES,
+                                                 HEAD_DIMS, flash_attention)
+from repro_torch.kernels.pipeline import (choose_depth,
+                                          flash_attention_pipelined,
+                                          use_pipeline)
+from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
+
+
+def flash_tileable(H: int, K: int, hd: int, dtype) -> bool:
+    """True iff the CUDA flash kernels take this head layout and dtype."""
+    return H % K == 0 and hd in HEAD_DIMS and dtype in DTYPE_CODES
+
+
+def flash_attention_gqa(q, k, v, mask, *, sm_scale: float,
+                        pipelined: bool | None = None):
+    """q (B,S,H,hd), k/v (B,T,K,hd), mask (1|B,S,T) bool → (B,S,H,hd).
+
+    K3 (``pipelined``) when the K/V sweep has two 64-key tiles or more,
+    else K2; ``pipelined`` forces the choice where the sweep allows it.
+    """
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if not flash_tileable(H, K, hd, q.dtype):
+        return ref.flash_attention_ref(q, k, v, mask, sm_scale=sm_scale)
+    mask = mask.expand(mask.shape[0], S, T).contiguous()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    n_steps = -(-T // BLOCK_K)
+    if use_pipeline(n_steps, pipelined):
+        depth = choose_depth(hd, q.element_size(), n_steps)
+        return flash_attention_pipelined(q, k, v, mask, sm_scale=sm_scale,
+                                         depth=depth)
+    return flash_attention(q, k, v, mask, sm_scale=sm_scale)
+
+
+def rmsnorm(x: torch.Tensor, g: torch.Tensor, *, eps: float = 1e-6):
+    """Row RMSNorm through K1: x (R, d), g (d,) → (R, d)."""
+    return _rmsnorm(x.contiguous(), g.float().contiguous(), eps=eps)

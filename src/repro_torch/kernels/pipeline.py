@@ -1,0 +1,77 @@
+"""Wrapper of kernel K3, flash attention with K/V streamed through a
+``depth``-stage ``cp.async`` ring (``csrc/flash_attention_pipelined.cu``),
+and the rule that routes between it and K2.
+
+The port of ``repro/kernels/pipeline.py``: ``use_pipeline`` keeps the
+reference's rule that a single streamed tile never pipelines.  The
+reference decides the rest from a TPU DMA cost model that says nothing of
+this card and is not ported yet, so here the pipeline is taken whenever
+the K/V sweep has two tiles or more.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.flash_attention import (BLOCK_K, BLOCK_Q, DTYPE_CODES,
+                                                 check_flash_args)
+
+#: Ring depths the kernel is instantiated for.
+DEPTHS = (2, 3, 4)
+#: Dynamic shared memory one block may use on sm_90 (bytes).
+MAX_SMEM = 232_448
+
+FLASH_ATTENTION_PIPELINED = _build.CudaKernel(
+    "flash_attention_pipelined", lib="flash_attention_pipelined",
+    symbol="flash_attention_pipelined_launch",
+    argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+       ctypes.c_void_p],
+    replaces="src/repro/kernels/pipeline.py:163")
+
+
+def use_pipeline(n_steps: int, override: bool | None = None) -> bool:
+    """Burst-pipeline routing rule: never for a single streamed tile;
+    otherwise the caller's ``override``, and by default yes."""
+    if n_steps < 2:
+        return False
+    return True if override is None else bool(override)
+
+
+def ring_smem_bytes(hd: int, itemsize: int, depth: int) -> int:
+    """Shared memory of one K3 block: fp32 Q and P tiles plus ``depth``
+    K and V tiles, each row padded by 16 bytes (csrc/flash_tile.cuh)."""
+    q_and_p = 4 * (BLOCK_Q * (hd + 4) + BLOCK_Q * (BLOCK_K + 4))
+    return q_and_p + 2 * depth * BLOCK_K * (hd * itemsize + 16)
+
+
+def choose_depth(hd: int, itemsize: int, n_steps: int, cap: int = 4) -> int:
+    """Deepest ring (2..cap, and no deeper than the sweep) that fits."""
+    for depth in range(min(cap, max(n_steps, 2)), 1, -1):
+        if ring_smem_bytes(hd, itemsize, depth) <= MAX_SMEM:
+            return depth
+    raise ValueError(f"no ring depth fits head dim {hd}")
+
+
+def flash_attention_pipelined(q, k, v, mask, *, sm_scale: float,
+                              depth: int = 2):
+    """K3 on CUDA tensors, the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, mask, sm_scale=sm_scale)
+    check_flash_args("flash_attention_pipelined", q, k, v, mask)
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if depth not in DEPTHS:
+        raise ValueError(f"depth {depth} not in {DEPTHS}")
+    if ring_smem_bytes(hd, q.element_size(), depth) > MAX_SMEM:
+        raise ValueError(f"a depth-{depth} ring at head dim {hd} does not "
+                         f"fit in {MAX_SMEM} bytes of shared memory")
+    out = torch.empty_like(q)
+    FLASH_ATTENTION_PIPELINED.launch(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask),
+        _build.ptr(out), B, S, T, H, K, hd, mask.shape[0], float(sm_scale),
+        depth, DTYPE_CODES[q.dtype], q.device.index, _build.stream_of(q))
+    return out

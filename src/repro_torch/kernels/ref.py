@@ -1,0 +1,38 @@
+"""Plain PyTorch versions of the port's kernels (the allclose reference).
+
+Each mirrors the reference oracle in ``repro.kernels.ref`` op for op; the
+CPU tests hold them against the JAX kernels, and ``chip_smoke.py`` holds the
+CUDA kernels against them on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, mask, *, sm_scale: float):
+    """q: (B,S,H,hd), k/v: (B,T,K,hd), mask: (1|B,S,T) bool → (B,S,H,hd).
+
+    A row with no valid key gives 0 (the kernel's denominator clamp), not
+    the uniform softmax that all -1e30 scores would give.
+    """
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    qg = q.reshape(B, S, K, G, hd).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * sm_scale
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    any_valid = mask.any(dim=-1)[:, None, None, :, None]
+    p = torch.where(any_valid, p, 0.0)
+    o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def rmsnorm_ref(x, g, *, eps: float = 1e-6):
+    """RMSNorm: x (R,d) · rsqrt(mean(x²) + eps) · g, statistics in fp32."""
+    xf = x.float()
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * g.float()).to(x.dtype)

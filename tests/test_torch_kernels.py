@@ -1,0 +1,169 @@
+"""The port's kernel modules on the CPU against the JAX kernels.
+
+The same numpy inputs (seeded) go through the JAX Pallas kernels in
+interpret mode and through the port's plain versions and ``ops`` wrappers on
+CPU tensors.  Tolerances are the reference's own (tests/test_kernels.py):
+fp32 atol 2e-5 / rtol 2e-4, bf16 2e-2.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.tiling import down_pow2 as jax_down_pow2
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.pipeline import flash_attention_pipelined as jax_flash_pipe
+from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm
+from repro_torch.core.tiling import down_pow2
+from repro_torch.kernels import ops, pipeline, ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(name):
+    return (dict(atol=2e-2, rtol=2e-2) if name == "bfloat16"
+            else dict(atol=2e-5, rtol=2e-4))
+
+
+def _pair(a: np.ndarray, name: str):
+    jd, td = DTYPES[name]
+    return jnp.asarray(a, jd), torch.from_numpy(a).to(td)
+
+
+def _np32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _mask(kind: str, B: int, S: int, T: int, rng) -> np.ndarray:
+    if kind == "causal":
+        return np.tril(np.ones((S, T), bool), k=T - S)[None]
+    if kind == "batch":   # a distinct (B,S,T) mask per example
+        m = rng.random((B, S, T)) < 0.7
+        m[:, :, 0] = True
+        return m
+    if kind == "fully_masked_rows":   # tests/test_kernels.py:45
+        m = np.zeros((1, S, T), bool)
+        m[:, :, :8] = True
+        m[:, :8, :] = False
+        return m
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("n,cap", [(16, 256), (96, 64), (11, 8), (512, 128),
+                                   (1, 4)])
+def test_down_pow2_matches_reference(n, cap):
+    assert down_pow2(n, cap) == jax_down_pow2(n, cap)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,d", [(16, 64), (8, 768), (24, 96)])
+def test_rmsnorm_matches_pallas(R, d, dtype):
+    rng = np.random.default_rng(R * d)
+    x_np = rng.normal(size=(R, d)).astype(np.float32)
+    g_np = rng.uniform(0.5, 1.5, size=(d,)).astype(np.float32)
+    xj, xt = _pair(x_np, dtype)
+    want = jax_rmsnorm(xj, jnp.asarray(g_np), eps=1e-6, block_rows=R,
+                       interpret=True)
+    g_t = torch.from_numpy(g_np)
+    for got in (ref.rmsnorm_ref(xt, g_t, eps=1e-6),
+                rmsnorm(xt, g_t, eps=1e-6),
+                ops.rmsnorm(xt, g_t, eps=1e-6)):
+        assert got.dtype == xt.dtype and got.shape == xt.shape
+        np.testing.assert_allclose(_np32(got), _np32(want), **_tol(dtype))
+
+
+FLASH_CASES = [
+    # B, S, H, K, T, hd, mask kind
+    (1, 64, 2, 2, 64, 16, "causal"),             # MHA
+    (2, 64, 4, 2, 64, 16, "batch"),              # GQA 2:1, (B,S,T) mask
+    (1, 32, 4, 2, 64, 32, "causal"),             # GQA, (1,S,T) mask, S < T
+    (1, 64, 2, 1, 64, 16, "fully_masked_rows"),
+]
+
+
+def _flash_inputs(B, S, H, K, T, hd, kind, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, T, K, hd)).astype(np.float32)
+    v = rng.normal(size=(B, T, K, hd)).astype(np.float32)
+    m = _mask(kind, B, S, T, rng)
+    jax_in = [_pair(a, dtype)[0] for a in (q, k, v)] + [jnp.asarray(m)]
+    torch_in = [_pair(a, dtype)[1] for a in (q, k, v)] + [torch.from_numpy(m)]
+    return jax_in, torch_in
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,T,hd,kind", FLASH_CASES)
+def test_flash_attention_matches_pallas(B, S, H, K, T, hd, kind, dtype):
+    (qj, kj, vj, mj), (qt, kt, vt, mt) = _flash_inputs(
+        B, S, H, K, T, hd, kind, dtype, seed=S + T + H)
+    scale = hd ** -0.5
+    want = jax_flash(qj, kj, vj, jnp.broadcast_to(mj, (mj.shape[0], S, T)),
+                     sm_scale=scale, block_q=32, block_k=32, interpret=True)
+    oracle = jref.flash_attention_ref(qj, kj, vj, mj, sm_scale=scale)
+    for got in (ref.flash_attention_ref(qt, kt, vt, mt, sm_scale=scale),
+                flash_attention(qt, kt, vt, mt, sm_scale=scale),
+                ops.flash_attention_gqa(qt, kt, vt, mt, sm_scale=scale)):
+        assert got.dtype == qt.dtype and got.shape == qt.shape
+        np.testing.assert_allclose(_np32(got), _np32(want), **_tol(dtype))
+        np.testing.assert_allclose(_np32(got), _np32(oracle), **_tol(dtype))
+    if kind == "fully_masked_rows":
+        np.testing.assert_allclose(_np32(got)[0, :8], 0.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("depth", [2, 3])
+@pytest.mark.parametrize("B,S,H,K,T,hd,kind", [FLASH_CASES[0], FLASH_CASES[1],
+                                               FLASH_CASES[3]])
+def test_flash_attention_pipelined_matches_pallas(B, S, H, K, T, hd, kind,
+                                                  depth, dtype):
+    (qj, kj, vj, mj), (qt, kt, vt, mt) = _flash_inputs(
+        B, S, H, K, T, hd, kind, dtype, seed=depth + S)
+    scale = hd ** -0.5
+    want = jax_flash_pipe(qj, kj, vj,
+                          jnp.broadcast_to(mj, (mj.shape[0], S, T)),
+                          sm_scale=scale, block_q=32, block_k=16,
+                          depth=depth, interpret=True)
+    got = pipeline.flash_attention_pipelined(qt, kt, vt, mt, sm_scale=scale,
+                                             depth=depth)
+    np.testing.assert_allclose(_np32(got), _np32(want), **_tol(dtype))
+    forced = ops.flash_attention_gqa(qt, kt, vt, mt, sm_scale=scale,
+                                     pipelined=True)
+    np.testing.assert_allclose(_np32(forced), _np32(want), **_tol(dtype))
+
+
+def test_untileable_head_dim_falls_back_to_reference():
+    """hd = 24 is not a width the CUDA kernels are built for: the ops
+    wrapper takes the plain version, as the reference's wrapper does for
+    shapes its kernel cannot tile."""
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.normal(size=(1, 16, 2, 24)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(1, 16, 2, 24)).astype(np.float32))
+    m = torch.ones((1, 16, 16), dtype=torch.bool)
+    assert not ops.flash_tileable(2, 2, 24, torch.float32)
+    got = ops.flash_attention_gqa(q, k, k, m, sm_scale=0.2)
+    want = ref.flash_attention_ref(q, k, k, m, sm_scale=0.2)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("n_steps,override,want", [
+    (1, None, False), (1, True, False), (2, None, True), (8, False, False),
+    (4, True, True)])
+def test_use_pipeline_never_pipelines_one_tile(n_steps, override, want):
+    assert pipeline.use_pipeline(n_steps, override) is want
+
+
+@pytest.mark.parametrize("hd,itemsize,n_steps,want", [
+    (64, 4, 8, 4), (64, 4, 2, 2), (64, 4, 3, 3), (128, 4, 8, 2),
+    (128, 2, 8, 4)])
+def test_choose_depth_fits_shared_memory(hd, itemsize, n_steps, want):
+    depth = pipeline.choose_depth(hd, itemsize, n_steps)
+    assert depth == want
+    assert pipeline.ring_smem_bytes(hd, itemsize, depth) <= pipeline.MAX_SMEM
