@@ -9,13 +9,24 @@ Two backends:
   compute their plain versions, so this backend also runs on the CPU.
 
 Until the reference's e-graph dispatch engine is ported, ``lower`` is a
-fixed table that reproduces the reference's decisions for the dense ops:
+fixed table that reproduces the reference's decisions for the dense and
+the point-cloud ops:
 
 * ``rmsnorm`` → the kernel at every shape;
 * ``attention`` / ``attention_decode`` / ``attention_paged`` with S ≥ 8 and
   a head layout the flash kernels take → the flash kernel;
 * any of them with S < 8 (a degenerate query tile: decode) → the reference;
-* ``matmul`` → the reference (the negative control: no ISAX for a GEMM).
+* ``matmul`` → the reference (the negative control: no ISAX for a GEMM);
+* ``fps`` → the kernel unless asked for more samples than points;
+* ``ball_query`` / ``group_aggregate`` → the kernel unless the reference
+  cannot tile the shape (``pointcloud.ops.tileable``).
+
+The point-cloud fallbacks are ``pointcloud.ops.fallback``, which the
+point-cloud entry points read too; where ``lower`` says ``isax`` the
+``LoweringConfig`` methods call the kernel routes directly.
+
+The reference also sends FPS to its plain version when the cloud exceeds
+the TPU's VMEM; the port's FPS kernel has no such ceiling.
 """
 
 from __future__ import annotations
@@ -23,11 +34,15 @@ from __future__ import annotations
 import dataclasses
 from repro_torch.kernels.flash_attention import DTYPE_CODES
 from repro_torch.kernels.ops import flash_tileable
+from repro_torch.pointcloud import ops as pc_ops
+from repro_torch.pointcloud import ref as pc_ref
 
 VALID_BACKENDS = ("torch", "cuda")
 #: Fewest query rows the reference gives a flash kernel (targets/llm.py).
 MIN_QUERY_TILE = 8
 ATTENTION_OPS = ("attention", "attention_decode", "attention_paged")
+POINTCLOUD_TARGETS = {"fps": "fps", "ball_query": "ball_query",
+                      "group_aggregate": "group_agg"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,12 +71,16 @@ class LoweringConfig:
         """The decision for one op instance.
 
         Shapes follow the reference's keys: ``rmsnorm`` (rows, d);
-        attention ops (B, S, H, K, T, hd); ``matmul`` (M, K, N).
+        attention ops (B, S, H, K, T, hd); ``matmul`` (M, K, N); ``fps``
+        (B, N, S); ``ball_query`` (B, N, M, k); ``group_aggregate``
+        (B, N, M, k, C).
         """
         if op == "rmsnorm":
             target = "rmsnorm"
         elif op in ATTENTION_OPS:
             target = "flash_attention"
+        elif op in POINTCLOUD_TARGETS:
+            target = POINTCLOUD_TARGETS[op]
         elif op == "matmul":
             return Lowering("reference", "no ISAX for a GEMM; torch.matmul")
         else:
@@ -78,7 +97,44 @@ class LoweringConfig:
             if not flash_tileable(H, K, hd, dtype):
                 return Lowering("reference", f"untileable shape H={H} K={K} "
                                              f"hd={hd}")
+        if op in POINTCLOUD_TARGETS:
+            reason = pc_ops.fallback(op, shape)
+            if reason:
+                return Lowering("reference", reason)
         return Lowering("isax", f"kernel {target}")
+
+    # -- point-cloud vertical (fps → ball_query → group_aggregate) ---------
+    # ``pipelined`` overrides the baseline/pipelined choice where the
+    # kernel runs (None: the port's rule, ``kernels.pipeline.use_pipeline``).
+
+    def fps(self, xyz, n_samples: int):
+        """Farthest-point sampling: xyz (B,N,3) → indices (B,n_samples) i32."""
+        B, N, _ = xyz.shape
+        if self.lower("fps", (B, N, n_samples), xyz.dtype).impl == "isax":
+            return pc_ops.kernel_fps(xyz, n_samples)
+        return pc_ref.fps_ref(xyz, n_samples)
+
+    def ball_query(self, xyz, centers, radius: float, k: int, *,
+                   pipelined: bool | None = None):
+        """Ball-query grouping: xyz (B,N,3), centers (B,M,3) → neighbour
+        indices (B,M,k) i32."""
+        B, N, _ = xyz.shape
+        M = centers.shape[1]
+        if self.lower("ball_query", (B, N, M, k), xyz.dtype).impl == "isax":
+            return pc_ops.kernel_ball_query(xyz, centers, radius, k,
+                                            pipelined=pipelined)
+        return pc_ref.ball_query_ref(xyz, centers, radius, k)
+
+    def group_aggregate(self, features, idx, *, pipelined: bool | None = None):
+        """Grouped aggregation: features (B,N,C), idx (B,M,k) → max-pooled
+        (B,M,C)."""
+        B, N, C = features.shape
+        M, k = idx.shape[1], idx.shape[2]
+        if self.lower("group_aggregate", (B, N, M, k, C),
+                      features.dtype).impl == "isax":
+            return pc_ops.kernel_group_aggregate(features, idx,
+                                                 pipelined=pipelined)
+        return pc_ref.group_aggregate_ref(features, idx)
 
 
 def lower(op: str, *, shape, dtype, backend: str = "cuda") -> Lowering:

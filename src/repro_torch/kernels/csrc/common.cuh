@@ -64,6 +64,26 @@ __device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
+// cp.async (sm_80+): a 16-byte global -> shared copy that bypasses
+// registers and L1.  `src_bytes` (0..16) bytes are read from `gmem_src` and
+// the rest of the 16 are written as zeros, so a ragged edge or a masked row
+// is filled by the copy itself.  Both addresses must be 16-byte aligned.
+// Shared by the pipelined kernels (K3, K11, K13).
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src,
+                                           int src_bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem_src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most N of this thread's commit groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // Set the device the caller's tensors live on; the ctypes route has no
 // device guard of its own.
 static inline cudaError_t repro_set_device(int device) {

@@ -28,21 +28,6 @@ namespace {
 
 using namespace flash;
 
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src,
-                                           bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  const int n = valid ? 16 : 0;  // src-size 0: write 16 zero bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem_src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Start the copy of one BK x HD tile (rows past `valid` zero-filled).
 template <int HD, typename T>
 __device__ __forceinline__ void issue_tile(T* dst, const T* __restrict__ src,
@@ -54,7 +39,7 @@ __device__ __forceinline__ void issue_tile(T* dst, const T* __restrict__ src,
     const int r = c / kChunks;
     const int d = (c % kChunks) * V;
     const bool ok = r < valid;
-    cp_async16(dst + r * KS + d, ok ? src + r * ld + d : src, ok);
+    cp_async16(dst + r * KS + d, ok ? src + r * ld + d : src, ok ? 16 : 0);
   }
 }
 

@@ -48,12 +48,22 @@ def ring_smem_bytes(hd: int, itemsize: int, depth: int) -> int:
     return q_and_p + 2 * depth * BLOCK_K * (hd * itemsize + 16)
 
 
-def choose_depth(hd: int, itemsize: int, n_steps: int, cap: int = 4) -> int:
-    """Deepest ring (2..cap, and no deeper than the sweep) that fits."""
+def deepest_ring(ring_bytes, n_steps: int, cap: int = 4) -> int | None:
+    """Deepest ring (2..cap, and no deeper than the sweep) whose shared
+    memory, ``ring_bytes(depth)``, fits; None if none does."""
     for depth in range(min(cap, max(n_steps, 2)), 1, -1):
-        if ring_smem_bytes(hd, itemsize, depth) <= MAX_SMEM:
+        if ring_bytes(depth) <= MAX_SMEM:
             return depth
-    raise ValueError(f"no ring depth fits head dim {hd}")
+    return None
+
+
+def choose_depth(hd: int, itemsize: int, n_steps: int, cap: int = 4) -> int:
+    """Deepest K3 ring that fits (see ``deepest_ring``)."""
+    depth = deepest_ring(lambda d: ring_smem_bytes(hd, itemsize, d), n_steps,
+                         cap)
+    if depth is None:
+        raise ValueError(f"no ring depth fits head dim {hd}")
+    return depth
 
 
 def flash_attention_pipelined(q, k, v, mask, *, sm_scale: float,

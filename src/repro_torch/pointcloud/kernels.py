@@ -1,0 +1,218 @@
+"""Wrappers of the point-cloud kernels K9–K13 (``kernels/csrc``).
+
+The port of ``repro/pointcloud/kernels.py``:
+
+* K9 ``fps`` (``csrc/fps.cu``): one block per cloud, sequential argmax;
+* K10 ``ball_query`` (``csrc/ball_query.cu``) and K11
+  ``ball_query_pipelined`` (``csrc/ball_query_pipelined.cu``, X tiles
+  through a ``cp.async`` ring): one warp per center;
+* K12 ``group_aggregate`` (``csrc/group_aggregate.cu``) and K13
+  ``group_aggregate_pipelined`` (``csrc/group_aggregate_pipelined.cu``, the
+  gathered rows through a ``cp.async`` ring): a direct row gather and a max.
+
+Points are 3-d, fp32 or bf16; indices are int32.  On CPU tensors each
+wrapper computes the plain version (``pointcloud/ref.py``); on CUDA tensors
+it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import DTYPE_CODES
+from repro_torch.kernels.pipeline import DEPTHS, MAX_SMEM
+from repro_torch.pointcloud import ref
+
+#: Largest cloud whose points K9 keeps in registers (csrc/fps.cu); above
+#: it the running distances live in a global scratch array.
+FPS_REGISTER_POINTS = 8 * 1024
+#: Points per X tile of K10/K11 (csrc/ball_tile.cuh).
+BALL_TILE = 256
+#: K13's block: centers, neighbours per ring stage, most channels
+#: (csrc/group_aggregate_pipelined.cu).
+GROUP_CENTERS = 4
+GROUP_CHUNK = 16
+GROUP_MAX_CHANNELS = 256
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PC = "src/repro/pointcloud/kernels.py"
+
+FPS = _build.CudaKernel(
+    "fps", lib="fps", symbol="fps_launch",
+    argtypes=[_P, _P, _P, _I, _I, _I, _I, _I, _P], replaces=f"{_PC}:61")
+BALL_QUERY = _build.CudaKernel(
+    "ball_query", lib="ball_query", symbol="ball_query_launch",
+    argtypes=[_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    replaces=f"{_PC}:130")
+BALL_QUERY_PIPELINED = _build.CudaKernel(
+    "ball_query_pipelined", lib="ball_query_pipelined",
+    symbol="ball_query_pipelined_launch",
+    argtypes=[_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    replaces=f"{_PC}:180")
+GROUP_AGGREGATE = _build.CudaKernel(
+    "group_aggregate", lib="group_aggregate", symbol="group_aggregate_launch",
+    argtypes=[_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    replaces=f"{_PC}:253")
+GROUP_AGGREGATE_PIPELINED = _build.CudaKernel(
+    "group_aggregate_pipelined", lib="group_aggregate_pipelined",
+    symbol="group_aggregate_pipelined_launch",
+    argtypes=[_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    replaces=f"{_PC}:287")
+
+
+def _check(name: str, *tensors) -> None:
+    """Raise unless the tensors are contiguous, 16-byte aligned and on one
+    CUDA device."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous on one device")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be 16-byte aligned")
+
+
+def _check_points(name: str, *clouds) -> None:
+    """Raise unless every cloud is (B, n, 3) of one fp32/bf16 dtype."""
+    for c in clouds:
+        if c.dim() != 3 or c.shape[-1] != 3 or c.shape[0] != clouds[0].shape[0]:
+            raise ValueError(f"{name}: want (B, n, 3) points, got "
+                             f"{tuple(c.shape)}")
+        if c.dtype not in DTYPE_CODES or c.dtype != clouds[0].dtype:
+            raise ValueError(f"{name}: points must share fp32 or bf16, got "
+                             f"{c.dtype}")
+
+
+def _check_depth(name: str, depth: int) -> None:
+    if depth not in DEPTHS:
+        raise ValueError(f"{name}: depth {depth} not in {DEPTHS}")
+
+
+def fps(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """K9: xyz (B, N, 3) → sampled indices (B, n_samples) i32."""
+    if xyz.device.type == "cpu":
+        return ref.fps_ref(xyz, n_samples)
+    _check("fps", xyz)
+    _check_points("fps", xyz)
+    B, N, _ = xyz.shape
+    if not 0 <= n_samples <= N:
+        raise ValueError(f"fps: {n_samples} samples of {N} points")
+    out = torch.empty((B, n_samples), dtype=torch.int32, device=xyz.device)
+    if B == 0 or n_samples == 0:
+        return out
+    scratch = (torch.empty((B, N), dtype=torch.float32, device=xyz.device)
+               if N > FPS_REGISTER_POINTS else out)
+    FPS.launch(_build.ptr(xyz), _build.ptr(out), _build.ptr(scratch), B, N,
+               n_samples, DTYPE_CODES[xyz.dtype], xyz.device.index,
+               _build.stream_of(xyz))
+    return out
+
+
+def _ball_args(name, xyz, centers, k):
+    _check(name, xyz, centers)
+    _check_points(name, xyz, centers)
+    if k < 1:
+        raise ValueError(f"{name}: k must be at least 1, got {k}")
+    B, N, _ = xyz.shape
+    M = centers.shape[1]
+    out = torch.empty((B, M, k), dtype=torch.int32, device=xyz.device)
+    return B, N, M, out
+
+
+def ball_query(xyz, centers, radius: float, k: int, *,
+               radius_sq: float | None = None) -> torch.Tensor:
+    """K10: xyz (B, N, 3), centers (B, M, 3) → indices (B, M, k) i32."""
+    if xyz.device.type == "cpu":
+        return ref.ball_query_ref(xyz, centers, radius, k, radius_sq=radius_sq)
+    B, N, M, out = _ball_args("ball_query", xyz, centers, k)
+    if out.numel():
+        BALL_QUERY.launch(
+            _build.ptr(xyz), _build.ptr(centers), _build.ptr(out), B, N, M, k,
+            ref.squared_radius(radius, radius_sq), DTYPE_CODES[xyz.dtype],
+            xyz.device.index, _build.stream_of(xyz))
+    return out
+
+
+def ball_query_pipelined(xyz, centers, radius: float, k: int, *,
+                         depth: int = 2,
+                         radius_sq: float | None = None) -> torch.Tensor:
+    """K11: K10 with the X tiles streamed through a ``depth``-stage ring."""
+    if xyz.device.type == "cpu":
+        return ref.ball_query_ref(xyz, centers, radius, k, radius_sq=radius_sq)
+    _check_depth("ball_query_pipelined", depth)
+    B, N, M, out = _ball_args("ball_query_pipelined", xyz, centers, k)
+    if out.numel():
+        BALL_QUERY_PIPELINED.launch(
+            _build.ptr(xyz), _build.ptr(centers), _build.ptr(out), B, N, M, k,
+            ref.squared_radius(radius, radius_sq), depth,
+            DTYPE_CODES[xyz.dtype], xyz.device.index, _build.stream_of(xyz))
+    return out
+
+
+def group_ring_bytes(C: int, itemsize: int, k: int, depth: int) -> int:
+    """Shared memory of one K13 block: ``depth`` stages of 4 centers × 16
+    neighbour rows × C, plus the block's 4 × k indices."""
+    return (depth * GROUP_CENTERS * GROUP_CHUNK * C * itemsize
+            + GROUP_CENTERS * k * 4)
+
+
+def group_ring_takes(C: int, itemsize: int) -> bool:
+    """True iff K13 takes rows of C channels: whole 16-byte chunks, and at
+    most ``GROUP_MAX_CHANNELS`` channels."""
+    return (C * itemsize) % 16 == 0 and C <= GROUP_MAX_CHANNELS
+
+
+def _group_args(name, features, idx):
+    _check(name, features, idx)
+    if features.dim() != 3 or idx.dim() != 3 or idx.shape[0] != features.shape[0]:
+        raise ValueError(f"{name}: want features (B, N, C) and idx (B, M, k), "
+                         f"got {tuple(features.shape)} and {tuple(idx.shape)}")
+    if features.dtype not in DTYPE_CODES or idx.dtype != torch.int32:
+        raise ValueError(f"{name}: features must be fp32 or bf16 and idx "
+                         f"int32, got {features.dtype} and {idx.dtype}")
+    B, N, C = features.shape
+    M, k = idx.shape[1], idx.shape[2]
+    if k < 1 or N < 1:
+        raise ValueError(f"{name}: need k >= 1 and N >= 1, got {k}, {N}")
+    out = torch.empty((B, M, C), dtype=features.dtype, device=features.device)
+    return B, N, M, k, C, out
+
+
+def group_aggregate(features, idx) -> torch.Tensor:
+    """K12: features (B, N, C), idx (B, M, k) i32 → max-pooled (B, M, C)."""
+    if features.device.type == "cpu":
+        return ref.group_aggregate_ref(features, idx)
+    B, N, M, k, C, out = _group_args("group_aggregate", features, idx)
+    if out.numel():
+        GROUP_AGGREGATE.launch(
+            _build.ptr(features), _build.ptr(idx), _build.ptr(out), B, N, M, k,
+            C, DTYPE_CODES[features.dtype], features.device.index,
+            _build.stream_of(features))
+    return out
+
+
+def group_aggregate_pipelined(features, idx, *, depth: int = 2) -> torch.Tensor:
+    """K13: K12 with the gathered rows streamed through a ``depth``-stage
+    ring."""
+    if features.device.type == "cpu":
+        return ref.group_aggregate_ref(features, idx)
+    _check_depth("group_aggregate_pipelined", depth)
+    B, N, M, k, C, out = _group_args("group_aggregate_pipelined", features, idx)
+    itemsize = features.element_size()
+    if not group_ring_takes(C, itemsize):
+        raise ValueError(f"group_aggregate_pipelined: rows of {C} channels "
+                         f"are not whole 16-byte chunks or exceed "
+                         f"{GROUP_MAX_CHANNELS}")
+    if group_ring_bytes(C, itemsize, k, depth) > MAX_SMEM:
+        raise ValueError(f"group_aggregate_pipelined: a depth-{depth} ring "
+                         f"of {C} channels does not fit in {MAX_SMEM} bytes")
+    if out.numel():
+        GROUP_AGGREGATE_PIPELINED.launch(
+            _build.ptr(features), _build.ptr(idx), _build.ptr(out), B, N, M, k,
+            C, depth, DTYPE_CODES[features.dtype], features.device.index,
+            _build.stream_of(features))
+    return out

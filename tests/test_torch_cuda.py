@@ -6,7 +6,8 @@ on a machine without it:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances are the reference's (tests/test_kernels.py:18): fp32 atol 2e-5 /
-rtol 2e-4, bf16 2e-2.
+rtol 2e-4, bf16 2e-2.  The point-cloud kernels (K9-K13) must match their
+plain versions exactly: indices, and the max-pool, which only selects.
 """
 
 import pytest
@@ -20,6 +21,9 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.pipeline import flash_attention_pipelined
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models.registry import get_model
+from repro_torch.pointcloud import kernels as pck
+from repro_torch.pointcloud import ops as pc_ops
+from repro_torch.pointcloud import ref as pc_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +139,173 @@ def test_reduced_model_cuda_backend_matches_torch_backend(gen):
     want, wkv = plain_m.prefill(params, {"tokens": tokens})
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     torch.testing.assert_close(gkv["k"], wkv["k"], atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Point-cloud kernels K9-K13
+# ---------------------------------------------------------------------------
+
+def _points(gen, B, N, dtype, kind="normal"):
+    if kind == "lattice":      # exact ties; d² exactly on integer r²
+        x = torch.randint(0, 6, (B, N, 3), generator=gen, device="cuda")
+        return x.float().to(dtype)
+    return torch.randn((B, N, 3), generator=gen, device="cuda").to(dtype)
+
+
+def _launched(name, fn):
+    before = _build.KERNELS[name].launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert _build.KERNELS[name].launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("kind", ["normal", "lattice"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,S", [(2, 256, 64), (1, 1000, 1000), (2, 1025, 17),
+                                   (2, 4096, 512), (1, 9000, 40),
+                                   (1, 1, 1)])
+def test_fps_kernel(gen, B, N, S, dtype, kind):
+    xyz = _points(gen, B, N, dtype, kind)
+    got = _launched("fps", lambda: pck.fps(xyz, S))
+    assert torch.equal(got, pc_ref.fps_ref(xyz, S))
+
+
+BALL = [  # B, N, M, k, radius
+    (2, 256, 64, 8, 0.9), (1, 1000, 13, 16, 0.5), (2, 4096, 512, 16, 0.9),
+    (3, 777, 40, 64, 0.3), (16, 1024, 512, 32, 0.2), (1, 5, 3, 4, 10.0)]
+
+
+@pytest.mark.parametrize("kind", ["normal", "lattice", "empty"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,M,k,radius", BALL)
+def test_ball_query_kernels(gen, B, N, M, k, radius, dtype, kind):
+    xyz = _points(gen, B, N, dtype, kind)
+    centers = xyz[:, :M].contiguous() if M <= N else _points(gen, B, M, dtype)
+    if kind == "empty":        # centers away from the cloud: empty balls
+        centers = (3 * torch.randn((B, M, 3), generator=gen,
+                                   device="cuda")).to(dtype)
+    if kind == "lattice":
+        radius = 1.0
+    want = pc_ref.ball_query_ref(xyz, centers, radius, k)
+    got = _launched("ball_query",
+                    lambda: pck.ball_query(xyz, centers, radius, k))
+    assert torch.equal(got, want)
+    for depth in (2, 3, 4):
+        got = _launched("ball_query_pipelined", lambda: pck.ball_query_pipelined(
+            xyz, centers, radius, k, depth=depth))
+        assert torch.equal(got, want), depth
+
+
+def test_ball_query_kernels_take_radius_sq_and_misaligned_batches(gen):
+    xyz = _points(gen, 3, 1001, torch.float32, "lattice")  # 12 * 1001 % 16 != 0
+    centers = xyz[:, 500:540].contiguous()
+    for r2 in (1.0, 2.0, 3.0):
+        want = pc_ref.ball_query_ref(xyz, centers, 0.0, 16, radius_sq=r2)
+        assert torch.equal(pck.ball_query(xyz, centers, 0.0, 16, radius_sq=r2),
+                           want)
+        assert torch.equal(pck.ball_query_pipelined(
+            xyz, centers, 0.0, 16, depth=3, radius_sq=r2), want)
+
+
+GROUP = [  # B, N, M, k, C
+    (2, 256, 64, 8, 32), (2, 4096, 512, 16, 64), (16, 1024, 512, 32, 64),
+    (1, 300, 13, 5, 8), (2, 500, 30, 64, 128), (1, 64, 7, 33, 256),
+    (1, 100, 9, 17, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,M,k,C", GROUP)
+def test_group_aggregate_kernels(gen, B, N, M, k, C, dtype):
+    feats = torch.randn((B, N, C), generator=gen, device="cuda").to(dtype)
+    idx = torch.randint(0, N, (B, M, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    want = pc_ref.group_aggregate_ref(feats, idx)
+    got = _launched("group_aggregate", lambda: pck.group_aggregate(feats, idx))
+    assert got.dtype == dtype and torch.equal(got, want)
+    if not pck.group_ring_takes(C, feats.element_size()):
+        return
+    for depth in (2, 3, 4):
+        if pck.group_ring_bytes(C, feats.element_size(), k, depth) > pck.MAX_SMEM:
+            continue
+        got = _launched("group_aggregate_pipelined",
+                        lambda: pck.group_aggregate_pipelined(feats, idx,
+                                                              depth=depth))
+        assert torch.equal(got, want), depth
+
+
+def test_group_aggregate_kernels_clamp_stray_indices(gen):
+    feats = torch.randn((2, 50, 32), generator=gen, device="cuda")
+    idx = torch.randint(-120, 120, (2, 12, 20), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    want = pc_ref.group_aggregate_ref(feats, idx)
+    assert torch.equal(pck.group_aggregate(feats, idx), want)
+    assert torch.equal(pck.group_aggregate_pipelined(feats, idx, depth=2), want)
+
+
+def test_pointcloud_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    xyz = _points(gen, 1, 64, torch.float32)
+    feats = torch.randn((1, 64, 32), device="cuda")
+    idx = torch.zeros((1, 8, 4), dtype=torch.int32, device="cuda")
+    for call in (lambda: pck.fps(xyz, 65),
+                 lambda: pck.fps(xyz.double(), 8),
+                 lambda: pck.fps(xyz[..., :2].contiguous(), 8),
+                 lambda: pck.ball_query(xyz, xyz[:, :8].bfloat16(), 1.0, 4),
+                 lambda: pck.ball_query(xyz, xyz[:, :8], 1.0, 0),
+                 lambda: pck.ball_query_pipelined(xyz, xyz[:, :8], 1.0, 4,
+                                                  depth=5),
+                 lambda: pck.group_aggregate(feats, idx.long()),
+                 lambda: pck.group_aggregate(feats.transpose(1, 2), idx),
+                 lambda: pck.group_aggregate_pipelined(
+                     torch.randn((1, 64, 6), device="cuda"), idx),
+                 lambda: pck.group_aggregate_pipelined(
+                     torch.randn((1, 64, 512), device="cuda"), idx)):
+        with pytest.raises(ValueError):
+            call()
+
+
+def test_pointcloud_routes_raise_where_the_kernels_do_not_take_the_cloud(gen):
+    """Past the reference's fallbacks nothing on the card falls back to
+    the plain version: 2-d points and mixed dtypes raise."""
+    xyz = _points(gen, 1, 256, torch.float32)
+    flat = xyz[..., :2].contiguous()
+    lw = LoweringConfig("cuda")
+    for call in (lambda: pc_ops.farthest_point_sample(flat, 8),
+                 lambda: lw.fps(flat, 8),
+                 lambda: pc_ops.ball_query(flat, flat[:, :8], 1.0, 4),
+                 lambda: lw.ball_query(flat, flat[:, :8], 1.0, 4),
+                 lambda: pc_ops.ball_query(xyz, xyz[:, :8].bfloat16(), 1.0, 4),
+                 lambda: pc_ops.group_aggregate(
+                     xyz.half(), torch.zeros((1, 8, 4), dtype=torch.int32,
+                                             device="cuda"))):
+        with pytest.raises(ValueError):
+            call()
+
+
+def test_pointcloud_ops_route_baseline_and_pipelined(gen):
+    """Ball query pipelines from two 256-point X tiles up, grouped
+    aggregation from two 16-neighbour stages up."""
+    counts = dict(_build.launch_counts())
+    xyz = _points(gen, 2, 4096, torch.float32)
+    feats = torch.randn((2, 4096, 64), generator=gen, device="cuda")
+    for N, k in ((256, 16), (4096, 32)):
+        idx = pc_ops.ball_query(xyz[:, :N].contiguous(), xyz[:, :64].contiguous(),
+                                0.9, k)
+        pc_ops.group_aggregate(feats[:, :N].contiguous(), idx)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for name in ("ball_query", "ball_query_pipelined", "group_aggregate",
+                 "group_aggregate_pipelined"):
+        assert after[name] - counts[name] == 1, name
+
+
+@pytest.mark.parametrize("pipelined", [None, False])
+def test_pointcloud_stage_cuda_backend_matches_torch_backend(gen, pipelined):
+    from repro_torch.launch.pointcloud import set_abstraction
+    xyz = _points(gen, 2, 4096, torch.float32)
+    feats = torch.randn((2, 4096, 64), generator=gen, device="cuda")
+    got = set_abstraction(LoweringConfig("cuda"), xyz, feats, 512, 0.9, 16,
+                          pipelined=pipelined)
+    want = set_abstraction(LoweringConfig("torch"), xyz, feats, 512, 0.9, 16)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -167,3 +167,12 @@ def test_choose_depth_fits_shared_memory(hd, itemsize, n_steps, want):
     depth = pipeline.choose_depth(hd, itemsize, n_steps)
     assert depth == want
     assert pipeline.ring_smem_bytes(hd, itemsize, depth) <= pipeline.MAX_SMEM
+
+
+@pytest.mark.parametrize("stage_bytes,n_steps,cap,want", [
+    (1_000, 8, 4, 4), (1_000, 3, 4, 3), (1_000, 1, 4, 2), (1_000, 8, 3, 3),
+    (70_000, 8, 4, 3), (120_000, 8, 4, None)])
+def test_deepest_ring_is_the_deepest_that_fits(stage_bytes, n_steps, cap,
+                                               want):
+    assert pipeline.deepest_ring(lambda d: d * stage_bytes, n_steps,
+                                 cap) == want

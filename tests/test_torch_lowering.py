@@ -2,6 +2,7 @@
 port's independence from JAX, and its refusal to fall back to the CPU."""
 
 import ast
+import json
 import os
 import pathlib
 import shutil
@@ -43,6 +44,45 @@ def test_routing_table_matches_reference_dispatch(op, shape, backend,
                              backend=ref_backend).impl
     assert lower(op, shape=shape, dtype=torch.float32,
                  backend=backend).impl == want
+
+
+# Point-cloud keys: golden keys 8-10 (tests/golden/dispatch_records.json),
+# the untileable shape of tests/test_pointcloud.py:150, S > N, and the
+# bench's and PointNet++ SA1's sizes.
+GOLDEN = json.loads((ROOT / "tests/golden/dispatch_records.json").read_text())
+POINTCLOUD_KEYS = [
+    *[(r["op"], tuple(r["shape"])) for r in GOLDEN[8:11]],
+    ("ball_query", (1, 200, 65, 8)), ("group_aggregate", (1, 200, 65, 8, 32)),
+    ("fps", (1, 200, 300)), ("fps", (2, 256, 256)),
+    ("fps", (2, 4096, 512)), ("ball_query", (2, 4096, 512, 16)),
+    ("group_aggregate", (2, 4096, 512, 16, 64)),
+    ("fps", (16, 1024, 512)), ("ball_query", (16, 1024, 512, 32)),
+    ("group_aggregate", (16, 1024, 512, 32, 64)),
+]
+
+
+@pytest.mark.parametrize("backend,ref_backend", [("cuda", "pallas"),
+                                                 ("torch", "xla")])
+@pytest.mark.parametrize("op,shape", POINTCLOUD_KEYS)
+def test_pointcloud_routing_matches_reference_dispatch(op, shape, backend,
+                                                       ref_backend):
+    want = jax_compile.lower(op, shape=shape, dtype="float32",
+                             backend=ref_backend)
+    got = lower(op, shape=shape, dtype=torch.float32, backend=backend)
+    assert got.impl == want.impl, (got.note, want.note)
+
+
+def test_pointcloud_golden_keys_extract_the_kernel():
+    for rec in GOLDEN[8:11]:
+        got = lower(rec["op"], shape=rec["shape"], dtype=torch.float32)
+        assert got.impl == rec["impl"] == "isax"
+        assert rec["target"] in got.note
+    assert lower("fps", shape=(1, 200, 300), dtype=torch.float32).impl \
+        == "reference"
+    for op, shape in (("ball_query", (1, 200, 65, 8)),
+                      ("group_aggregate", (1, 200, 65, 8, 32))):
+        got = lower(op, shape=shape, dtype=torch.float32)
+        assert got.impl == "reference" and "untileable" in got.note
 
 
 def test_unknown_op_and_backend_raise():

@@ -1,0 +1,424 @@
+"""The port's point-cloud path (``repro_torch.pointcloud``) against the JAX
+package on the CPU: the plain versions against ``repro.pointcloud.ref``,
+the port's routing wrappers against the Pallas kernels in interpret mode,
+and the whole set-abstraction stage through both ``LoweringConfig``s.
+
+Index outputs must match exactly (``repro/pointcloud/ref.py``), and so must
+the max-pool against ``group_aggregate_ref``, since it only selects values;
+against the one-hot Pallas gather the reference's own test allows 1e-6
+(``tests/test_pointcloud.py:143``).
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.compile import Dispatcher
+from repro.compile import LoweringConfig as JaxLoweringConfig
+from repro.pointcloud import kernels as jax_pck
+from repro.pointcloud import ops as jax_pcops
+from repro.pointcloud import ref as jax_ref
+from repro_torch.compile.config import LoweringConfig
+from repro_torch.launch.pointcloud import set_abstraction
+from repro_torch.pointcloud import kernels as pck
+from repro_torch.pointcloud import ops as pc_ops
+from repro_torch.pointcloud import ref
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+B, N, M, K, C = 2, 256, 64, 8, 32
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _cloud(kind: str, dtype: str):
+    """(xyz, centers, features, radius) as torch tensors of ``dtype``.
+
+    * ``normal``: points and features normal(0, 1), centers the first M
+      points, r = 0.9 (the reference's test);
+    * ``lattice``: integer points in [0, 6)³ with repeats, so FPS meets
+      exact ties and many d² land exactly on r² = 1;
+    * ``empty``: centers scattered three times wider than the cloud with
+      r = 0.3, so many balls are empty and take their nearest point.
+    """
+    rng = np.random.default_rng({"normal": 0, "lattice": 1, "empty": 2}[kind])
+    if kind == "lattice":
+        xyz = rng.integers(0, 6, size=(B, N, 3)).astype(np.float32)
+        centers, radius = xyz[:, :M], 1.0
+    elif kind == "empty":
+        xyz = rng.normal(size=(B, N, 3)).astype(np.float32)
+        centers = 3.0 * rng.normal(size=(B, M, 3)).astype(np.float32)
+        radius = 0.3
+    else:
+        xyz = rng.normal(size=(B, N, 3)).astype(np.float32)
+        centers, radius = xyz[:, :M], 0.9
+    feats = rng.normal(size=(B, N, C)).astype(np.float32)
+    tdt = DTYPES[dtype][0]
+    return (torch.from_numpy(xyz).to(tdt), torch.from_numpy(centers).to(tdt),
+            torch.from_numpy(feats).to(tdt), radius)
+
+
+def _jax(t: torch.Tensor, dtype: str):
+    """The same values in JAX (exact: bf16 goes through fp32)."""
+    return jnp.asarray(t.float().numpy(), DTYPES[dtype][1])
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(jnp.asarray(x, jnp.float32) if x.dtype == jnp.bfloat16
+                      else x)
+
+
+def _t(x: torch.Tensor) -> np.ndarray:
+    return x.float().numpy() if x.is_floating_point() else x.numpy()
+
+
+CLOUDS = ["normal", "lattice", "empty"]
+
+
+# ---------------------------------------------------------------------------
+# The plain versions against the JAX package's references
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("kind", CLOUDS)
+def test_fps_ref_matches_jax(kind, dtype):
+    xyz, _, _, _ = _cloud(kind, dtype)
+    want = jax_ref.fps_ref(_jax(xyz, dtype), M)
+    np.testing.assert_array_equal(_t(ref.fps_ref(xyz, M)), _np(want))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("kind", CLOUDS)
+def test_ball_query_ref_matches_jax(kind, dtype):
+    xyz, centers, _, radius = _cloud(kind, dtype)
+    want = jax_ref.ball_query_ref(_jax(xyz, dtype), _jax(centers, dtype),
+                                  radius, K)
+    got = ref.ball_query_ref(xyz, centers, radius, K)
+    np.testing.assert_array_equal(_t(got), _np(want))
+    d2 = ref.sqdist(centers[:, :, None], xyz[:, None])
+    hits = (d2 <= radius * radius).sum(-1)
+    if kind == "empty":
+        assert (hits == 0).any() and (hits > 0).any()
+    if kind == "lattice":
+        assert (d2 == 1.0).any() and (hits > K).any() and (hits < K).any()
+
+
+@pytest.mark.parametrize("radius_sq", [1.0, 2.0, 3.0])
+def test_ball_query_ref_radius_sq_matches_jax(radius_sq):
+    xyz, centers, _, _ = _cloud("lattice", "float32")
+    radius = float(np.sqrt(radius_sq))
+    want = jax_ref.ball_query_ref(_jax(xyz, "float32"),
+                                  _jax(centers, "float32"), radius, K,
+                                  radius_sq=radius_sq)
+    got = ref.ball_query_ref(xyz, centers, radius, K, radius_sq=radius_sq)
+    np.testing.assert_array_equal(_t(got), _np(want))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("kind", CLOUDS)
+def test_group_aggregate_ref_matches_jax(kind, dtype):
+    xyz, centers, feats, radius = _cloud(kind, dtype)
+    idx = ref.ball_query_ref(xyz, centers, radius, K)
+    want = jax_ref.group_aggregate_ref(_jax(feats, dtype),
+                                       jnp.asarray(idx.numpy()))
+    got = ref.group_aggregate_ref(feats, idx)
+    assert got.dtype == feats.dtype and got.shape == (B, M, C)
+    np.testing.assert_array_equal(_t(got), _np(want))
+
+
+def test_group_aggregate_ref_takes_indices_as_the_jax_gather_does():
+    feats = torch.arange(5.0)[None, :, None].repeat(1, 1, 2)
+    idx = torch.tensor([[[-1, -6], [7, 2], [-5, 0]]], dtype=torch.int32)
+    want = jax_ref.group_aggregate_ref(jnp.asarray(feats.numpy()),
+                                       jnp.asarray(idx.numpy()))
+    np.testing.assert_array_equal(_t(ref.group_aggregate_ref(feats, idx)),
+                                  np.asarray(want))
+
+
+@pytest.mark.parametrize("order", [(0, 1, 2), (1, 2, 0), (2, 0, 1)])
+def test_sqdist_sums_left_to_right_as_jax(order):
+    """Squares 1, 2^-24, 2^-24 sum to 1 left to right but not pairwise, so
+    the order of the sum shows; the CUDA kernels use the same order."""
+    d = np.array([1.0, 2.0 ** -12, 2.0 ** -12], np.float32)[list(order)]
+    a, b = np.zeros((1, 3), np.float32), d[None]
+    want = jnp.sum((jnp.asarray(b) - jnp.asarray(a)) ** 2, -1)
+    got = ref.sqdist(torch.from_numpy(b), torch.from_numpy(a))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_squared_radius_is_the_fp32_product():
+    r = 0.9
+    assert ref.squared_radius(r) == float(np.float32(r) * np.float32(r))
+    assert ref.squared_radius(r) != r * r
+    assert ref.squared_radius(r, radius_sq=0.81) == float(np.float32(0.81))
+
+
+# ---------------------------------------------------------------------------
+# The port's routing wrappers against the Pallas kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("kind", ["normal", "lattice"])
+def test_fps_matches_pallas_interpret(kind, dtype):
+    xyz, _, _, _ = _cloud(kind, dtype)
+    want = jax_pck.fps(_jax(xyz, dtype), M, interpret=True)
+    got = pc_ops.farthest_point_sample(xyz, M)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_t(got), _np(want))
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("kind", CLOUDS)
+def test_ball_query_matches_pallas_interpret(kind, dtype, pipelined):
+    xyz, centers, _, radius = _cloud(kind, dtype)
+    jx, jc = _jax(xyz, dtype), _jax(centers, dtype)
+    if pipelined:   # four streamed X tiles through a depth-3 ring
+        want = jax_pck.ball_query_pipelined(jx, jc, radius, K, block_n=64,
+                                            depth=3, interpret=True)
+    else:
+        want = jax_pck.ball_query(jx, jc, radius, K, interpret=True)
+    got = pc_ops.ball_query(xyz, centers, radius, K, pipelined=pipelined)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_t(got), _np(want))
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("kind", ["normal", "empty"])
+def test_group_aggregate_matches_pallas_interpret(kind, dtype, pipelined):
+    xyz, centers, feats, radius = _cloud(kind, dtype)
+    idx = pc_ops.ball_query(xyz, centers, radius, K)
+    jf, ji = _jax(feats, dtype), jnp.asarray(idx.numpy())
+    if pipelined:
+        pallas = jax_pck.group_aggregate_pipelined(jf, ji, block_n=64,
+                                                   depth=3, interpret=True)
+    else:
+        pallas = jax_pck.group_aggregate(jf, ji, interpret=True)
+    got = pc_ops.group_aggregate(feats, idx, pipelined=pipelined)
+    assert got.dtype == feats.dtype
+    np.testing.assert_array_equal(
+        _t(got), _np(jax_ref.group_aggregate_ref(jf, ji)))
+    np.testing.assert_allclose(_t(got), _np(pallas), atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The set-abstraction stage through LoweringConfig, both backends
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pipelined", [None, False])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_stage_matches_jax_lowering_config(backend, dtype, pipelined):
+    xyz, _, feats, radius = _cloud("normal", dtype)
+    jlw = JaxLoweringConfig("pallas_interpret", Dispatcher())
+    jx, jf = _jax(xyz, dtype), _jax(feats, dtype)
+    jsel = jlw.fps(jx, M)
+    jcen = jnp.take_along_axis(jx, jsel[..., None], axis=1)
+    jidx = jlw.ball_query(jx, jcen, radius, K)
+    jagg = jlw.group_aggregate(jf, jidx)
+
+    sel, centers, idx, agg = set_abstraction(
+        LoweringConfig(backend), xyz, feats, M, radius, K,
+        pipelined=pipelined)
+    np.testing.assert_array_equal(_t(sel), _np(jsel))
+    np.testing.assert_array_equal(_t(centers), _np(jcen))
+    np.testing.assert_array_equal(_t(idx), _np(jidx))
+    np.testing.assert_array_equal(
+        _t(agg), _np(jax_ref.group_aggregate_ref(jf, jidx)))
+    np.testing.assert_allclose(_t(agg), _np(jagg), atol=1e-6, rtol=0)
+
+
+def test_stage_falls_back_where_the_reference_does():
+    """The untileable shape of tests/test_pointcloud.py:150 and S > N."""
+    rng = np.random.default_rng(3)
+    xyz = torch.from_numpy(rng.normal(size=(1, 200, 3)).astype(np.float32))
+    feats = torch.from_numpy(rng.normal(size=(1, 200, C)).astype(np.float32))
+    lw = LoweringConfig("cuda")
+    jx = jnp.asarray(xyz.numpy())
+    centers = xyz[:, :65]
+    idx = lw.ball_query(xyz, centers, 0.9, K)
+    np.testing.assert_array_equal(
+        _t(idx), np.asarray(jax_pcops.ball_query(jx, jx[:, :65], 0.9, K,
+                                                 interpret=True)))
+    agg = lw.group_aggregate(feats, idx)
+    np.testing.assert_array_equal(
+        _t(agg), np.asarray(jax_ref.group_aggregate_ref(
+            jnp.asarray(feats.numpy()), jnp.asarray(idx.numpy()))))
+    sel = lw.fps(xyz, 300)    # more samples than points: the plain version
+    np.testing.assert_array_equal(
+        _t(sel), np.asarray(jax_pcops.farthest_point_sample(jx, 300,
+                                                            interpret=True)))
+
+
+# ---------------------------------------------------------------------------
+# Routing and the wrappers' contracts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("Mc", [4, 6, 8, 12, 16, 64, 65, 512])
+@pytest.mark.parametrize("Np", [64, 96, 128, 200, 256, 384, 1024, 4096])
+def test_tileable_is_the_reference_tiling_test(Mc, Np):
+    for sched, key in ((jax_pcops._ball_schedule(Mc, Np, K, 4), "x"),
+                       (jax_pcops._group_schedule(Mc, Np, K, C, 4), "f")):
+        want = jax_pcops.pc_tiles(Mc, Np, sched, key) is not None
+        assert pc_ops.tileable(Mc, Np) == want
+
+
+def _record_calls(monkeypatch):
+    calls = []
+    for name in ("fps", "ball_query", "ball_query_pipelined",
+                 "group_aggregate", "group_aggregate_pipelined"):
+        real = getattr(pck, name)
+
+        def spy(*args, _name=name, _real=real, **kw):
+            calls.append((_name, kw.get("depth")))
+            return _real(*args, **kw)
+        monkeypatch.setattr(pck, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("Np,pipelined,want", [
+    (256, None, ("ball_query", None)),           # one X tile
+    (512, None, ("ball_query_pipelined", 2)),
+    (1024, None, ("ball_query_pipelined", 4)),
+    (4096, None, ("ball_query_pipelined", 4)),
+    (4096, False, ("ball_query", None)),
+    (256, True, ("ball_query", None)),           # one tile never pipelines
+])
+def test_ball_query_routes_by_streamed_tiles(monkeypatch, Np, pipelined, want):
+    calls = _record_calls(monkeypatch)
+    xyz = torch.zeros((1, Np, 3))
+    pc_ops.ball_query(xyz, xyz[:, :8], 0.5, 4, pipelined=pipelined)
+    assert calls == [want]
+
+
+@pytest.mark.parametrize("k,Cc,dtype,pipelined,want", [
+    (16, 64, torch.float32, None, ("group_aggregate", None)),    # one stage
+    (32, 64, torch.float32, None, ("group_aggregate_pipelined", 2)),
+    (48, 64, torch.float32, None, ("group_aggregate_pipelined", 3)),
+    (64, 128, torch.bfloat16, None, ("group_aggregate_pipelined", 4)),
+    (64, 64, torch.float32, False, ("group_aggregate", None)),
+    (64, 512, torch.float32, None, ("group_aggregate", None)),  # too wide
+    (64, 6, torch.float32, True, ("group_aggregate", None)),    # 24-byte rows
+])
+def test_group_aggregate_routes_by_neighbour_stages(monkeypatch, k, Cc, dtype,
+                                                    pipelined, want):
+    calls = _record_calls(monkeypatch)
+    feats = torch.zeros((1, 128, Cc), dtype=dtype)
+    idx = torch.zeros((1, 8, k), dtype=torch.int32)
+    pc_ops.group_aggregate(feats, idx, pipelined=pipelined)
+    assert calls == [want]
+
+
+def test_ops_send_every_cloud_the_reference_kernels_take_to_the_kernels(
+        monkeypatch):
+    """No fallback beyond the reference's: 2-d points (the reference's
+    kernels take any d) and centers of another dtype reach the kernel
+    wrappers, which raise on CUDA tensors and compute the plain version on
+    CPU tensors."""
+    calls = _record_calls(monkeypatch)
+    xyz = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(B, N, 2)).astype(np.float32))
+    jx = jnp.asarray(xyz.numpy())
+    sel = pc_ops.farthest_point_sample(xyz, M)
+    np.testing.assert_array_equal(
+        _t(sel), np.asarray(jax_pck.fps(jx, M, interpret=True)))
+    idx = pc_ops.ball_query(xyz, xyz[:, :M], 0.9, K)
+    np.testing.assert_array_equal(
+        _t(idx), np.asarray(jax_pcops.ball_query(jx, jx[:, :M], 0.9, K,
+                                                 interpret=True)))
+    pc_ops.ball_query(xyz.bfloat16(), xyz[:, :M], 0.9, K)
+    assert [name for name, _ in calls] == ["fps", "ball_query", "ball_query"]
+
+
+@pytest.mark.parametrize("op,shape,kernel", [
+    ("fps", (1, 200, 64), "fps"),
+    ("fps", (1, 200, 300), None),                       # S > N
+    ("ball_query", (1, 256, 64, 8), "ball_query"),
+    ("ball_query", (1, 200, 65, 8), None),              # untileable
+    ("group_aggregate", (1, 256, 64, 8, 32), "group_aggregate"),
+    ("group_aggregate", (1, 200, 65, 8, 32), None),     # untileable
+])
+def test_lowering_config_runs_what_lower_records(monkeypatch, op, shape,
+                                                 kernel):
+    """``LoweringConfig``'s methods reach a kernel wrapper exactly where
+    ``lower`` records ``isax``."""
+    calls = _record_calls(monkeypatch)
+    lw = LoweringConfig("cuda")
+    decision = lw.lower(op, shape, torch.float32)
+    assert decision.impl == ("isax" if kernel else "reference")
+    assert (decision.note == pc_ops.fallback(op, shape)) == (kernel is None)
+    xyz = torch.zeros((shape[0], shape[1], 3))
+    if op == "fps":
+        lw.fps(xyz, shape[2])
+    elif op == "ball_query":
+        lw.ball_query(xyz, xyz[:, :shape[2]], 0.5, shape[3])
+    else:
+        idx = torch.zeros(shape[:1] + shape[2:4], dtype=torch.int32)
+        lw.group_aggregate(torch.zeros((shape[0], shape[1], shape[4])), idx)
+    assert [name for name, _ in calls] == ([kernel] if kernel else [])
+
+
+def test_group_depth_fits_shared_memory():
+    for Cc, itemsize, k in ((64, 4, 64), (256, 4, 64), (256, 2, 128)):
+        depth = pc_ops.group_depth(Cc, itemsize, k)
+        assert depth in pck.DEPTHS
+        assert pck.group_ring_bytes(Cc, itemsize, k, depth) <= pck.MAX_SMEM
+    assert pc_ops.group_depth(256, 4, 64) == 3   # 64 KB a stage
+    assert pc_ops.group_depth(300, 4, 64) is None
+
+
+def test_wrappers_take_the_plain_version_only_on_cpu_tensors():
+    xyz, centers, feats, radius = _cloud("normal", "float32")
+    idx = ref.ball_query_ref(xyz, centers, radius, K)
+    torch.testing.assert_close(pck.fps(xyz, M), ref.fps_ref(xyz, M))
+    for fn in (pck.ball_query, pck.ball_query_pipelined):
+        torch.testing.assert_close(
+            fn(xyz, centers, radius, K),
+            ref.ball_query_ref(xyz, centers, radius, K))
+    for fn in (pck.group_aggregate, pck.group_aggregate_pipelined):
+        torch.testing.assert_close(fn(feats, idx),
+                                   ref.group_aggregate_ref(feats, idx))
+    meta = {"device": "meta"}
+    mx, mf = torch.zeros((1, 8, 3), **meta), torch.zeros((1, 8, 4), **meta)
+    mi = torch.zeros((1, 2, 2), dtype=torch.int32, **meta)
+    for call in (lambda: pck.fps(mx, 2),
+                 lambda: pck.ball_query(mx, mx, 1.0, 2),
+                 lambda: pck.ball_query_pipelined(mx, mx, 1.0, 2),
+                 lambda: pck.group_aggregate(mf, mi),
+                 lambda: pck.group_aggregate_pipelined(mf, mi)):
+        with pytest.raises(ValueError):
+            call()
+
+
+def test_kernels_name_the_tpu_kernels_they_replace():
+    from repro_torch.kernels import _build
+    lines = (ROOT / "src/repro/pointcloud/kernels.py").read_text().splitlines()
+    for kern in (pck.FPS, pck.BALL_QUERY, pck.BALL_QUERY_PIPELINED,
+                 pck.GROUP_AGGREGATE, pck.GROUP_AGGREGATE_PIPELINED):
+        path, line = kern.replaces.split(":")
+        assert path == "src/repro/pointcloud/kernels.py"
+        assert lines[int(line) - 1].startswith(f"def {kern.name}(")
+        assert (ROOT / kern.source).is_file()
+        assert _build.KERNELS[kern.name] is kern
+
+
+@pytest.mark.parametrize("argv", [[], ["--batch", "2", "--points", "512",
+                                       "--centers", "64", "--k", "32",
+                                       "--channels", "32", "--radius", "0.9",
+                                       "--pipelined", "off"]])
+def test_launcher_runs_on_cpu(argv):
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.pointcloud", "--device",
+         "cpu", *argv], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "parity vs backend torch OK" in out.stdout
+    for op in ("fps", "ball_query", "group_aggregate"):
+        assert f"{op} " in out.stdout and "impl=isax" in out.stdout
