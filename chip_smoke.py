@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version on the card, then
-serves full-width llama110m through the continuous-batching engine and
-runs the point-cloud set-abstraction stage, and checks that each path went
-through every one of its kernels.
+serves full-width llama110m through the continuous-batching engine, runs
+the point-cloud set-abstraction stage and serves full-width mamba2-2.7b
+through the static-batch engine, and checks that each path went through
+every one of its kernels.
 
     python3 chip_smoke.py
 
@@ -46,6 +47,26 @@ Phases (any failure exits non-zero; nothing is caught):
    512 centers, r=0.2, 32 samples) at batch 16, C=64, points uniform in
    the unit ball; (c) run (a) with ``pipelined=False``.  Across the three,
    every one of K9-K13 must have launched.
+6. ssm kernels: K7 ssd_scan and K8 ssd_scan_pipelined (every ring depth
+   that fits) against the plain recurrence ``ssd_scan_ref`` on the card,
+   fp32, atol 5e-4 / rtol 1e-3 (the reference's tests/test_kernels.py:86):
+   the serving shape (BT=4, H=80, S=512, P=64, N=128: four prompts through
+   mamba2-2.7b, each batch row with its own B and C), S=1, S below and
+   around each kernel's chunk (K7 64, K8 32), a ragged S=300, and a strong
+   decay (dt·A ≈ -7 a step, where exp(acum_q - acum_k) for k > q overflows
+   fp32); bound = max(bytes / 3.35 TB/s, ops / 67 TFLOP/s), see
+   SSD_FORMULA.  No single PyTorch call computes the scan: library null.
+7. ssm serve: mamba2-2.7b (64 layers, d 2560, 80 heads of 64, state 128,
+   vocab 50280; random weights from seed 0), each run with launch counts
+   zeroed just before and read just after and required exact: every
+   prefill launches K8 (512 tokens) or K7 (40 tokens) once a layer and K1
+   2·64+1 times, every decode step K1 2·64+1 times, nothing else.
+   (s1) fp32, 4 prompts of 512 tokens then 4 teacher-forced decode steps,
+   logits of backend "cuda" within 1e-3·max|logit| of backend "torch";
+   (s2) bf16 (the config as it stands) through ``ServeEngine.generate``,
+   4 × 512 tokens, 32 new: TTFT, ITL, tokens/s, and the logit gap to
+   backend "torch" after prefill as information; (s3) the same engine,
+   4 × 40 tokens, 8 new (one chunk: K7).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -68,6 +89,7 @@ PEAK_FLOPS = {"float32": 67e12,      # fp32 on the CUDA cores
 TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 2e-2)}
 BUCKETS = (16, 32, 64, 128, 256, 512)
 SERVE_KERNELS = ("rmsnorm", "flash_attention", "flash_attention_pipelined")
+SSD_TOL = (5e-4, 1e-3)
 
 
 def card_line() -> str:
@@ -536,6 +558,209 @@ def pointcloud_path_phase() -> dict:
     return total
 
 
+# -- SSM phase -----------------------------------------------------------------
+
+SSD_FORMULA = ("bytes = 4*(2*BT*H*S*P + BT*H*S + 2*BT*S*N + H) (x, y, dt, B, "
+               "C, A); ops = BT*H*(nc*(2Q²N + 2Q²P) + (nc-1)*4QNP) at the "
+               "kernel's chunk Q, nc = ceil(S/Q): scores and intra-chunk "
+               "products over the full Q x Q (the kernels compute it whole "
+               "and select), inter-chunk output and state update from the "
+               "second and up to the last chunk")
+SSD_MAIN = (4, 80, 512, 64, 128)     # BT, H, S, P, N of the serving prefill
+
+
+def ssd_inputs(BT, H, S, P, N, seed, strong=False):
+    """x, dt, A, B, C on the card from numpy's ``seed`` (dt and A in the
+    ranges of tests/test_kernels.py, or a decay strong enough to overflow
+    exp of the masked entries)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    dt_lo, dt_hi, a_lo, a_hi = (3.0, 5.0, 1.5, 2.0) if strong else \
+        (0.1, 0.9, 0.5, 1.5)
+    arrays = (rng.normal(size=(BT, H, S, P)),
+              rng.uniform(dt_lo, dt_hi, size=(BT, H, S)),
+              -rng.uniform(a_lo, a_hi, size=(H,)),
+              rng.normal(size=(BT, S, N)), rng.normal(size=(BT, S, N)))
+    return [torch.from_numpy(a.astype(np.float32)).cuda() for a in arrays]
+
+
+def ssd_case(kernel: str, shape, depth: int = 0, strong: bool = False,
+             plain: bool = True) -> dict:
+    import torch
+    from repro_torch.kernels import pipeline, ref
+    from repro_torch.kernels.ssd_scan import SSD_CHUNK, ssd_scan
+    BT, H, S, P, N = shape
+    args = ssd_inputs(BT, H, S, P, N, seed=S + BT, strong=strong)
+    if kernel == "ssd_scan":
+        run = lambda: ssd_scan(*args)  # noqa: E731
+        Q = SSD_CHUNK
+    else:
+        run = lambda: pipeline.ssd_scan_pipelined(*args, depth=depth)  # noqa: E731
+        Q = pipeline.SSD_PIPE_CHUNK
+    got = run()
+    torch.cuda.synchronize()
+    want = ref.ssd_scan_ref(*args)
+    atol, rtol = SSD_TOL
+    err = (got - want).abs()
+    bad = err > atol + rtol * want.abs()
+    case = (f"BT={BT} H={H} S={S} P={P} N={N}" + (" strong" if strong else "")
+            + (f" depth={depth}" if depth else ""))
+    if not torch.isfinite(got).all() or bad.any():
+        raise AssertionError(f"{kernel} {case}: {int(bad.sum())} elements off "
+                             f"(max abs err {float(err.max()):.3e})")
+    nc = -(-S // Q)
+    nbytes = 4 * (2 * BT * H * S * P + BT * H * S + 2 * BT * S * N + H)
+    ops = BT * H * (nc * (2 * Q * Q * N + 2 * Q * Q * P)
+                    + (nc - 1) * 4 * Q * N * P)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS["float32"] * 1e3
+    plain_ms = device_ms(lambda: ref.ssd_scan_ref(*args), 2) if plain \
+        else None
+    row = {"kernel": kernel, "case": case, "max_abs_err": float(err.max()),
+           "ms": device_ms(run, 20), "plain_ms": plain_ms, "library_ms": None,
+           "library_note": "no single PyTorch call",
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_formula": SSD_FORMULA, "chunk": Q, "dtype": "float32"}
+    print(json.dumps(row))
+    return row
+
+
+def ssm_kernel_phase() -> list[dict]:
+    from repro_torch.kernels import pipeline
+    BT, H, S, P, N = SSD_MAIN
+    rows = [ssd_case("ssd_scan", SSD_MAIN)]
+    depths = [d for d in pipeline.DEPTHS
+              if pipeline.ssd_ring_bytes(P, N, d) <= pipeline.MAX_SMEM]
+    for d in depths:
+        rows.append(ssd_case("ssd_scan_pipelined", SSD_MAIN, depth=d))
+    # S=1, below/around K7's 64 and K8's 32, ragged, strong decay; 8 heads
+    # at the model's widths keep the plain recurrence quick
+    for S_, strong in ((1, False), (31, False), (33, False), (40, False),
+                       (63, False), (65, False), (300, False), (256, True)):
+        shape = (2, 8, S_, P, N)
+        rows.append(ssd_case("ssd_scan", shape, strong=strong, plain=False))
+        for d in depths:
+            rows.append(ssd_case("ssd_scan_pipelined", shape, depth=d,
+                                 strong=strong, plain=False))
+    return rows
+
+
+def _ssm_launches_ok(run: str, launches: dict, scan: str, n_prefills: int,
+                     n_steps: int, L: int) -> None:
+    want = {n: 0 for n in launches}
+    want.update({scan: L * n_prefills,
+                 "rmsnorm": (2 * L + 1) * (n_prefills + n_steps)})
+    if launches != want:
+        raise AssertionError(f"ssm run ({run}): launch counts {launches} != "
+                             f"expected {want}")
+
+
+def ssm_serve_phase() -> dict:
+    """Runs (s1)-(s3); returns the launch counts summed over them."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.compile.config import LoweringConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("mamba2-2.7b")
+    L = cfg.n_layers
+    total = {n: 0 for n in _build.KERNELS}
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (4, 512), dtype=np.int32)
+    forced = rng.integers(0, cfg.vocab, (4, 4), dtype=np.int32)
+
+    # (s1) fp32 parity, backend cuda against torch on one set of weights
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    cuda_m = get_model(cfg32, lowering=LoweringConfig("cuda"))
+    plain_m = get_model(cfg32, lowering=LoweringConfig("torch"))
+    params = cuda_m.init(0, "cuda")
+    batch = {"tokens": torch.from_numpy(prompts).cuda()}
+    cuda_m.prefill(params, {"tokens": batch["tokens"][:, :64]})   # warm
+    torch.cuda.synchronize()
+
+    def teacher_forced(model):
+        logits, caches = model.prefill(params, batch)
+        out = [logits]
+        for i in range(forced.shape[1]):
+            tok = torch.from_numpy(forced[:, i]).cuda()
+            logits, caches = model.decode_step(params, tok, caches, 512 + i)
+            out.append(logits)
+        return torch.stack(out)
+
+    _build.reset_launch_counts()
+    got = teacher_forced(cuda_m)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    _ssm_launches_ok("s1", launches, "ssd_scan_pipelined", 1,
+                     forced.shape[1], L)
+    for n, c in launches.items():
+        total[n] += c
+    want = teacher_forced(plain_m)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not torch.isfinite(got).all() or err > 1e-3 * scale:
+        raise AssertionError(f"ssm run (s1): cuda vs torch logits differ by "
+                             f"{err:.3e} (limit 1e-3 * {scale:.3e})")
+    print(json.dumps({"phase": "ssm", "run": "s1", "dtype": "float32",
+                      "prompts": list(prompts.shape), "decode_steps":
+                      forced.shape[1], "launches": launches,
+                      "logits_max_abs_err_vs_torch": err,
+                      "logits_max_abs": scale}))
+    del cuda_m, plain_m, params, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (s2) bf16 serving through the static-batch engine
+    eng = ServeEngine(cfg, seed=0, lowering=LoweringConfig("cuda"),
+                      device="cuda", max_len=512 + 32)
+    eng.generate({"tokens": prompts}, 2)                            # warm
+    for run, (plen, n_new, scan) in (("s2", (512, 32, "ssd_scan_pipelined")),
+                                     ("s3", (40, 8, "ssd_scan"))):
+        p = prompts[:, :plen]
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        toks, stats = eng.generate({"tokens": p}, n_new)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        _ssm_launches_ok(run, launches, scan, 1, n_new - 1, L)
+        for n, c in launches.items():
+            total[n] += c
+        if toks.shape != (4, n_new) or not ((toks >= 0)
+                                            & (toks < cfg.vocab)).all():
+            raise AssertionError(f"ssm run ({run}): bad tokens {toks}")
+        summary = {"phase": "ssm", "run": run, "dtype": cfg.compute_dtype,
+                   "prompts": list(p.shape), "new_tokens": n_new,
+                   "launches": launches, "ttft_ms": stats.ttft_s * 1e3,
+                   "itl_ms": stats.itl_s * 1e3,
+                   "tokens_per_s": stats.tokens_per_s}
+        if run == "s2":   # information only: bf16 rounds differently
+            tb = {"tokens": torch.from_numpy(p).cuda()}
+            got, _ = eng.model.prefill(eng.params, tb)
+            want, _ = get_model(cfg, lowering=LoweringConfig(
+                "torch")).prefill(eng.params, tb)
+            if not torch.isfinite(got).all():
+                raise AssertionError("ssm run (s2): non-finite logits")
+            summary["bf16_logits_max_abs_gap_vs_torch"] = float(
+                (got - want).abs().max())
+            summary["bf16_logits_max_abs"] = float(want.abs().max())
+        print(json.dumps(summary))
+        print(f"ssm {run}: {p.shape[0]} x {plen} tokens, {n_new} new, TTFT "
+              f"{stats.ttft_s * 1e3:.2f} ms, ITL {stats.itl_s * 1e3:.3f} ms, "
+              f"{stats.tokens_per_s:.1f} tok/s")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
     """One entry per kernel: its main-path representative case (the
     largest shape the main path gives it) and the largest fp32 error over
@@ -550,7 +775,9 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                  "ball_query": "a float32",
                  "ball_query_pipelined": "a float32 depth=4",
                  "group_aggregate": "a float32",
-                 "group_aggregate_pipelined": "b float32 depth=2"}
+                 "group_aggregate_pipelined": "b float32 depth=2",
+                 "ssd_scan": "BT=4 H=80 S=512 P=64 N=128",
+                 "ssd_scan_pipelined": "BT=4 H=80 S=512 P=64 N=128 depth=4"}
     out = []
     for name, kern in _build.KERNELS.items():
         row = next(r for r in rows if r["kernel"] == name
@@ -589,8 +816,11 @@ def main() -> int:
     launches = serve_phase()
     rows += pointcloud_kernel_phase()
     pc_launches = pointcloud_path_phase()
-    launches = {n: launches.get(n, 0) + pc_launches.get(n, 0)
-                for n in set(launches) | set(pc_launches)}
+    rows += ssm_kernel_phase()
+    ssm_launches = ssm_serve_phase()
+    launches = {n: sum(d.get(n, 0) for d in (launches, pc_launches,
+                                             ssm_launches))
+                for n in set(launches) | set(pc_launches) | set(ssm_launches)}
     print(json.dumps({"kernels": kernel_summary(rows, launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,14 +9,17 @@ Two backends:
   compute their plain versions, so this backend also runs on the CPU.
 
 Until the reference's e-graph dispatch engine is ported, ``lower`` is a
-fixed table that reproduces the reference's decisions for the dense and
-the point-cloud ops:
+fixed table that reproduces the reference's decisions for the dense, the
+SSM and the point-cloud ops:
 
 * ``rmsnorm`` → the kernel at every shape;
 * ``attention`` / ``attention_decode`` / ``attention_paged`` with S ≥ 8 and
   a head layout the flash kernels take → the flash kernel;
 * any of them with S < 8 (a degenerate query tile: decode) → the reference;
 * ``matmul`` → the reference (the negative control: no ISAX for a GEMM);
+* ``ssd_scan`` in fp32 → the kernel at every sequence length (the reference
+  rounds its chunk down to a power of two that divides S; the port's
+  kernels take any S), unless P or N is one the kernels are not built for;
 * ``fps`` → the kernel unless asked for more samples than points;
 * ``ball_query`` / ``group_aggregate`` → the kernel unless the reference
   cannot tile the shape (``pointcloud.ops.tileable``).
@@ -32,8 +35,12 @@ the TPU's VMEM; the port's FPS kernel has no such ceiling.
 from __future__ import annotations
 
 import dataclasses
+
+import torch
+
 from repro_torch.kernels.flash_attention import DTYPE_CODES
 from repro_torch.kernels.ops import flash_tileable
+from repro_torch.kernels.ssd_scan import ssd_tileable
 from repro_torch.pointcloud import ops as pc_ops
 from repro_torch.pointcloud import ref as pc_ref
 
@@ -73,7 +80,7 @@ class LoweringConfig:
         Shapes follow the reference's keys: ``rmsnorm`` (rows, d);
         attention ops (B, S, H, K, T, hd); ``matmul`` (M, K, N); ``fps``
         (B, N, S); ``ball_query`` (B, N, M, k); ``group_aggregate``
-        (B, N, M, k, C).
+        (B, N, M, k, C); ``ssd_scan`` (b, s, H, P, N).
         """
         if op == "rmsnorm":
             target = "rmsnorm"
@@ -81,12 +88,22 @@ class LoweringConfig:
             target = "flash_attention"
         elif op in POINTCLOUD_TARGETS:
             target = POINTCLOUD_TARGETS[op]
+        elif op == "ssd_scan":
+            target = "ssd_scan"
         elif op == "matmul":
             return Lowering("reference", "no ISAX for a GEMM; torch.matmul")
         else:
             raise ValueError(f"unknown op {op!r}")
         if self.backend == "torch":
             return Lowering("reference", "backend 'torch'")
+        if op == "ssd_scan":   # fp32 on the path (models/mamba2.ssm_block)
+            if dtype != torch.float32:
+                return Lowering("reference", f"no {target} kernel for "
+                                             f"{dtype}")
+            if not ssd_tileable(shape[3], shape[4]):
+                return Lowering("reference", f"untileable state "
+                                             f"P={shape[3]} N={shape[4]}")
+            return Lowering("isax", f"kernel {target}")
         if dtype not in DTYPE_CODES:
             return Lowering("reference", f"no {target} kernel for {dtype}")
         if op in ATTENTION_OPS:

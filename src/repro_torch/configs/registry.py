@@ -1,7 +1,8 @@
 """Architecture config registry of the port: ``get_config("llama110m")``.
 
-Only the dense ``llama110m`` (the main path) is registered; the other ten
-configurations of the reference arrive with their model families.
+Registered: the dense ``llama110m`` (the main path) and the SSM
+``mamba2-2.7b``; the other nine configurations of the reference arrive with
+their model families.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "llama110m": "repro_torch.configs.llama110m",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_27b",
 }
 
 

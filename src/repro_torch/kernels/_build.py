@@ -28,6 +28,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+#: Dynamic shared memory one block may use on sm_90 (bytes).
+MAX_SMEM = 232_448
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

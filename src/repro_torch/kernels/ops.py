@@ -4,7 +4,8 @@
 fallback to the plain version for shapes the kernels cannot take (a head
 width they are not built for, H not a multiple of K, a dtype other than
 fp32/bf16).  Tiles are Hopper's (64 x 64, see ``flash_attention.py``), not
-the TPU schedule's.  ``rmsnorm`` is K1.
+the TPU schedule's.  ``rmsnorm`` is K1.  ``ssd_scan`` routes between K7
+and K8.
 """
 
 from __future__ import annotations
@@ -16,8 +17,11 @@ from repro_torch.kernels.flash_attention import (BLOCK_K, DTYPE_CODES,
                                                  HEAD_DIMS, flash_attention)
 from repro_torch.kernels.pipeline import (choose_depth,
                                           flash_attention_pipelined,
+                                          ssd_depth, ssd_scan_pipelined,
                                           use_pipeline)
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
+from repro_torch.kernels.ssd_scan import SSD_CHUNK
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
 
 
 def flash_tileable(H: int, K: int, hd: int, dtype) -> bool:
@@ -49,3 +53,18 @@ def flash_attention_gqa(q, k, v, mask, *, sm_scale: float,
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, *, eps: float = 1e-6):
     """Row RMSNorm through K1: x (R, d), g (d,) → (R, d)."""
     return _rmsnorm(x.contiguous(), g.float().contiguous(), eps=eps)
+
+
+def ssd_scan(x, dt, A, B, C, *, pipelined: bool | None = None):
+    """SSD chunked scan: x (BT,H,S,P), dt (BT,H,S), A (H,), B/C (BT,S,N),
+    fp32 → y (BT,H,S,P).
+
+    K8 (``pipelined``) when the sweep has two of K7's 64-position chunks
+    or more, else K7; ``pipelined`` forces the choice where the sweep
+    allows it.
+    """
+    x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
+    S, P, N = x.shape[2], x.shape[3], B.shape[-1]
+    if use_pipeline(-(-S // SSD_CHUNK), pipelined):
+        return ssd_scan_pipelined(x, dt, A, B, C, depth=ssd_depth(P, N, S))
+    return _ssd_scan(x, dt, A, B, C)

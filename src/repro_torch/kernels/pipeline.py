@@ -1,6 +1,9 @@
-"""Wrapper of kernel K3, flash attention with K/V streamed through a
-``depth``-stage ``cp.async`` ring (``csrc/flash_attention_pipelined.cu``),
-and the rule that routes between it and K2.
+"""Wrappers of the pipelined kernels: K3, flash attention with K/V streamed
+through a ``depth``-stage ``cp.async`` ring
+(``csrc/flash_attention_pipelined.cu``), and K8, the SSD scan with its
+x/B/C chunks streamed the same way (``csrc/ssd_scan_pipelined.cu``); the
+rule that routes between a kernel and its pipelined variant, and the ring
+depths.
 
 The port of ``repro/kernels/pipeline.py``: ``use_pipeline`` keeps the
 reference's rule that a single streamed tile never pipelines.  The
@@ -18,11 +21,12 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import (BLOCK_K, BLOCK_Q, DTYPE_CODES,
                                                  check_flash_args)
+from repro_torch.kernels.ssd_scan import (check_ssd_args, chunk_floats,
+                                          fixed_floats)
 
 #: Ring depths the kernel is instantiated for.
 DEPTHS = (2, 3, 4)
-#: Dynamic shared memory one block may use on sm_90 (bytes).
-MAX_SMEM = 232_448
+MAX_SMEM = _build.MAX_SMEM
 
 FLASH_ATTENTION_PIPELINED = _build.CudaKernel(
     "flash_attention_pipelined", lib="flash_attention_pipelined",
@@ -85,3 +89,58 @@ def flash_attention_pipelined(q, k, v, mask, *, sm_scale: float,
         _build.ptr(out), B, S, T, H, K, hd, mask.shape[0], float(sm_scale),
         depth, DTYPE_CODES[q.dtype], q.device.index, _build.stream_of(q))
     return out
+
+
+# ---------------------------------------------------------------------------
+# K8: the SSD scan with x/B/C chunks streamed
+# ---------------------------------------------------------------------------
+
+#: Positions per chunk of K8 (csrc/ssd_scan_pipelined.cu): smaller than
+#: K7's 64 so that a depth-4 ring fits at N=128, P=64.
+SSD_PIPE_CHUNK = 32
+
+SSD_SCAN_PIPELINED = _build.CudaKernel(
+    "ssd_scan_pipelined", lib="ssd_scan_pipelined",
+    symbol="ssd_scan_pipelined_launch",
+    argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    replaces="src/repro/kernels/pipeline.py:334")
+
+
+def ssd_ring_bytes(P: int, N: int, depth: int) -> int:
+    """Shared memory of one K8 block: the fixed part of K7's layout plus
+    ``depth`` stages of x, B and C (B and C rows padded to N+4 floats)."""
+    Q = SSD_PIPE_CHUNK
+    stage = chunk_floats(Q, P, N) + Q * (N + 4)
+    return 4 * (fixed_floats(Q, P, N) + depth * stage)
+
+
+def ssd_depth(P: int, N: int, S: int, cap: int = 4) -> int:
+    """Deepest K8 ring that fits for a sweep of S positions."""
+    depth = deepest_ring(lambda d: ssd_ring_bytes(P, N, d),
+                         -(-S // SSD_PIPE_CHUNK), cap)
+    if depth is None:
+        raise ValueError(f"no SSD ring depth fits P={P}, N={N}")
+    return depth
+
+
+def ssd_scan_pipelined(x, dt, A, B, C, *, depth: int = 2):
+    """K8 on CUDA tensors, the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, A, B, C)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_pipelined: no kernel for device "
+                         f"{x.device}")
+    check_ssd_args("ssd_scan_pipelined", x, dt, A, B, C)
+    BT, H, S, P = x.shape
+    N = B.shape[-1]
+    if depth not in DEPTHS:
+        raise ValueError(f"depth {depth} not in {DEPTHS}")
+    if ssd_ring_bytes(P, N, depth) > MAX_SMEM:
+        raise ValueError(f"a depth-{depth} SSD ring at P={P}, N={N} does not "
+                         f"fit in {MAX_SMEM} bytes of shared memory")
+    y = torch.empty_like(x)
+    SSD_SCAN_PIPELINED.launch(
+        _build.ptr(x), _build.ptr(dt), _build.ptr(A), _build.ptr(B),
+        _build.ptr(C), _build.ptr(y), BT, H, S, P, N, depth, x.device.index,
+        _build.stream_of(x))
+    return y

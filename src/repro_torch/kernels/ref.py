@@ -36,3 +36,21 @@ def rmsnorm_ref(x, g, *, eps: float = 1e-6):
     xf = x.float()
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * g.float()).to(x.dtype)
+
+
+def ssd_scan_ref(x, dt, A, B, C):
+    """Naive SSD recurrence.  x: (BT,H,S,P), dt: (BT,H,S), A: (H,),
+    B/C: (BT,S,N) → y: (BT,H,S,P) of x's dtype; state and math in fp32."""
+    BT, H, S, P = x.shape
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf, Cf = B.float(), C.float()
+    h = torch.zeros((BT, H, B.shape[-1], P), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        dt_t = dtf[:, :, t]                                     # (BT,H)
+        decay = torch.exp(dt_t * Af[None, :])
+        h = (decay[..., None, None] * h
+             + torch.einsum("bh,bn,bhp->bhnp", dt_t, Bf[:, t], xf[:, :, t]))
+        ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], h))
+    return torch.stack(ys, dim=2).to(x.dtype)

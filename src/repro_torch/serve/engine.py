@@ -1,6 +1,8 @@
 """Serving engines: the static-batch ``ServeEngine`` (one prefill + a greedy
-decode loop over a monolithic KV cache, TTFT/ITL — the paper's §6.5 LLM
-inference metrics) and the continuous-batching ``ContinuousEngine``:
+decode loop over the model's caches — a monolithic KV cache, or the SSM
+family's conv and state — TTFT/ITL, the paper's §6.5 LLM inference
+metrics) and the continuous-batching ``ContinuousEngine`` (attention
+families only: it refuses a model without a paged decode path):
 
     RequestQueue → Scheduler (slot admission/retirement)
                  → PagedKVCache (fixed-size pages, free-list allocator)
@@ -65,8 +67,9 @@ def _sync(device: torch.device) -> None:
 
 
 class ServeEngine:
-    """Single-batch prefill + greedy decode over a monolithic KV cache — the
-    TTFT/ITL harness and the numerics reference for the paged engine."""
+    """Single-batch prefill + greedy decode over the model's caches (updated
+    in place) — the TTFT/ITL harness and the numerics reference for the
+    paged engine."""
 
     def __init__(self, model_cfg: ModelConfig, params=None, *,
                  max_len: int = 512, seed: int = 0,
@@ -165,6 +168,9 @@ class ContinuousEngine:
         self.cfg = model_cfg
         self.lowering = lowering if lowering is not None else LoweringConfig()
         self.model = get_model(model_cfg, lowering=self.lowering)
+        if self.model.decode_paged is None:
+            raise ValueError(
+                f"family {model_cfg.family!r} has no paged decode path")
         self.params = (self.model.init(seed, self.device) if params is None
                        else _to_device(params, self.device))
         self.max_len = max_len

@@ -7,7 +7,9 @@ on a machine without it:
 
 Tolerances are the reference's (tests/test_kernels.py:18): fp32 atol 2e-5 /
 rtol 2e-4, bf16 2e-2.  The point-cloud kernels (K9-K13) must match their
-plain versions exactly: indices, and the max-pool, which only selects.
+plain versions exactly: indices, and the max-pool, which only selects.  The
+SSD scan kernels (K7, K8) hold the reference's atol 5e-4 / rtol 1e-3
+(tests/test_kernels.py:86).
 """
 
 import pytest
@@ -18,7 +20,9 @@ from repro_torch.configs.base import reduced
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels import pipeline
 from repro_torch.kernels.pipeline import flash_attention_pipelined
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models.registry import get_model
 from repro_torch.pointcloud import kernels as pck
@@ -309,3 +313,92 @@ def test_pointcloud_stage_cuda_backend_matches_torch_backend(gen, pipelined):
     want = set_abstraction(LoweringConfig("torch"), xyz, feats, 512, 0.9, 16)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+
+# ---------------------------------------------------------------------------
+# SSD scan kernels K7, K8
+# ---------------------------------------------------------------------------
+
+SSD = [  # BT, H, S, P, N: small, ragged, S=1, around the chunks, the model's
+    (1, 1, 128, 8, 16), (2, 3, 100, 16, 32), (2, 2, 1, 8, 16),
+    (3, 2, 40, 16, 8), (2, 8, 31, 64, 128), (2, 8, 33, 64, 128),
+    (2, 8, 63, 64, 128), (2, 8, 65, 64, 128), (1, 4, 300, 64, 128),
+    (4, 80, 512, 64, 128)]
+SSD_TOL = dict(atol=5e-4, rtol=1e-3)
+
+
+def _ssd_inputs(gen, BT, H, S, P, N, strong=False):
+    lo, hi, alo, ahi = (3.0, 5.0, 1.5, 2.0) if strong else (0.1, 0.9, 0.5, 1.5)
+    x = torch.randn((BT, H, S, P), generator=gen, device="cuda")
+    dt = lo + (hi - lo) * torch.rand((BT, H, S), generator=gen, device="cuda")
+    A = -(alo + (ahi - alo) * torch.rand((H,), generator=gen, device="cuda"))
+    B = torch.randn((BT, S, N), generator=gen, device="cuda")
+    C = torch.randn((BT, S, N), generator=gen, device="cuda")
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("strong", [False, True], ids=["decay", "strong"])
+@pytest.mark.parametrize("BT,H,S,P,N", SSD)
+def test_ssd_kernels(gen, BT, H, S, P, N, strong):
+    args = _ssd_inputs(gen, BT, H, S, P, N, strong)
+    want = ref.ssd_scan_ref(*args)
+    got = _launched("ssd_scan", lambda: ssd_scan(*args))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **SSD_TOL)
+    for depth in pipeline.DEPTHS:
+        if pipeline.ssd_ring_bytes(P, N, depth) > pipeline.MAX_SMEM:
+            continue
+        got = _launched("ssd_scan_pipelined", lambda: (
+            pipeline.ssd_scan_pipelined(*args, depth=depth)))
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, **SSD_TOL)
+
+
+def test_ssd_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    x, dt, A, B, C = _ssd_inputs(gen, 2, 3, 64, 16, 32)
+    k8 = lambda *a: pipeline.ssd_scan_pipelined(*a, depth=2)  # noqa: E731
+    for fn in (ssd_scan, k8):
+        with pytest.raises(ValueError):        # bf16
+            fn(x.bfloat16(), dt, A, B, C)
+        with pytest.raises(ValueError):        # non-contiguous x
+            fn(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, C)
+        with pytest.raises(ValueError):        # B and C do not match
+            fn(x, dt, A, B, C[:, :, :16].contiguous())
+        with pytest.raises(ValueError):        # B of another batch size
+            fn(x, dt, A, B[:1].contiguous(), C[:1].contiguous())
+        with pytest.raises(ValueError):        # P not a multiple of 4
+            fn(x[..., :6].contiguous(), dt, A, B, C)
+    with pytest.raises(ValueError):            # ring too deep for the state
+        pipeline.ssd_scan_pipelined(*_ssd_inputs(gen, 1, 1, 64, 128, 128),
+                                    depth=3)
+
+
+def test_ops_route_k7_for_one_chunk_and_k8_for_more(gen):
+    for S, name in ((40, "ssd_scan"), (64, "ssd_scan"),
+                    (65, "ssd_scan_pipelined"), (512, "ssd_scan_pipelined")):
+        args = _ssd_inputs(gen, 1, 2, S, 64, 128)
+        got = _launched(name, lambda: ops.ssd_scan(*args))
+        torch.testing.assert_close(got, ref.ssd_scan_ref(*args), **SSD_TOL)
+    args = _ssd_inputs(gen, 1, 2, 512, 64, 128)
+    _launched("ssd_scan", lambda: ops.ssd_scan(*args, pipelined=False))
+
+
+def test_reduced_mamba2_cuda_backend_matches_torch_backend(gen):
+    cfg = reduced(get_config("mamba2-2.7b"))
+    cuda_m = get_model(cfg, lowering=LoweringConfig("cuda"))
+    plain_m = get_model(cfg, lowering=LoweringConfig("torch"))
+    params = cuda_m.init(0, "cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, 100), generator=gen,
+                           device="cuda")
+    before = _build.KERNELS["ssd_scan_pipelined"].launches
+    got, gc = cuda_m.prefill(params, {"tokens": tokens})
+    assert (_build.KERNELS["ssd_scan_pipelined"].launches - before
+            == cfg.n_layers)
+    want, wc = plain_m.prefill(params, {"tokens": tokens})
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-4)
+    torch.testing.assert_close(gc["state"], wc["state"], atol=5e-5, rtol=1e-4)
+    tok = torch.argmax(want, dim=-1).to(torch.int32)
+    got, _ = cuda_m.decode_step(params, tok, gc, 100)
+    want, _ = plain_m.decode_step(params, tok, wc, 100)
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-4)

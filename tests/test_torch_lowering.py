@@ -85,11 +85,40 @@ def test_pointcloud_golden_keys_extract_the_kernel():
         assert got.impl == "reference" and "untileable" in got.note
 
 
+# SSD scan keys (b, s, H, P, N): mamba2-2.7b's widths at the serving
+# prompts (512: the pipelined kernel; 40: one chunk), the reference's
+# ragged S=100 (chunk 4) and S=1, and the reduced config's widths.
+SSD_KEYS = [(1, 512, 80, 64, 128), (4, 512, 80, 64, 128),
+            (4, 256, 80, 64, 128), (1, 100, 80, 64, 128), (1, 1, 80, 64, 128),
+            (4, 40, 80, 64, 128), (2, 20, 16, 8, 16), (2, 1, 16, 8, 16)]
+
+
+@pytest.mark.parametrize("backend,ref_backend", [("cuda", "pallas"),
+                                                 ("torch", "xla")])
+@pytest.mark.parametrize("shape", SSD_KEYS)
+def test_ssd_routing_matches_reference_dispatch(shape, backend, ref_backend):
+    want = jax_compile.lower("ssd_scan", shape=shape, dtype="float32",
+                             backend=ref_backend)
+    got = lower("ssd_scan", shape=shape, dtype=torch.float32, backend=backend)
+    assert got.impl == want.impl, got.note
+
+
+def test_ssd_lowering_falls_back_where_the_kernels_do_not_take_it():
+    """bf16 and a head dim that is not a multiple of 4 take the plain
+    version; the serving shapes take the kernel."""
+    assert lower("ssd_scan", shape=(4, 512, 80, 64, 128),
+                 dtype=torch.float32).impl == "isax"
+    for shape, dtype in (((4, 512, 80, 64, 128), torch.bfloat16),
+                         ((1, 8, 2, 6, 128), torch.float32),
+                         ((1, 8, 2, 64, 256), torch.float32)):
+        assert lower("ssd_scan", shape=shape, dtype=dtype).impl == "reference"
+
+
 def test_unknown_op_and_backend_raise():
     with pytest.raises(ValueError):
         LoweringConfig("pallas")
     with pytest.raises(ValueError):
-        lower("ssd_scan", shape=(1, 1), dtype=torch.float32)
+        lower("int8_matmul", shape=(1, 1, 1), dtype=torch.float32)
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
