@@ -47,14 +47,18 @@ Phases (any failure exits non-zero; nothing is caught):
    512 centers, r=0.2, 32 samples) at batch 16, C=64, points uniform in
    the unit ball; (c) run (a) with ``pipelined=False``.  Across the three,
    every one of K9-K13 must have launched.
-6. ssm kernels: K7 ssd_scan and K8 ssd_scan_pipelined (every ring depth
+6. ssm kernels: K1 at the SSM path's widths (d 2560 and 5120, 2048 rows of
+   a 4 x 512 prefill and 4 of a decode step, fp32 and bf16; tolerances of
+   phase 3), then K7 ssd_scan and K8 ssd_scan_pipelined (every ring depth
    that fits) against the plain recurrence ``ssd_scan_ref`` on the card,
    fp32, atol 5e-4 / rtol 1e-3 (the reference's tests/test_kernels.py:86):
-   the serving shape (BT=4, H=80, S=512, P=64, N=128: four prompts through
-   mamba2-2.7b, each batch row with its own B and C), S=1, S below and
-   around each kernel's chunk (K7 64, K8 32), a ragged S=300, and a strong
-   decay (dt·A ≈ -7 a step, where exp(acum_q - acum_k) for k > q overflows
-   fp32); bound = max(bytes / 3.35 TB/s, ops / 67 TFLOP/s), see
+   K7 at the 40-token prefill of run (s3) (BT=4, H=80, S=40, P=64, N=128:
+   the one shape the path gives it), both kernels at the 512-token serving
+   shape (BT=4, H=80, S=512: four prompts through mamba2-2.7b, each batch
+   row with its own B and C), S=1, S below and around each kernel's chunk
+   (K7 64, K8 32), a ragged S=300, and a strong decay (dt·A ≈ -7 a step,
+   where exp(acum_q - acum_k) for k > q overflows fp32); bound = max(bytes
+   / 3.35 TB/s, ops / 67 TFLOP/s), one bound for both kernels, see
    SSD_FORMULA.  No single PyTorch call computes the scan: library null.
 7. ssm serve: mamba2-2.7b (64 layers, d 2560, 80 heads of 64, state 128,
    vocab 50280; random weights from seed 0), each run with launch counts
@@ -64,9 +68,11 @@ Phases (any failure exits non-zero; nothing is caught):
    (s1) fp32, 4 prompts of 512 tokens then 4 teacher-forced decode steps,
    logits of backend "cuda" within 1e-3·max|logit| of backend "torch";
    (s2) bf16 (the config as it stands) through ``ServeEngine.generate``,
-   4 × 512 tokens, 32 new: TTFT, ITL, tokens/s, and the logit gap to
-   backend "torch" after prefill as information; (s3) the same engine,
-   4 × 40 tokens, 8 new (one chunk: K7).
+   4 × 512 tokens, 32 new: TTFT, ITL, tokens/s, then the prefill logits of
+   the first 1, 2, 4, ..., 64 blocks on backends "cuda" and "torch" in
+   bf16, each against backend "torch" in fp32 on the same weights
+   (``bf16_depth_sweep``); (s3) the same engine, 4 × 40 tokens, 8 new (one
+   chunk: K7).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -90,6 +96,9 @@ TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 2e-2)}
 BUCKETS = (16, 32, 64, 128, 256, 512)
 SERVE_KERNELS = ("rmsnorm", "flash_attention", "flash_attention_pipelined")
 SSD_TOL = (5e-4, 1e-3)
+# bf16 mamba2: backend "cuda" may be at most this many times as far from the
+# fp32 answer as backend "torch" (both are bf16 rounding apart from it)
+BF16_GAP_RATIO = 2.0
 
 
 def card_line() -> str:
@@ -561,12 +570,13 @@ def pointcloud_path_phase() -> dict:
 # -- SSM phase -----------------------------------------------------------------
 
 SSD_FORMULA = ("bytes = 4*(2*BT*H*S*P + BT*H*S + 2*BT*S*N + H) (x, y, dt, B, "
-               "C, A); ops = BT*H*(nc*(2Q²N + 2Q²P) + (nc-1)*4QNP) at the "
-               "kernel's chunk Q, nc = ceil(S/Q): scores and intra-chunk "
-               "products over the full Q x Q (the kernels compute it whole "
-               "and select), inter-chunk output and state update from the "
-               "second and up to the last chunk")
+               "C, A); ops = 4*BT*H*S*N*P: the least any form of the scan "
+               "needs, one FMA a state element a position for the update "
+               "and one for the output (the chunked form does both and its "
+               "causal Q x Q products on top); one bound for K7 and K8, "
+               "whatever their chunk")
 SSD_MAIN = (4, 80, 512, 64, 128)     # BT, H, S, P, N of the serving prefill
+SSD_SHORT = (4, 80, 40, 64, 128)     # the 40-token prefill of run (s3): K7
 
 
 def ssd_inputs(BT, H, S, P, N, seed, strong=False):
@@ -609,10 +619,8 @@ def ssd_case(kernel: str, shape, depth: int = 0, strong: bool = False,
     if not torch.isfinite(got).all() or bad.any():
         raise AssertionError(f"{kernel} {case}: {int(bad.sum())} elements off "
                              f"(max abs err {float(err.max()):.3e})")
-    nc = -(-S // Q)
     nbytes = 4 * (2 * BT * H * S * P + BT * H * S + 2 * BT * S * N + H)
-    ops = BT * H * (nc * (2 * Q * Q * N + 2 * Q * Q * P)
-                    + (nc - 1) * 4 * Q * N * P)
+    ops = 4 * BT * H * S * N * P
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS["float32"] * 1e3
     plain_ms = device_ms(lambda: ref.ssd_scan_ref(*args), 2) if plain \
@@ -628,9 +636,20 @@ def ssd_case(kernel: str, shape, depth: int = 0, strong: bool = False,
 
 
 def ssm_kernel_phase() -> list[dict]:
+    import torch
     from repro_torch.kernels import pipeline
+    # K1 at the SSM path's widths (norm 2560, gate_norm 5120) and rows (a
+    # 4 x 512 prefill, a decode step of 4), in fp32 (s1) and bf16 (s2, s3)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    rows = [rmsnorm_case(R, d, dtype, gen) for R in (2048, 4)
+            for d in (2560, 5120) for dtype in ("float32", "bfloat16")]
+    for r in rows:
+        print(json.dumps(r))
     BT, H, S, P, N = SSD_MAIN
-    rows = [ssd_case("ssd_scan", SSD_MAIN)]
+    # K7 at the one shape the path gives it, and at the 512-token shape
+    # (which the router sends to K8) beside K8
+    rows += [ssd_case("ssd_scan", SSD_SHORT), ssd_case("ssd_scan", SSD_MAIN)]
     depths = [d for d in pipeline.DEPTHS
               if pipeline.ssd_ring_bytes(P, N, d) <= pipeline.MAX_SMEM]
     for d in depths:
@@ -655,6 +674,52 @@ def _ssm_launches_ok(run: str, launches: dict, scan: str, n_prefills: int,
     if launches != want:
         raise AssertionError(f"ssm run ({run}): launch counts {launches} != "
                              f"expected {want}")
+
+
+def bf16_depth_sweep(cfg, params, tokens) -> list[dict]:
+    """Prefill logits of the first ``depth`` blocks of the bf16 model, for
+    depth 1, 2, 4, ..., L: backend "cuda" and backend "torch" in bf16, each
+    against backend "torch" in fp32 on the same weights (the answer without
+    bf16 rounding).  A fault of the kernel path in bf16 puts its logits
+    farther from the fp32 answer than the plain path's at every depth;
+    rounding alone puts both at the same distance, growing with depth."""
+    import dataclasses
+    import torch
+    from repro_torch.compile.config import LoweringConfig
+    from repro_torch.models.registry import get_model
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        return tree.float() if tree.is_floating_point() else tree
+
+    params32 = cast(params)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    batch = {"tokens": tokens}
+    out, depth = [], 1
+    while depth <= cfg.n_layers:
+        def logits(c, lowering, p):
+            c = dataclasses.replace(c, n_layers=depth)
+            return get_model(c, lowering=LoweringConfig(lowering)).prefill(
+                p, batch)[0].float()
+        got = logits(cfg, "cuda", params)
+        plain = logits(cfg, "torch", params)
+        exact = logits(cfg32, "torch", params32)
+        row = {"depth": depth,
+               "cuda_vs_torch": float((got - plain).abs().max()),
+               "cuda_vs_fp32": float((got - exact).abs().max()),
+               "torch_vs_fp32": float((plain - exact).abs().max()),
+               "logits_max_abs": float(exact.abs().max())}
+        if not torch.isfinite(got).all() or (
+                row["cuda_vs_fp32"] > BF16_GAP_RATIO * row["torch_vs_fp32"]):
+            raise AssertionError(f"ssm run (s2): backend cuda in bf16 is "
+                                 f"farther from the fp32 answer than "
+                                 f"{BF16_GAP_RATIO} x backend torch's: {row}")
+        out.append(row)
+        depth *= 2
+    del params32
+    return out
 
 
 def ssm_serve_phase() -> dict:
@@ -741,16 +806,9 @@ def ssm_serve_phase() -> dict:
                    "launches": launches, "ttft_ms": stats.ttft_s * 1e3,
                    "itl_ms": stats.itl_s * 1e3,
                    "tokens_per_s": stats.tokens_per_s}
-        if run == "s2":   # information only: bf16 rounds differently
-            tb = {"tokens": torch.from_numpy(p).cuda()}
-            got, _ = eng.model.prefill(eng.params, tb)
-            want, _ = get_model(cfg, lowering=LoweringConfig(
-                "torch")).prefill(eng.params, tb)
-            if not torch.isfinite(got).all():
-                raise AssertionError("ssm run (s2): non-finite logits")
-            summary["bf16_logits_max_abs_gap_vs_torch"] = float(
-                (got - want).abs().max())
-            summary["bf16_logits_max_abs"] = float(want.abs().max())
+        if run == "s2":
+            summary["bf16_depth_sweep"] = bf16_depth_sweep(
+                cfg, eng.params, torch.from_numpy(p).cuda())
         print(json.dumps(summary))
         print(f"ssm {run}: {p.shape[0]} x {plen} tokens, {n_new} new, TTFT "
               f"{stats.ttft_s * 1e3:.2f} ms, ITL {stats.itl_s * 1e3:.3f} ms, "
@@ -766,7 +824,7 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
     largest shape the main path gives it) and the largest fp32 error over
     all its cases."""
     from repro_torch.kernels import _build
-    main_case = {"rmsnorm": "R=512 d=768 float32",
+    main_case = {"rmsnorm": "R=2048 d=5120 bfloat16",   # (s2)'s gate_norm
                  "flash_attention": "S=64 T=64 H=12 K=12 hd=64 float32 causal",
                  "flash_attention_pipelined":
                      "S=512 T=512 H=12 K=12 hd=64 float32 causal depth=4",
@@ -776,7 +834,7 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                  "ball_query_pipelined": "a float32 depth=4",
                  "group_aggregate": "a float32",
                  "group_aggregate_pipelined": "b float32 depth=2",
-                 "ssd_scan": "BT=4 H=80 S=512 P=64 N=128",
+                 "ssd_scan": "BT=4 H=80 S=40 P=64 N=128",
                  "ssd_scan_pipelined": "BT=4 H=80 S=512 P=64 N=128 depth=4"}
     out = []
     for name, kern in _build.KERNELS.items():
