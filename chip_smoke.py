@@ -2,9 +2,11 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version on the card, then
 serves full-width llama110m through the continuous-batching engine, runs
-the point-cloud set-abstraction stage and serves full-width mamba2-2.7b
-through the static-batch engine, and checks that each path went through
-every one of its kernels.
+the point-cloud set-abstraction stage, serves full-width mamba2-2.7b
+through the static-batch engine, serves llama110m on int8 weights through
+``StaticBatchEngine`` and sends its quantized projections through the
+quantized-GEMM entry point, and checks that each path went through every
+one of its kernels.
 
     python3 chip_smoke.py
 
@@ -14,8 +16,10 @@ Phases (any failure exits non-zero; nothing is caught):
 2. build: every ``src/repro_torch/kernels/csrc/*.cu``, one nvcc each, all at
    once.
 3. kernels: K1 rmsnorm, K2 flash attention, K3 pipelined flash attention at
-   the main path's shapes against their plain versions (fp32 atol 2e-5 /
-   rtol 2e-4, bf16 2e-2: the reference's tests/test_kernels.py:18), one JSON
+   the main paths' shapes (batch 1 for the continuous engine's prefills,
+   batch 8 and R = 8·bucket rows for run (i1)'s static groups) against
+   their plain versions (fp32 atol 2e-5 / rtol 2e-4, bf16 2e-2: the
+   reference's tests/test_kernels.py:18), one JSON
    line per case with device times (CUDA events around back-to-back
    launches queued behind a GPU spin, so host overhead is excluded), the
    plain version's and one PyTorch library call's time as a yardstick, and
@@ -73,6 +77,37 @@ Phases (any failure exits non-zero; nothing is caught):
    bf16, each against backend "torch" in fp32 on the same weights
    (``bf16_depth_sweep``); (s3) the same engine, 4 × 40 tokens, 8 new (one
    chunk: K7).
+8. int8 kernels: K4 int8_matmul and K5 int8_matmul_pipelined, each forced,
+   at llama110m's four projection shapes (K, N) in {(768, 768), (768,
+   2048), (2048, 768), (768, 32000)} at M = 512 (the largest prompt bucket)
+   and M = 8 (the decode slots), fp32 and bf16, plus ragged M in {1, 7,
+   100} at N = 1000 (and K = 100, K4 only) and three fp16 cases, against
+   ``int8_matmul_ref``: fp32 within K ulps (2^-23) of the largest product
+   |x|·|scale·wq| (``int8_tol``: the rounding of a K-term fp32 sum, which
+   a TF32 or bf16 rounding of x exceeds many times over), bf16 and fp16
+   at the reference's atol 0.5 / rtol 2e-2 (tests/test_kernels.py:69),
+   scales from U(0.001, 0.02); bound = max(bytes / 3.35 TB/s, 2·M·N·K /
+   peak), see INT8_FORMULA; library yardstick
+   ``torch.ops.aten._weight_int8pack_mm`` where this PyTorch build runs it
+   on CUDA, else null with its error.  K6 flash_attention_int8kv at
+   llama110m's attention (B=1, H=K=12, hd=64, S=T=512 and 64, causal), a
+   GQA case (K=4), fully masked rows and bf16 q, against
+   ``flash_attention_int8kv_ref`` at atol 2e-5 / rtol 1e-4 (fp32,
+   tests/test_kernels.py:124; bf16 phase 3's) and within 0.1 of the fp
+   oracle on the unquantized K/V; bound as K2's over the causal pairs with
+   int8 K/V bytes; no one-call library counterpart.
+9. int8 serve (i1): llama110m as in phase 4 (fp32, random weights from
+   seed 0) through ``StaticBatchEngine(quantize=True)`` on backend "cuda":
+   the serve phase's 16 Poisson requests in static groups of 8 padded to
+   buckets 16..512.  Launch counts zeroed just before and read just after,
+   exact: K1 25 per prefill and per decode step, K2 (buckets <= 64) or K3
+   12 per prefill, nothing else.  Each group's first-token logits against
+   backend "torch" on the same dequantized weights (atol = rtol = 1e-4).
+10. int8 GEMM (i2): every projection of the 12 layers (wq, wk, wv, wo,
+   wi_gate, wi_up, mlp wo) and the unembedding, from (i1)'s int8 tree laid
+   out as (N, K), through ``LoweringConfig("cuda").int8_matmul`` at M = 512
+   and M = 8: exactly 85 K4 launches at M = 512 and 85 K5 launches at M = 8,
+   each output against the plain version at phase 8's fp32 tolerance.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
@@ -91,11 +126,18 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,      # fp32 on the CUDA cores
-              "bfloat16": 989e12}    # bf16 dense on the tensor cores
+              "bfloat16": 989e12,    # bf16 dense on the tensor cores
+              "float16": 989e12}     # fp16 dense on the tensor cores
 TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 2e-2)}
 BUCKETS = (16, 32, 64, 128, 256, 512)
 SERVE_KERNELS = ("rmsnorm", "flash_attention", "flash_attention_pipelined")
 SSD_TOL = (5e-4, 1e-3)
+# the reference's int8 GEMM tolerance (tests/test_kernels.py:69); the
+# kernels' fp32 rows are held tighter, see int8_tol
+INT8_TOL = {"float32": (1e-2, 2e-2), "bfloat16": (0.5, 2e-2),
+            "float16": (0.5, 2e-2)}
+INT8KV_TOL = {"float32": (2e-5, 1e-4), "bfloat16": TOL["bfloat16"]}
+LLAMA_PROJ = ((768, 768), (768, 2048), (2048, 768), (768, 32000))  # (K, N)
 # bf16 mamba2: backend "cuda" may be at most this many times as far from the
 # fp32 answer as backend "torch" (both are bf16 rounding apart from it)
 BF16_GAP_RATIO = 2.0
@@ -108,16 +150,17 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, spin: int = 200_000_000) -> float:
     """Device time of one call: CUDA events around ``iters`` calls queued
-    behind a GPU spin, so the host's launch overhead does not show."""
+    behind a GPU spin of ``spin`` cycles (~0.1 s by default), so the host's
+    launch overhead does not show."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)   # ~0.1 s: the host queues every call
+    torch.cuda._sleep(spin)          # the host queues every call meanwhile
     start.record()
     for _ in range(iters):
         fn()
@@ -140,9 +183,9 @@ def build_kernels() -> dict:
     return report
 
 
-def _check(name: str, got, want, dtype: str) -> float:
+def _check(name: str, got, want, dtype: str, tol=None) -> float:
     import torch
-    atol, rtol = TOL[dtype]
+    atol, rtol = (tol or TOL)[dtype]
     err = (got.float() - want.float()).abs()
     bad = err > atol + rtol * want.float().abs()
     if not torch.isfinite(got.float()).all() or bad.any():
@@ -184,14 +227,14 @@ def _row(kernel, case, err, ms, plain_ms, library_ms, nbytes, flops, dtype):
 
 
 def flash_case(kernel: str, S: int, T: int, H: int, K: int, dtype: str, gen,
-               mask_kind: str = "causal", depth: int = 0) -> dict:
+               mask_kind: str = "causal", depth: int = 0, B: int = 1) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.pipeline import flash_attention_pipelined
     dt = getattr(torch, dtype)
-    B, hd = 1, 64
+    hd = 64
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt)
     k = torch.randn((B, T, K, hd), generator=gen, device="cuda").to(dt)
     v = torch.randn((B, T, K, hd), generator=gen, device="cuda").to(dt)
@@ -210,10 +253,11 @@ def flash_case(kernel: str, S: int, T: int, H: int, K: int, dtype: str, gen,
     plain = lambda: ref.flash_attention_ref(q, k, v, mask, sm_scale=scale)  # noqa: E731
     got = run()
     torch.cuda.synchronize()
-    case = (f"S={S} T={T} H={H} K={K} hd={hd} {dtype} {mask_kind}"
+    case = ((f"B={B} " if B > 1 else "")
+            + f"S={S} T={T} H={H} K={K} hd={hd} {dtype} {mask_kind}"
             + (f" depth={depth}" if depth else ""))
     err = _check(f"{kernel} {case}", got, plain(), dtype)
-    if mask_kind == "fully_masked_rows" and float(got[0, :8].abs().max()) != 0:
+    if mask_kind == "fully_masked_rows" and float(got[:, :8].abs().max()) != 0:
         raise AssertionError(f"{kernel}: fully-masked rows are not 0")
     # library yardstick (never called by the port): SDPA on (B,H,S,hd)
     # views with the K/V heads repeated for GQA outside the timed call
@@ -225,7 +269,7 @@ def flash_case(kernel: str, S: int, T: int, H: int, K: int, dtype: str, gen,
     nbytes = (2 * B * S * H + 2 * B * T * K) * hd * q.element_size() \
         + mask.numel()
     flops = 4 * hd * H * int(mask.expand(B, S, T).sum())
-    iters = 20 if S >= 256 else 50
+    iters = 20 if B * S >= 256 else 50
     return _row(kernel, case, err, device_ms(run, iters),
                 device_ms(plain, iters), device_ms(lib, iters), nbytes, flops,
                 dtype)
@@ -238,6 +282,8 @@ def kernel_phase() -> list[dict]:
     rows = []
     for R in (8, *BUCKETS):                  # decode batch, prefill buckets
         rows.append(rmsnorm_case(R, 768, "float32", gen))
+    for R in (1024, 4096):                   # (i1)'s groups of 8 at 128, 512
+        rows.append(rmsnorm_case(R, 768, "float32", gen))
     rows.append(rmsnorm_case(512, 768, "bfloat16", gen))
     for S in (16, 64, 256, 512):
         rows.append(flash_case("flash_attention", S, S, 12, 12, "float32", gen))
@@ -246,6 +292,8 @@ def kernel_phase() -> list[dict]:
                            "fully_masked_rows"))
     rows.append(flash_case("flash_attention", 256, 256, 12, 12, "bfloat16",
                            gen))
+    rows.append(flash_case("flash_attention", 64, 64, 12, 12, "float32", gen,
+                           B=8))             # a static group of 8 at 64
     for S in (256, 512):
         for depth in (2, 3, 4):
             rows.append(flash_case("flash_attention_pipelined", S, S, 12, 12,
@@ -258,6 +306,11 @@ def kernel_phase() -> list[dict]:
                            "float32", gen, "fully_masked_rows", depth=2))
     rows.append(flash_case("flash_attention_pipelined", 256, 256, 12, 12,
                            "bfloat16", gen, depth=4))
+    # run (i1)'s static groups of 8 at buckets 128 (depth 2) and 512 (4)
+    rows.append(flash_case("flash_attention_pipelined", 128, 128, 12, 12,
+                           "float32", gen, depth=2, B=8))
+    rows.append(flash_case("flash_attention_pipelined", 512, 512, 12, 12,
+                           "float32", gen, depth=4, B=8))
     for r in rows:
         print(json.dumps(r))
     return rows
@@ -819,6 +872,329 @@ def ssm_serve_phase() -> dict:
     return total
 
 
+# -- int8 phases ---------------------------------------------------------------
+
+INT8_FORMULA = ("bytes = M*K*itemsize + N*K + 4*N + M*N*itemsize (x, wq, "
+                "scale, y); ops = 2*M*N*K")
+_LIBRARY_INT8: dict = {}
+
+
+def int8_library(x, wq, scale, want):
+    """``aten._weight_int8pack_mm`` on these inputs (the same function, its
+    scale in x's dtype, which that op requires), or None and the reason:
+    this PyTorch build does not run it on CUDA for x's dtype, or its output
+    is not within phase 8's tolerance of the plain version's ``want``."""
+    import torch
+    if x.dtype in _LIBRARY_INT8:
+        return None, _LIBRARY_INT8[x.dtype]
+    lib_scale = scale.to(x.dtype)
+    lib = lambda: torch.ops.aten._weight_int8pack_mm(x, wq, lib_scale)  # noqa: E731
+    try:
+        got = lib()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        _LIBRARY_INT8[x.dtype] = ("aten._weight_int8pack_mm: "
+                                  + str(e).strip().splitlines()[0][:200])
+        return None, _LIBRARY_INT8[x.dtype]
+    atol, rtol = INT8_TOL[str(x.dtype).replace("torch.", "")]
+    err = (got.float() - want.float()).abs()
+    if got.shape != want.shape or bool((err > atol + rtol * want.float().abs()).any()):
+        return None, (f"aten._weight_int8pack_mm differs from the plain "
+                      f"version by {float(err.max()):.3e}")
+    return lib, "aten._weight_int8pack_mm (scale in x's dtype)"
+
+
+def int8_tol(x, wq, scale) -> dict:
+    """_check's tolerance for an int8 GEMM: in fp32, atol = K ulps (2^-23)
+    of the largest product |x|·|scale·wq| and no rtol -- the rounding of a
+    K-term fp32 sum in either version's order, which a TF32 (2^-11) or bf16
+    (2^-8) rounding of x exceeds many times over; in bf16 and fp16, whose
+    output rounding dominates, the reference's INT8_TOL."""
+    dtype = str(x.dtype).replace("torch.", "")
+    if dtype != "float32":
+        return {dtype: INT8_TOL[dtype]}
+    big = float(x.abs().max()) * float((scale[:, None] * wq).abs().max())
+    return {dtype: (x.shape[1] * big * 2.0 ** -23, 0.0)}
+
+
+def int8_case(kernel: str, M: int, N: int, K: int, dtype: str, gen) -> dict:
+    import torch
+    from repro_torch.kernels import pipeline, ref
+    from repro_torch.kernels.int8_matmul import int8_matmul
+    dt = getattr(torch, dtype)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+    wq = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    scale = 0.001 + 0.019 * torch.rand((N,), generator=gen, device="cuda")
+    if kernel == "int8_matmul":
+        run = lambda: int8_matmul(x, wq, scale)  # noqa: E731
+    else:
+        depth = pipeline.int8_depth(K, x.element_size())
+        run = lambda: pipeline.int8_matmul_pipelined(  # noqa: E731
+            x, wq, scale, depth=depth)
+    plain = lambda: ref.int8_matmul_ref(x, wq, scale)  # noqa: E731
+    got = run()
+    torch.cuda.synchronize()
+    case = f"M={M} K={K} N={N} {dtype}"
+    want = plain()
+    tol = int8_tol(x, wq, scale)
+    err = _check(f"{kernel} {case}", got, want, dtype, tol)
+    lib, note = int8_library(x, wq, scale, want)
+    iters = 20 if M * N * K >= 1 << 28 else 50
+    spin = 40_000_000   # ~20 ms: enough to queue 50 of these calls
+    nbytes = M * K * x.element_size() + N * K + 4 * N + M * N * x.element_size()
+    row = _row(kernel, case, err, device_ms(run, iters, spin),
+               device_ms(plain, iters, spin),
+               device_ms(lib, max(3, iters // 4), spin) if lib else None,
+               nbytes, 2 * M * N * K, dtype)
+    row.update(library_note=note, bound_formula=INT8_FORMULA,
+               atol=tol[dtype][0], rtol=tol[dtype][1])
+    print(json.dumps(row))
+    return row
+
+
+def int8kv_case(S: int, H: int, K: int, dtype: str, gen,
+                mask_kind: str = "causal") -> dict:
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_int8kv
+    dt = getattr(torch, dtype)
+    B, T, hd = 1, S, 64
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt)
+    kf = torch.randn((B, T, K, hd), generator=gen, device="cuda")
+    vf = torch.randn((B, T, K, hd), generator=gen, device="cuda")
+    ks = kf.abs().amax(dim=(0, 1, 3)) / 127.0      # tests/test_kernels.py:111
+    vs = vf.abs().amax(dim=(0, 1, 3)) / 127.0
+    k8 = torch.round(kf / ks[None, None, :, None]).clamp(-127, 127).to(torch.int8)
+    v8 = torch.round(vf / vs[None, None, :, None]).clamp(-127, 127).to(torch.int8)
+    mask = torch.tril(torch.ones((S, T), dtype=torch.bool, device="cuda"),
+                      diagonal=T - S)[None]
+    if mask_kind == "fully_masked_rows":
+        mask[:, :8, :] = False
+    scale = hd ** -0.5
+    run = lambda: flash_attention_int8kv(  # noqa: E731
+        q, k8, v8, ks, vs, mask, sm_scale=scale)
+    plain = lambda: ref.flash_attention_int8kv_ref(  # noqa: E731
+        q, k8, v8, ks, vs, mask, sm_scale=scale)
+    got = run()
+    torch.cuda.synchronize()
+    case = f"S={S} T={T} H={H} K={K} hd={hd} {dtype} {mask_kind}"
+    err = _check(f"flash_attention_int8kv {case}", got, plain(), dtype,
+                 INT8KV_TOL)
+    fp_err = float((got.float() - ref.flash_attention_ref(
+        q, kf, vf, mask, sm_scale=scale).float()).abs().max())
+    if fp_err >= 0.1:
+        raise AssertionError(f"flash_attention_int8kv {case}: {fp_err:.3e} "
+                             f"from the fp oracle (limit 0.1)")
+    if mask_kind == "fully_masked_rows" and float(got[0, :8].abs().max()) != 0:
+        raise AssertionError("flash_attention_int8kv: fully-masked rows are "
+                             "not 0")
+    nbytes = (2 * B * S * H * hd * q.element_size() + 2 * B * T * K * hd
+              + 8 * K + mask.numel())
+    flops = 4 * hd * H * int(mask.expand(B, S, T).sum())
+    iters = 20 if S >= 256 else 50
+    spin = 50_000_000   # ~25 ms: enough to queue 50 plain versions
+    row = _row("flash_attention_int8kv", case, err, device_ms(run, iters, spin),
+               device_ms(plain, iters, spin), None, nbytes, flops, dtype)
+    row.update(library_note="no one-call counterpart (SDPA takes no int8 "
+                            "K/V with per-head scales)",
+               max_abs_err_vs_fp_oracle=fp_err)
+    print(json.dumps(row))
+    return row
+
+
+def int8_kernel_phase() -> list[dict]:
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    rows = []
+    for K, N in LLAMA_PROJ:
+        for M in (512, 8):
+            for dtype in ("float32", "bfloat16"):
+                for kernel in ("int8_matmul", "int8_matmul_pipelined"):
+                    rows.append(int8_case(kernel, M, N, K, dtype, gen))
+    for M in (1, 7, 100):
+        for kernel in ("int8_matmul", "int8_matmul_pipelined"):
+            rows.append(int8_case(kernel, M, 1000, 768, "float32", gen))
+        rows.append(int8_case("int8_matmul", M, 1000, 100, "float32", gen))
+    for kernel in ("int8_matmul", "int8_matmul_pipelined"):
+        rows.append(int8_case(kernel, 8, 1000, 768, "float16", gen))
+    rows.append(int8_case("int8_matmul", 100, 1000, 100, "float16", gen))
+    for S, H, K, dtype, kind in ((512, 12, 12, "float32", "causal"),
+                                 (64, 12, 12, "float32", "causal"),
+                                 (128, 12, 4, "float32", "causal"),
+                                 (128, 12, 12, "float32", "fully_masked_rows"),
+                                 (512, 12, 12, "bfloat16", "causal"),
+                                 (64, 12, 12, "bfloat16", "causal")):
+        rows.append(int8kv_case(S, H, K, dtype, gen, kind))
+    return rows
+
+
+def int8_serve_phase():
+    """Run (i1); returns its launch counts and the int8 tree of its weights."""
+    import torch
+    from repro_torch.compile.config import LoweringConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import (StaticBatchEngine, quantization_error,
+                                          quantize_params_int8)
+    from repro_torch.serve.scheduler import make_poisson_workload
+
+    cfg = get_config("llama110m")
+    L = cfg.n_layers
+    out_lens = (8, 16, 32)
+    raw = get_model(cfg).init(0, "cuda")
+    qtree, dequant = quantize_params_int8(raw)
+    qerr = quantization_error(raw, qtree, dequant)
+    eng = StaticBatchEngine(cfg, raw, batch=8, max_len=BUCKETS[-1] + max(out_lens),
+                            prompt_buckets=BUCKETS, quantize=True,
+                            lowering=LoweringConfig("cuda"), device="cuda")
+    del raw
+    warm = make_poisson_workload(2, rate=2.0, vocab=cfg.vocab,
+                                 prompt_lens=(20,), out_lens=(4,), seed=1)
+    eng.run(warm)
+    reqs = make_poisson_workload(
+        16, rate=2.0, vocab=cfg.vocab,
+        prompt_lens=(10, 24, 50, 100, 200, 400, 512), out_lens=out_lens,
+        seed=0)
+    prefills = []                    # (tokens, logits) of every group
+    engine_prefill = eng._prefill
+
+    def recording(p, b):
+        logits, caches = engine_prefill(p, b)
+        prefills.append((b["tokens"], logits.clone()))
+        return logits, caches
+
+    eng._prefill = recording
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    eng._prefill = engine_prefill
+
+    buckets = [t.shape[1] for t, _ in prefills]
+    want = {n: 0 for n in launches}
+    want.update({"rmsnorm": (2 * L + 1) * (len(prefills) + stats.decode_steps),
+                 "flash_attention": L * sum(b <= 64 for b in buckets),
+                 "flash_attention_pipelined": L * sum(b > 64 for b in buckets)})
+    if launches != want:
+        raise AssertionError(f"int8 run (i1): launch counts {launches} != "
+                             f"expected {want}")
+    for r in reqs:
+        if (len(r.out_tokens) != r.max_new_tokens
+                or not all(0 <= t < cfg.vocab for t in r.out_tokens)):
+            raise AssertionError(f"int8 run (i1): request {r.rid}: bad output "
+                                 f"{r.out_tokens}")
+    # first-token logits of every group, backend "cuda" against "torch" on
+    # the same dequantized weights
+    plain = get_model(cfg, lowering=LoweringConfig("torch"))
+    worst = 0.0
+    for tokens, got in prefills:
+        want_l, _ = plain.prefill(eng.params, {"tokens": tokens}, eng.max_len)
+        err = (got - want_l).abs()
+        if not torch.isfinite(got).all() or bool(
+                (err > 1e-4 + 1e-4 * want_l.abs()).any()):
+            raise AssertionError(f"int8 run (i1): bucket {tokens.shape[1]}: "
+                                 f"cuda vs torch first-token logits differ by "
+                                 f"{float(err.max()):.3e}")
+        worst = max(worst, float(err.max()))
+    summary = {
+        "phase": "int8_serve", "run": "i1", "arch": cfg.name,
+        "engine": "StaticBatchEngine(quantize=True)", "batch": eng.batch,
+        "requests": stats.n_requests, "tokens": stats.total_tokens,
+        "groups": len(prefills), "buckets": buckets,
+        "decode_steps": stats.decode_steps, "wall_s": stats.wall_s,
+        "tokens_per_s": stats.tokens_per_s,
+        "mean_ttft_ms": stats.mean_ttft_s * 1e3,
+        "mean_itl_ms": stats.mean_itl_s * 1e3,
+        "quantization_error": qerr, "launches": launches,
+        "first_token_logits_max_abs_err_vs_torch": worst}
+    print(json.dumps(summary))
+    print(f"int8 serve (i1): {stats.n_requests} requests in {len(prefills)} "
+          f"groups, {stats.total_tokens} tokens, TTFT "
+          f"{stats.mean_ttft_s * 1e3:.2f} ms, ITL {stats.mean_itl_s * 1e3:.3f} "
+          f"ms, {stats.tokens_per_s:.1f} tok/s, quantization error "
+          f"{qerr:.6f}, launches {launches}")
+    return launches, qtree
+
+
+def quantized_projections(qtree) -> list:
+    """(name, wq (N, K) int8, scale (N,) fp32) of every projection of every
+    layer and of the unembedding, laid out for ``int8_matmul``."""
+    blocks = qtree["blocks"]
+
+    def per_layer(leaf, i, to_nk):
+        wq = to_nk(leaf["q"][i]).contiguous()
+        return wq, leaf["scale"].expand(wq.shape[0]).contiguous()
+
+    in_proj = lambda w: w.reshape(w.shape[0], -1).T  # noqa: E731  (d,H,hd)
+    out_proj = lambda w: w.reshape(-1, w.shape[-1]).T  # noqa: E731  (H,hd,d)
+    layout = (("attn", "wq", in_proj), ("attn", "wk", in_proj),
+              ("attn", "wv", in_proj), ("attn", "wo", out_proj),
+              ("mlp", "wi_gate", lambda w: w.T), ("mlp", "wi_up", lambda w: w.T),
+              ("mlp", "wo", lambda w: w.T))
+    out = []
+    for i in range(blocks["attn"]["wq"]["q"].shape[0]):
+        for group, name, to_nk in layout:
+            out.append((f"{group}.{name}[{i}]",
+                        *per_layer(blocks[group][name], i, to_nk)))
+    un = qtree["unembed"]["w"]
+    out.append(("unembed.w", un["q"].contiguous(),
+                un["scale"].expand(un["q"].shape[0]).contiguous()))
+    return out
+
+
+def int8_gemm_phase(qtree) -> dict:
+    """Run (i2); returns the launch counts summed over its two row counts."""
+    import torch
+    from repro_torch.compile.config import LoweringConfig
+    from repro_torch.kernels import _build, ref
+    projections = quantized_projections(qtree)
+    if len(projections) != 85:
+        raise AssertionError(f"int8 run (i2): {len(projections)} projections")
+    lw = LoweringConfig("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    total = {n: 0 for n in _build.KERNELS}
+    for M, kernel in ((512, "int8_matmul"), (8, "int8_matmul_pipelined")):
+        xs = {K: torch.randn((M, K), generator=gen, device="cuda")
+              for K in {w.shape[1] for _, w, _ in projections}}
+        for name, wq, scale in projections:       # warm: first-call set-up
+            lw.int8_matmul(xs[wq.shape[1]], wq, scale)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = [lw.int8_matmul(xs[wq.shape[1]], wq, scale)
+                for _, wq, scale in projections]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = _build.launch_counts()
+        want = {n: 0 for n in launches}
+        want[kernel] = len(projections)
+        if launches != want:
+            raise AssertionError(f"int8 run (i2) M={M}: launch counts "
+                                 f"{launches} != expected {want}")
+        worst = 0.0
+        for (name, wq, scale), got in zip(projections, outs):
+            N, K = wq.shape
+            if got.shape != (M, N):
+                raise AssertionError(f"int8 run (i2) {name}: shape {got.shape}")
+            worst = max(worst, _check(f"int8 run (i2) M={M} {name}", got,
+                                      ref.int8_matmul_ref(xs[K], wq, scale),
+                                      "float32", int8_tol(xs[K], wq, scale)))
+        for n, c in launches.items():
+            total[n] += c
+        print(json.dumps({"phase": "int8_gemm", "run": "i2", "M": M,
+                          "gemms": len(projections), "launches": launches,
+                          "wall_ms_85_gemms": wall_ms,
+                          "max_abs_err_vs_plain": worst}))
+    print(f"int8 gemm (i2): 85 projections at M=512 through K4 and at M=8 "
+          f"through K5 match the plain version; launches {total}")
+    return total
+
+
 def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
     """One entry per kernel: its main-path representative case (the
     largest shape the main path gives it) and the largest fp32 error over
@@ -826,8 +1202,9 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
     from repro_torch.kernels import _build
     main_case = {"rmsnorm": "R=2048 d=5120 bfloat16",   # (s2)'s gate_norm
                  "flash_attention": "S=64 T=64 H=12 K=12 hd=64 float32 causal",
+                 # (i1)'s largest group: 8 prompts at bucket 512
                  "flash_attention_pipelined":
-                     "S=512 T=512 H=12 K=12 hd=64 float32 causal depth=4",
+                     "B=8 S=512 T=512 H=12 K=12 hd=64 float32 causal depth=4",
                  # shape (a) for K9-K12, (b) for K13, as the path takes them
                  "fps": "a float32",
                  "ball_query": "a float32",
@@ -835,7 +1212,12 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                  "group_aggregate": "a float32",
                  "group_aggregate_pipelined": "b float32 depth=2",
                  "ssd_scan": "BT=4 H=80 S=40 P=64 N=128",
-                 "ssd_scan_pipelined": "BT=4 H=80 S=512 P=64 N=128 depth=4"}
+                 "ssd_scan_pipelined": "BT=4 H=80 S=512 P=64 N=128 depth=4",
+                 # (i2)'s largest GEMM: the unembedding at each row count
+                 "int8_matmul": "M=512 K=768 N=32000 float32",
+                 "int8_matmul_pipelined": "M=8 K=768 N=32000 float32",
+                 "flash_attention_int8kv":
+                     "S=512 T=512 H=12 K=12 hd=64 float32 causal"}
     out = []
     for name, kern in _build.KERNELS.items():
         row = next(r for r in rows if r["kernel"] == name
@@ -847,7 +1229,9 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                     "max_abs_err": err, "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
-                    "library_ms": row["library_ms"], "case": row["case"]})
+                    "library_ms": row["library_ms"],
+                    "library_note": row.get("library_note"),
+                    "case": row["case"]})
     return out
 
 
@@ -876,9 +1260,12 @@ def main() -> int:
     pc_launches = pointcloud_path_phase()
     rows += ssm_kernel_phase()
     ssm_launches = ssm_serve_phase()
-    launches = {n: sum(d.get(n, 0) for d in (launches, pc_launches,
-                                             ssm_launches))
-                for n in set(launches) | set(pc_launches) | set(ssm_launches)}
+    rows += int8_kernel_phase()
+    i1_launches, qtree = int8_serve_phase()
+    i2_launches = int8_gemm_phase(qtree)
+    runs = (launches, pc_launches, ssm_launches, i1_launches, i2_launches)
+    launches = {n: sum(d.get(n, 0) for d in runs)
+                for n in set().union(*runs)}
     print(json.dumps({"kernels": kernel_summary(rows, launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,9 @@ SSM and the point-cloud ops:
   a head layout the flash kernels take → the flash kernel;
 * any of them with S < 8 (a degenerate query tile: decode) → the reference;
 * ``matmul`` → the reference (the negative control: no ISAX for a GEMM);
+* ``int8_matmul`` (M, K, N) with fp32, bf16 or fp16 activations → the
+  kernel at every shape (the reference's ``down_pow2`` always finds a
+  dividing tile; the port's kernels take any M, N, K);
 * ``ssd_scan`` in fp32 → the kernel at every sequence length (the reference
   rounds its chunk down to a power of two that divides S; the port's
   kernels take any S), unless P or N is one the kernels are not built for;
@@ -38,7 +41,10 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import ref as kernel_ref
 from repro_torch.kernels.flash_attention import DTYPE_CODES
+from repro_torch.kernels.int8_matmul import DTYPE_CODES as INT8_DTYPE_CODES
 from repro_torch.kernels.ops import flash_tileable
 from repro_torch.kernels.ssd_scan import ssd_tileable
 from repro_torch.pointcloud import ops as pc_ops
@@ -78,7 +84,8 @@ class LoweringConfig:
         """The decision for one op instance.
 
         Shapes follow the reference's keys: ``rmsnorm`` (rows, d);
-        attention ops (B, S, H, K, T, hd); ``matmul`` (M, K, N); ``fps``
+        attention ops (B, S, H, K, T, hd); ``matmul`` and ``int8_matmul``
+        (M, K, N); ``fps``
         (B, N, S); ``ball_query`` (B, N, M, k); ``group_aggregate``
         (B, N, M, k, C); ``ssd_scan`` (b, s, H, P, N).
         """
@@ -88,8 +95,8 @@ class LoweringConfig:
             target = "flash_attention"
         elif op in POINTCLOUD_TARGETS:
             target = POINTCLOUD_TARGETS[op]
-        elif op == "ssd_scan":
-            target = "ssd_scan"
+        elif op in ("ssd_scan", "int8_matmul"):
+            target = op
         elif op == "matmul":
             return Lowering("reference", "no ISAX for a GEMM; torch.matmul")
         else:
@@ -104,7 +111,8 @@ class LoweringConfig:
                 return Lowering("reference", f"untileable state "
                                              f"P={shape[3]} N={shape[4]}")
             return Lowering("isax", f"kernel {target}")
-        if dtype not in DTYPE_CODES:
+        codes = INT8_DTYPE_CODES if op == "int8_matmul" else DTYPE_CODES
+        if dtype not in codes:
             return Lowering("reference", f"no {target} kernel for {dtype}")
         if op in ATTENTION_OPS:
             B, S, H, K, T, hd = shape
@@ -119,6 +127,19 @@ class LoweringConfig:
             if reason:
                 return Lowering("reference", reason)
         return Lowering("isax", f"kernel {target}")
+
+    # -- standalone op entry points (ops with no model host function) -----
+
+    def int8_matmul(self, x, wq, scale):
+        """Quantized GEMM: x (M,K) float, wq (N,K) int8, scale (N,) fp32 →
+        (M,N) of x's dtype; K4/K5 where ``lower`` says ``isax`` (routed by
+        ``kernels.ops.int8_matmul``), the plain version where it says
+        ``reference``."""
+        M, K = x.shape
+        N = wq.shape[0]
+        if self.lower("int8_matmul", (M, K, N), x.dtype).impl == "isax":
+            return kernel_ops.int8_matmul(x, wq, scale)
+        return kernel_ref.int8_matmul_ref(x, wq, scale)
 
     # -- point-cloud vertical (fps → ball_query → group_aggregate) ---------
     # ``pipelined`` overrides the baseline/pipelined choice where the

@@ -1,16 +1,18 @@
 // Shared helpers of the port's CUDA kernels: the C export macro, the error
 // string entry point every library carries, and fp32 <-> storage-type
-// conversion for the two element types the kernels take (fp32 and bf16).
+// conversion for the element types the kernels take (fp32 and bf16; the
+// int8 GEMMs also fp16).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define REPRO_EXPORT extern "C" __attribute__((visibility("default")))
 
 // dtype codes passed from Python (see kernels/_build.py callers).
-enum ReproDtype : int { kFloat32 = 0, kBFloat16 = 1 };
+enum ReproDtype : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 REPRO_EXPORT const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -20,6 +22,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -29,6 +32,10 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to()
 }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 // Elements of T in one 16-byte vector.
 template <typename T>
@@ -36,7 +43,8 @@ struct Vec16 {
   static constexpr int N = 16 / sizeof(T);
 };
 
-// Load 16 bytes (4 fp32 or 8 bf16) at a 16-byte-aligned address as fp32.
+// Load 16 bytes (4 fp32, 8 bf16 or 8 fp16) at a 16-byte-aligned address as
+// fp32.
 __device__ __forceinline__ void load16(const float* p, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
@@ -47,6 +55,16 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load16(const __half* p, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
@@ -62,6 +80,28 @@ __device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
+}
+
+// Four int8 values packed in a 32-bit word (byte i = element i) as fp32,
+// exactly: each byte is biased to unsigned (xor 0x80), spliced into the
+// mantissa of 2^23 (one byte permute) and 2^23 + 128 is subtracted.  Two
+// full-rate instructions an element instead of a slow I2F conversion.
+// Shared by the int8 kernels (K4, K5, K6).
+__device__ __forceinline__ void i8x4_to_f32(unsigned w, float* out) {
+  const unsigned b = w ^ 0x80808080u;
+  out[0] = __int_as_float(__byte_perm(b, 0x4B000000u, 0x7540)) - 8388736.f;
+  out[1] = __int_as_float(__byte_perm(b, 0x4B000000u, 0x7541)) - 8388736.f;
+  out[2] = __int_as_float(__byte_perm(b, 0x4B000000u, 0x7542)) - 8388736.f;
+  out[3] = __int_as_float(__byte_perm(b, 0x4B000000u, 0x7543)) - 8388736.f;
+}
+
+// 16 int8 values at a 16-byte-aligned address as fp32.
+__device__ __forceinline__ void load16(const int8_t* p, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  i8x4_to_f32(u.x, out);
+  i8x4_to_f32(u.y, out + 4);
+  i8x4_to_f32(u.z, out + 8);
+  i8x4_to_f32(u.w, out + 12);
 }
 
 // cp.async (sm_80+): a 16-byte global -> shared copy that bypasses

@@ -1,8 +1,9 @@
-// The online-softmax tile update shared by K2 (flash_attention.cu) and K3
-// (flash_attention_pipelined.cu), so the masked-row arithmetic lives in one
-// place -- the counterpart of _online_softmax_update /
-// _init_flash_scratch / _finalize_flash_output in
-// src/repro/kernels/flash_attention.py.
+// The online-softmax tile update shared by K2 (flash_attention.cu), K3
+// (flash_attention_pipelined.cu) and K6 (flash_attention_int8kv.cu), so the
+// masked-row arithmetic lives in one place -- the counterpart of
+// _online_softmax_update / _init_flash_scratch / _finalize_flash_output in
+// src/repro/kernels/flash_attention.py -- and the baseline kernel K2 and K6
+// share, which differ only in their K/V tile loader (load_kv_tile).
 //
 // Block shape: 256 threads own a BQ x BK = 64 x 64 score tile.  Thread
 // (ty, tx) = (tid / 16, tid % 16) owns query rows ty + 16*i and key columns
@@ -226,6 +227,131 @@ template <int HD, typename TS>
 constexpr size_t smem_bytes(int kv_tiles) {
   return sizeof(float) * (BQ * QLayout<HD>::kStride + BQ * kPStride) +
          sizeof(TS) * static_cast<size_t>(kv_tiles) * KVLayout<HD, TS>::kTileElems;
+}
+
+// K/V tile loaders of the baseline kernel: BK rows of HD elements into fp32
+// shared memory (row stride KVLayout<HD, float>::kStride), rows at or past
+// `valid` zero-filled.  fp32 or bf16 K/V (K2) are converted and `scale` is
+// not used; int8 K/V (K6) arrive in 16-byte loads (16 values), are turned
+// into fp32 exactly (i8x4_to_f32) and multiplied by the KV head's scale in
+// registers -- the same single product as the plain version's
+// k8.float() * k_scale.
+template <int HD, typename T>
+__device__ __forceinline__ void load_kv_tile(float* dst, const T* __restrict__ src,
+                                             size_t ld, int valid, float /*scale*/) {
+  load_tile_f32<HD, T>(dst, KVLayout<HD, float>::kStride, BK, src, ld, valid);
+}
+template <int HD>
+__device__ __forceinline__ void load_kv_tile(float* dst,
+                                             const int8_t* __restrict__ src,
+                                             size_t ld, int valid, float scale) {
+  constexpr int kStride = KVLayout<HD, float>::kStride;
+  constexpr int kChunks = HD / 16;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < BK * kChunks; c += kThreads) {
+    const int r = c / kChunks;
+    const int d = (c % kChunks) * 16;
+    float v[16];
+    if (r < valid) {
+      load16(src + r * ld + d, v);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) v[j] *= scale;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) v[j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; j += 4) store16(dst + r * kStride + d + j, v + j);
+  }
+}
+
+// The baseline kernel (K2 with TKV = T, K6 with TKV = int8_t): one block of
+// 256 threads per (q tile of 64 rows, head, batch).  Blocks run in no order
+// on 132 SMs, so the TPU's sequential K/V grid dimension becomes a loop
+// inside the block.  The Q tile is loaded once as fp32; each 64-row K/V
+// tile is loaded into fp32 shared memory by load_kv_tile, synchronised, and
+// folded into the running state by tile_update.  Query head h reads KV head
+// h / (H/K) and, for int8 K/V, that head's two scales (k_scale, v_scale;
+// null for float K/V).  Shared memory: Q + P + one K and one V tile, 68 KB
+// at hd = 64, requested as dynamic shared memory above the 48 KB static
+// limit.
+template <int HD, typename T, typename TKV>
+__global__ void __launch_bounds__(kThreads)
+baseline_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
+                const TKV* __restrict__ v, const float* __restrict__ k_scale,
+                const float* __restrict__ v_scale, const uint8_t* __restrict__ mask,
+                T* __restrict__ out, int S, int T_len, int H, int K, int mask_b,
+                float sm_scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* p_s = q_s + BQ * QLayout<HD>::kStride;
+  float* k_s = p_s + BQ * kPStride;
+  float* v_s = k_s + KVLayout<HD, float>::kTileElems;
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / K);
+  const float ks = k_scale ? __ldg(k_scale + kvh) : 1.f;
+  const float vs = v_scale ? __ldg(v_scale + kvh) : 1.f;
+  const uint8_t* mask_b_ptr =
+      mask + (mask_b > 1 ? static_cast<size_t>(b) * S * T_len : 0);
+
+  load_tile_f32<HD, T>(q_s, QLayout<HD>::kStride, BQ,
+                       q + ((static_cast<size_t>(b) * S + q0) * H + h) * HD,
+                       static_cast<size_t>(H) * HD, S - q0);
+  RowState<HD> st;
+  st.init();
+
+  const size_t kv_ld = static_cast<size_t>(K) * HD;
+  const int nk = (T_len + BK - 1) / BK;
+  for (int t = 0; t < nk; ++t) {
+    const int k0 = t * BK;
+    const size_t base = ((static_cast<size_t>(b) * T_len + k0) * K + kvh) * HD;
+    __syncthreads();  // every thread is done with the previous K/V and P
+    load_kv_tile<HD>(k_s, k + base, kv_ld, T_len - k0, ks);
+    load_kv_tile<HD>(v_s, v + base, kv_ld, T_len - k0, vs);
+    __syncthreads();
+    tile_update<HD, float>(st, q_s, k_s, v_s, p_s, mask_b_ptr, q0, k0, S, T_len,
+                           sm_scale);
+  }
+  finalize<HD, T>(st, out, b, h, q0, S, H);
+}
+
+template <int HD, typename T, typename TKV>
+cudaError_t launch_baseline(const void* q, const void* k, const void* v,
+                            const float* k_scale, const float* v_scale,
+                            const void* mask, void* out, int B, int S, int T_len,
+                            int H, int K, int mask_b, float sm_scale,
+                            cudaStream_t stream) {
+  const size_t smem = smem_bytes<HD, float>(2);
+  auto kern = baseline_kernel<HD, T, TKV>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  dim3 grid((S + BQ - 1) / BQ, H, B);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), k_scale, v_scale,
+      static_cast<const uint8_t*>(mask), static_cast<T*>(out), S, T_len, H, K,
+      mask_b, sm_scale);
+  return cudaGetLastError();
+}
+
+// Launch the baseline kernel with q/out of T and K/V of TKV for a head
+// width in {16, 32, 64, 128}; cudaErrorInvalidValue for another.
+template <typename T, typename TKV>
+cudaError_t dispatch_baseline(int hd, const void* q, const void* k, const void* v,
+                              const float* k_scale, const float* v_scale,
+                              const void* mask, void* out, int B, int S, int T_len,
+                              int H, int K, int mask_b, float sm_scale,
+                              cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch_baseline<16, T, TKV>(q, k, v, k_scale, v_scale, mask, out, B, S, T_len, H, K, mask_b, sm_scale, stream);
+    case 32: return launch_baseline<32, T, TKV>(q, k, v, k_scale, v_scale, mask, out, B, S, T_len, H, K, mask_b, sm_scale, stream);
+    case 64: return launch_baseline<64, T, TKV>(q, k, v, k_scale, v_scale, mask, out, B, S, T_len, H, K, mask_b, sm_scale, stream);
+    case 128: return launch_baseline<128, T, TKV>(q, k, v, k_scale, v_scale, mask, out, B, S, T_len, H, K, mask_b, sm_scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace flash

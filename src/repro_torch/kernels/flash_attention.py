@@ -1,11 +1,17 @@
-"""Wrapper of kernel K2, GQA flash attention (``csrc/flash_attention.cu``).
+"""Wrappers of kernel K2, GQA flash attention (``csrc/flash_attention.cu``),
+and K6, its int8-K/V variant (``csrc/flash_attention_int8kv.cu``).
 
 The port of ``repro/kernels/flash_attention.py::flash_attention``: q
 (B,S,H,hd), k/v (B,T,K,hd), mask (1|B,S,T) bool → (B,S,H,hd).  Masked
 scores are -1e30 with p = 0, and a row with no valid key gives 0.  The
 CUDA kernel tiles 64 query rows by 64 keys and masks ragged edges itself,
 so any S and T are taken; hd must be one of ``HEAD_DIMS``.  On CPU tensors
-the wrapper computes the plain version (``ref.flash_attention_ref``).
+the wrappers compute the plain versions (``ref.flash_attention_ref``,
+``ref.flash_attention_int8kv_ref``).
+
+K6 is the port of ``flash_attention_int8kv``: k8/v8 (B,T,K,hd) int8 with
+one fp32 scale a KV head, (K,) each, dequantized inside the tile; q and the
+output are fp32 or bf16.
 """
 
 from __future__ import annotations
@@ -30,8 +36,11 @@ FLASH_ATTENTION = _build.CudaKernel(
     replaces="src/repro/kernels/flash_attention.py:152")
 
 
-def check_flash_args(name: str, q, k, v, mask) -> None:
-    """Raise on anything the CUDA flash kernels do not take."""
+def check_flash_args(name: str, q, k, v, mask, kv_dtype=None) -> None:
+    """Raise on anything the CUDA flash kernels do not take; k and v must
+    share q's dtype, or be ``kv_dtype`` where it is given (K6's int8)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: want q (B,S,H,hd) and k, v (B,T,K,hd)")
     B, S, H, hd = q.shape
@@ -41,9 +50,10 @@ def check_flash_args(name: str, q, k, v, mask) -> None:
                          f"{tuple(k.shape)} do not match (H % K must be 0)")
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS}")
-    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"{name}: q, k, v must share fp32 or bf16, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    kv_dtype = q.dtype if kv_dtype is None else kv_dtype
+    if q.dtype not in DTYPE_CODES or k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise ValueError(f"{name}: want q fp32 or bf16 and k, v {kv_dtype}, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if (mask.dtype != torch.bool or mask.dim() != 3
             or mask.shape[0] not in (1, B) or tuple(mask.shape[1:]) != (S, T)):
         raise ValueError(f"{name}: mask must be bool (1|B, S, T), got "
@@ -67,4 +77,38 @@ def flash_attention(q, k, v, mask, *, sm_scale: float):
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask),
         _build.ptr(out), B, S, T, H, K, hd, mask.shape[0], float(sm_scale),
         DTYPE_CODES[q.dtype], q.device.index, _build.stream_of(q))
+    return out
+
+
+FLASH_ATTENTION_INT8KV = _build.CudaKernel(
+    "flash_attention_int8kv", lib="flash_attention_int8kv",
+    symbol="flash_attention_int8kv_launch",
+    argtypes=[ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    replaces="src/repro/kernels/flash_attention.py:113")
+
+
+def flash_attention_int8kv(q, k8, v8, k_scale, v_scale, mask, *,
+                           sm_scale: float):
+    """K6 on CUDA tensors, the plain version on CPU tensors.  q (B,S,H,hd)
+    fp32/bf16, k8/v8 (B,T,K,hd) int8, k_scale/v_scale (K,) fp32, mask
+    (1|B,S,T) bool → (B,S,H,hd) of q's dtype."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_int8kv_ref(q, k8, v8, k_scale, v_scale,
+                                              mask, sm_scale=sm_scale)
+    check_flash_args("flash_attention_int8kv", q, k8, v8, mask,
+                     kv_dtype=torch.int8)
+    B, S, H, hd = q.shape
+    T, K = k8.shape[1], k8.shape[2]
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if (sc.shape != (K,) or sc.dtype != torch.float32
+                or sc.device != q.device or not sc.is_contiguous()):
+            raise ValueError(f"flash_attention_int8kv: {name} must be a "
+                             f"contiguous fp32 ({K},) on {q.device}")
+    out = torch.empty_like(q)
+    FLASH_ATTENTION_INT8KV.launch(
+        _build.ptr(q), _build.ptr(k8), _build.ptr(v8), _build.ptr(k_scale),
+        _build.ptr(v_scale), _build.ptr(mask), _build.ptr(out), B, S, T, H, K,
+        hd, mask.shape[0], float(sm_scale), DTYPE_CODES[q.dtype],
+        q.device.index, _build.stream_of(q))
     return out

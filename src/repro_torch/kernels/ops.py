@@ -5,7 +5,7 @@ fallback to the plain version for shapes the kernels cannot take (a head
 width they are not built for, H not a multiple of K, a dtype other than
 fp32/bf16).  Tiles are Hopper's (64 x 64, see ``flash_attention.py``), not
 the TPU schedule's.  ``rmsnorm`` is K1.  ``ssd_scan`` routes between K7
-and K8.
+and K8.  ``int8_matmul`` routes between K4 and K5.
 """
 
 from __future__ import annotations
@@ -15,10 +15,13 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (BLOCK_K, DTYPE_CODES,
                                                  HEAD_DIMS, flash_attention)
+from repro_torch.kernels.int8_matmul import BLOCK_K as INT8_BLOCK_K
+from repro_torch.kernels.int8_matmul import int8_matmul as _int8_matmul
 from repro_torch.kernels.pipeline import (choose_depth,
                                           flash_attention_pipelined,
-                                          ssd_depth, ssd_scan_pipelined,
-                                          use_pipeline)
+                                          int8_depth, int8_matmul_pipelined,
+                                          int8_ring_takes, ssd_depth,
+                                          ssd_scan_pipelined, use_pipeline)
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 from repro_torch.kernels.ssd_scan import SSD_CHUNK
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
@@ -48,6 +51,30 @@ def flash_attention_gqa(q, k, v, mask, *, sm_scale: float,
         return flash_attention_pipelined(q, k, v, mask, sm_scale=sm_scale,
                                          depth=depth)
     return flash_attention(q, k, v, mask, sm_scale=sm_scale)
+
+
+#: Most rows that go to K5 by default: the decode regime, where the int8
+#: weight stream, not the arithmetic, sets the pace.
+INT8_PIPELINE_MAX_M = 64
+
+
+def int8_matmul(x, wq, scale, *, pipelined: bool | None = None):
+    """Quantized GEMM: x (M,K) fp32/bf16/fp16, wq (N,K) int8, scale (N,) fp32
+    → (x @ f32(wq)ᵀ) · scale[None] in x's dtype.
+
+    K5 (``pipelined``) when the k sweep has two of the kernels' 64-wide
+    steps or more (``use_pipeline``), M ≤ ``INT8_PIPELINE_MAX_M`` and K5's
+    ``cp.async`` copies take the operands (``int8_ring_takes``), else K4;
+    ``pipelined`` forces the choice where the sweep and the operands allow
+    it.
+    """
+    x, wq, scale = x.contiguous(), wq.contiguous(), scale.contiguous()
+    M, K = x.shape
+    want = M <= INT8_PIPELINE_MAX_M if pipelined is None else pipelined
+    if use_pipeline(-(-K // INT8_BLOCK_K), want) and int8_ring_takes(x, wq):
+        return int8_matmul_pipelined(x, wq, scale,
+                                     depth=int8_depth(K, x.element_size()))
+    return _int8_matmul(x, wq, scale)
 
 
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, *, eps: float = 1e-6):

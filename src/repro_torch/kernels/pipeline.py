@@ -1,9 +1,10 @@
 """Wrappers of the pipelined kernels: K3, flash attention with K/V streamed
 through a ``depth``-stage ``cp.async`` ring
-(``csrc/flash_attention_pipelined.cu``), and K8, the SSD scan with its
-x/B/C chunks streamed the same way (``csrc/ssd_scan_pipelined.cu``); the
-rule that routes between a kernel and its pipelined variant, and the ring
-depths.
+(``csrc/flash_attention_pipelined.cu``), K5, the int8-weight GEMM with its
+x and wq tiles streamed the same way (``csrc/int8_matmul_pipelined.cu``),
+and K8, the SSD scan with its x/B/C chunks streamed
+(``csrc/ssd_scan_pipelined.cu``); the rule that routes between a kernel and
+its pipelined variant, and the ring depths.
 
 The port of ``repro/kernels/pipeline.py``: ``use_pipeline`` keeps the
 reference's rule that a single streamed tile never pipelines.  The
@@ -19,6 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import int8_matmul as _i8
 from repro_torch.kernels.flash_attention import (BLOCK_K, BLOCK_Q, DTYPE_CODES,
                                                  check_flash_args)
 from repro_torch.kernels.ssd_scan import (check_ssd_args, chunk_floats,
@@ -88,6 +90,71 @@ def flash_attention_pipelined(q, k, v, mask, *, sm_scale: float,
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask),
         _build.ptr(out), B, S, T, H, K, hd, mask.shape[0], float(sm_scale),
         depth, DTYPE_CODES[q.dtype], q.device.index, _build.stream_of(q))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K5: the int8-weight GEMM with x and wq tiles streamed
+# ---------------------------------------------------------------------------
+
+#: Output tile of K5 (rows x columns): few rows and many column blocks, for
+#: the decode regime (csrc/int8_matmul_pipelined.cu).
+I8_PIPE_BLOCK_M = 8
+I8_PIPE_BLOCK_N = 32
+
+INT8_MATMUL_PIPELINED = _build.CudaKernel(
+    "int8_matmul_pipelined", lib="int8_matmul_pipelined",
+    symbol="int8_matmul_pipelined_launch",
+    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    replaces="src/repro/kernels/pipeline.py:242")
+
+
+def int8_ring_bytes(itemsize: int, depth: int) -> int:
+    """Shared memory of one K5 block: ``depth`` stages of an x tile (8 rows
+    of 64 values) and a wq tile (32 rows of 64 bytes), each row padded by
+    16 bytes (csrc/int8_tile.cuh)."""
+    bk = _i8.BLOCK_K
+    stage = (I8_PIPE_BLOCK_M * (bk * itemsize + 16)
+             + I8_PIPE_BLOCK_N * (bk + 16))
+    return depth * stage
+
+
+def int8_depth(K: int, itemsize: int, cap: int = 4) -> int:
+    """Deepest K5 ring that fits for a sweep of K values."""
+    depth = deepest_ring(lambda d: int8_ring_bytes(itemsize, d),
+                         -(-K // _i8.BLOCK_K), cap)
+    if depth is None:
+        raise ValueError(f"no int8 ring depth fits itemsize {itemsize}")
+    return depth
+
+
+def int8_ring_takes(x, wq) -> bool:
+    """True iff K5's 16-byte ``cp.async`` copies take these operands: wq
+    rows of a multiple of 16 bytes (K % 16 == 0, which also makes x's rows
+    of fp32, bf16 or fp16 whole 16-byte chunks) and 16-byte aligned
+    bases."""
+    return (x.shape[-1] % 16 == 0 and x.data_ptr() % 16 == 0
+            and wq.data_ptr() % 16 == 0)
+
+
+def int8_matmul_pipelined(x, wq, scale, *, depth: int = 2):
+    """K5 on CUDA tensors, the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return ref.int8_matmul_ref(x, wq, scale)
+    _i8.check_int8_args("int8_matmul_pipelined", x, wq, scale)
+    if not int8_ring_takes(x, wq):
+        raise ValueError(f"int8_matmul_pipelined: K={x.shape[1]} is not a "
+                         f"multiple of 16 or an operand is not 16-byte "
+                         f"aligned (cp.async); K4 takes it")
+    if depth not in DEPTHS:
+        raise ValueError(f"depth {depth} not in {DEPTHS}")
+    M, K = x.shape
+    N = wq.shape[0]
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    INT8_MATMUL_PIPELINED.launch(
+        _build.ptr(x), _build.ptr(wq), _build.ptr(scale), _build.ptr(out),
+        M, N, K, depth, _i8.DTYPE_CODES[x.dtype], x.device.index,
+        _build.stream_of(x))
     return out
 
 

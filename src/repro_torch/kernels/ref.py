@@ -31,6 +31,23 @@ def flash_attention_ref(q, k, v, mask, *, sm_scale: float):
     return o.reshape(B, S, H, hd).to(q.dtype)
 
 
+def flash_attention_int8kv_ref(q, k8, v8, k_scale, v_scale, mask, *,
+                               sm_scale: float):
+    """q: (B,S,H,hd) float, k8/v8: (B,T,K,hd) int8, k_scale/v_scale: (K,)
+    fp32 → (B,S,H,hd): K/V dequantized per KV head in fp32 (int8 · scale),
+    then ``flash_attention_ref``."""
+    kd = k8.float() * k_scale.float()[None, None, :, None]
+    vd = v8.float() * v_scale.float()[None, None, :, None]
+    return flash_attention_ref(q, kd, vd, mask, sm_scale=sm_scale)
+
+
+def int8_matmul_ref(x, wq, scale):
+    """x: (M,K) float, wq: (N,K) int8, scale: (N,) → (x @ f32(wq)ᵀ) ·
+    scale[None] in x's dtype, computed in fp32."""
+    y = x.float() @ wq.float().T
+    return (y * scale.float()[None, :]).to(x.dtype)
+
+
 def rmsnorm_ref(x, g, *, eps: float = 1e-6):
     """RMSNorm: x (R,d) · rsqrt(mean(x²) + eps) · g, statistics in fp32."""
     xf = x.float()

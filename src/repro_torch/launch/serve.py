@@ -2,8 +2,10 @@
 
 ``--continuous`` drives the paged-KV continuous-batching engine on a mixed-
 length Poisson workload; the default drives the static-batch engine on a
-uniform batch.  Runs on the card (``--device cuda``, the default) unless
-``--device cpu`` is given; TF32 is switched off so fp32 matmuls stay fp32.
+uniform batch.  ``--int8`` quantizes every ≥2-D weight to int8 per tensor
+and dequantizes it once, at load.  Runs on the card (``--device cuda``, the
+default) unless ``--device cpu`` is given; TF32 is switched off so fp32
+matmuls stay fp32.
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 weights (per-tensor), dequantized at load")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching over a Poisson workload")
     ap.add_argument("--requests", type=int, default=16,
@@ -73,13 +77,14 @@ def main(argv=None):
         eng = ContinuousEngine(
             cfg, max_batch=args.batch, page_size=ps, max_len=max_len,
             prompt_buckets=continuous_buckets(args.prompt_len, ps, max_len),
-            lowering=lowering, device=args.device)
+            quantize=args.int8, lowering=lowering, device=args.device)
         reqs = make_poisson_workload(args.requests, rate=2.0, vocab=cfg.vocab,
                                      prompt_lens=prompt_lens,
                                      out_lens=out_lens)
         stats = eng.run(reqs)
-        print(f"arch={cfg.name} continuous backend={args.backend} "
-              f"device={eng.device} requests={stats.n_requests} "
+        print(f"arch={cfg.name} continuous int8={args.int8} "
+              f"backend={args.backend} device={eng.device} "
+              f"requests={stats.n_requests} "
               f"tokens={stats.total_tokens} "
               f"TTFT={stats.mean_ttft_s * 1e3:.1f}ms "
               f"ITL={stats.mean_itl_s * 1e3:.2f}ms "
@@ -88,13 +93,14 @@ def main(argv=None):
         return stats
 
     eng = ServeEngine(cfg, max_len=args.prompt_len + args.tokens + 8,
-                      lowering=lowering, device=args.device)
+                      quantize=args.int8, lowering=lowering,
+                      device=args.device)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
                            dtype=np.int32)
     toks, stats = eng.generate({"tokens": prompts}, args.tokens)
-    print(f"arch={cfg.name} backend={args.backend} device={eng.device} "
-          f"out={toks.shape} TTFT={stats.ttft_s * 1e3:.1f}ms "
+    print(f"arch={cfg.name} int8={args.int8} backend={args.backend} "
+          f"device={eng.device} out={toks.shape} TTFT={stats.ttft_s * 1e3:.1f}ms "
           f"ITL={stats.itl_s * 1e3:.2f}ms ({stats.tokens_per_s:.1f} tok/s)")
     return stats
 

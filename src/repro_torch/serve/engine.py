@@ -1,8 +1,10 @@
 """Serving engines: the static-batch ``ServeEngine`` (one prefill + a greedy
 decode loop over the model's caches — a monolithic KV cache, or the SSM
 family's conv and state — TTFT/ITL, the paper's §6.5 LLM inference
-metrics) and the continuous-batching ``ContinuousEngine`` (attention
-families only: it refuses a model without a paged decode path):
+metrics), the continuous-batching ``ContinuousEngine`` (attention
+families only: it refuses a model without a paged decode path) and
+``StaticBatchEngine``, classic static batching over the same workload API
+(the baseline the continuous engine is compared against):
 
     RequestQueue → Scheduler (slot admission/retirement)
                  → PagedKVCache (fixed-size pages, free-list allocator)
@@ -12,9 +14,12 @@ New requests join in-flight decode batches the moment a slot and enough
 pages free up; prompts are prefilled one at a time into bucketed shapes
 and their KV scattered into pages.
 
-Both engines run on the card unless the caller asks for the CPU
+All engines run on the card unless the caller asks for the CPU
 (``device="cpu"``); with no CUDA device and no ``device`` they raise.  The
-kernels come from a ``LoweringConfig`` (default backend ``"cuda"``).
+kernels come from a ``LoweringConfig`` (default backend ``"cuda"``).  With
+``quantize=True`` every ≥2-D weight is quantized to int8 per tensor and
+dequantized once, at load (``quantize_params_int8``): the model then runs
+on the dequantized weights, as in the reference.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import torch
 
 from repro_torch.compile.config import LoweringConfig
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.registry import get_model
+from repro_torch.models import layers as L
+from repro_torch.models.registry import Model, get_model
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.scheduler import (Request, RequestQueue, Scheduler,
                                          pick_bucket)
@@ -49,6 +55,62 @@ def _to_device(params, device: torch.device):
     if isinstance(params, dict):
         return {k: _to_device(v, device) for k, v in params.items()}
     return params.to(device)
+
+
+def quantize_params_int8(params):
+    """Per-tensor symmetric int8 quantization of every ≥2-D weight (one scale
+    a stacked leaf, ``max(max|p|, 1e-12) / 127`` in fp32; ``p / scale``
+    rounded half to even and clipped to ±127); 1-D leaves stay as they are.
+    Returns (the tree with {'q', 'scale', 'dtype'} leaves, the dequant
+    function: ``q · scale`` in fp32, cast to the leaf's own dtype)."""
+
+    def _quant(p):
+        if isinstance(p, dict):
+            return {k: _quant(v) for k, v in p.items()}
+        if p.dim() < 2:
+            return p
+        pf = p.float()
+        scale = torch.clamp(pf.abs().max(), min=1e-12) / 127.0
+        q = torch.clamp(torch.round(pf / scale), -127, 127).to(torch.int8)
+        return {"q": q, "scale": scale,
+                "dtype": str(p.dtype).removeprefix("torch.")}
+
+    def _dequant(tree):
+        if isinstance(tree, dict) and "q" in tree:
+            return (tree["q"].float() * tree["scale"]).to(
+                L.dtype_of(tree["dtype"]))
+        if isinstance(tree, dict):
+            return {k: _dequant(v) for k, v in tree.items()}
+        return tree
+
+    return _quant(params), _dequant
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def quantization_error(params, qtree, dequant) -> float:
+    """Mean relative L1 error of the int8 round trip over all weights."""
+    deq = dequant(qtree)
+    num = sum(float(torch.sum(torch.abs(a.float() - b.float())))
+              for a, b in zip(_leaves(params), _leaves(deq)))
+    den = sum(float(torch.sum(torch.abs(a))) for a in _leaves(params))
+    return num / max(den, 1e-12)
+
+
+def _init_params(model: Model, params, quantize: bool, seed: int,
+                 device: torch.device):
+    """The caller's params (or the model's own from ``seed``) on ``device``,
+    through the int8 round trip when ``quantize``."""
+    params = (model.init(seed, device) if params is None
+              else _to_device(params, device))
+    if quantize:
+        qtree, dequant = quantize_params_int8(params)
+        params = dequant(qtree)
+    return params
 
 
 @dataclasses.dataclass
@@ -72,15 +134,16 @@ class ServeEngine:
     paged engine."""
 
     def __init__(self, model_cfg: ModelConfig, params=None, *,
-                 max_len: int = 512, seed: int = 0,
+                 max_len: int = 512, quantize: bool = False, seed: int = 0,
                  lowering: Optional[LoweringConfig] = None, device=None):
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.lowering = lowering if lowering is not None else LoweringConfig()
         self.model = get_model(model_cfg, lowering=self.lowering)
         self.max_len = max_len
-        self.params = (self.model.init(seed, self.device) if params is None
-                       else _to_device(params, self.device))
+        # int8 at rest, dequantized once on load
+        self.params = _init_params(self.model, params, quantize, seed,
+                                   self.device)
 
     def generate(self, batch: dict, n_tokens: int
                  ) -> tuple[np.ndarray, ServeStats]:
@@ -162,8 +225,8 @@ class ContinuousEngine:
                  max_batch: int = 8, page_size: int = 16,
                  max_len: int = 128, n_pages: Optional[int] = None,
                  prompt_buckets: tuple[int, ...] = DEFAULT_BUCKETS,
-                 seed: int = 0, lowering: Optional[LoweringConfig] = None,
-                 device=None):
+                 quantize: bool = False, seed: int = 0,
+                 lowering: Optional[LoweringConfig] = None, device=None):
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.lowering = lowering if lowering is not None else LoweringConfig()
@@ -171,8 +234,8 @@ class ContinuousEngine:
         if self.model.decode_paged is None:
             raise ValueError(
                 f"family {model_cfg.family!r} has no paged decode path")
-        self.params = (self.model.init(seed, self.device) if params is None
-                       else _to_device(params, self.device))
+        self.params = _init_params(self.model, params, quantize, seed,
+                                   self.device)
         self.max_len = max_len
         self.prompt_buckets = _filter_buckets(prompt_buckets, max_len)
         if any(b % page_size for b in self.prompt_buckets):
@@ -314,4 +377,107 @@ class ContinuousEngine:
             decode_steps += int(self.step())
         wall = time.perf_counter() - t0
         self.cache.allocator.check_leaks()
+        return _aggregate(requests, wall, decode_steps)
+
+
+class StaticBatchEngine:
+    """Classic static batching over the workload API: groups of up to
+    ``batch`` eligible requests are padded to a common prompt bucket,
+    prefilled together, and decoded for max(output length) steps — the
+    whole group holds its slots until the longest member finishes.  Output
+    tokens of shorter-prompt members are computed at padded positions
+    (standard static-batch behaviour); this engine is the throughput and
+    latency baseline, the numerics reference is ``ServeEngine``.  The KV
+    cache is updated in place."""
+
+    def __init__(self, model_cfg: ModelConfig, params=None, *,
+                 batch: int = 8, max_len: int = 128,
+                 prompt_buckets: tuple[int, ...] = DEFAULT_BUCKETS,
+                 quantize: bool = False, seed: int = 0,
+                 lowering: Optional[LoweringConfig] = None, device=None):
+        self.device = resolve_device(device)
+        self.cfg = model_cfg
+        self.lowering = lowering if lowering is not None else LoweringConfig()
+        self.model = get_model(model_cfg, lowering=self.lowering)
+        self.params = _init_params(self.model, params, quantize, seed,
+                                   self.device)
+        self.batch = batch
+        self.max_len = max_len
+        self.prompt_buckets = _filter_buckets(prompt_buckets, max_len)
+        self._prefill = lambda p, b: self.model.prefill(p, b, self.max_len)
+
+        def _decode_fn(p, t, c, pos):
+            logits, c = self.model.decode_step(p, t, c, pos)
+            return torch.argmax(logits, dim=-1).to(torch.int32), c
+
+        self._decode = _decode_fn
+
+    def run(self, requests: list[Request]) -> WorkloadStats:
+        """Serve a workload in static groups (the baseline scheduler)."""
+        queue = RequestQueue()
+        for r in requests:
+            queue.push(r)
+        t0 = time.perf_counter()
+        step_count = 0
+        decode_steps = 0
+        while queue:
+            now = time.perf_counter()
+            for r in queue:
+                if r.arrival_step <= step_count and r.t_eligible is None:
+                    r.t_eligible = now
+            group = []
+            while len(group) < self.batch:
+                req = queue.pop_eligible(step_count)
+                if req is None:
+                    break
+                if req.t_eligible is None:
+                    req.t_eligible = now
+                group.append(req)
+            if not group:
+                step_count += 1  # idle: wait for the next arrival
+                continue
+            bucket = pick_bucket(max(r.prompt_len for r in group),
+                                 self.prompt_buckets)
+            n_gen = max(r.max_new_tokens for r in group)
+            # Decode writes KV at positions bucket..bucket+n_gen-2 (the last
+            # generated token is never fed back).
+            if bucket + n_gen - 1 > self.max_len:
+                raise ValueError(
+                    f"group needs positions up to {bucket + n_gen - 2} but "
+                    f"the KV cache holds max_len={self.max_len}")
+            tokens = np.zeros((self.batch, bucket), np.int32)
+            for i, r in enumerate(group):
+                tokens[i, :r.prompt_len] = r.prompt
+            logits, caches = self._prefill(
+                self.params, {"tokens": torch.from_numpy(tokens).to(
+                    self.device)})
+            token = torch.argmax(logits, dim=-1).to(torch.int32)
+            host = token.cpu().numpy()  # sync before the TTFT stamp
+            now = time.perf_counter()
+            for i, r in enumerate(group):
+                r.out_tokens.append(int(host[i]))
+                r.t_first_token = now
+                if r.max_new_tokens == 1:
+                    r.t_done = now
+            n_steps = n_gen - 1
+            for j in range(n_steps):
+                token, caches = self._decode(self.params, token, caches,
+                                             bucket + j)
+                host = token.cpu().numpy()
+                now = time.perf_counter()
+                for i, r in enumerate(group):
+                    if len(r.out_tokens) < r.max_new_tokens:
+                        r.out_tokens.append(int(host[i]))
+                        if len(r.out_tokens) >= r.max_new_tokens:
+                            r.t_done = now
+                # Requests whose virtual arrival falls inside this group's
+                # decode start waiting now; stamping here (not after the
+                # group drains) charges that head-of-line wait to their TTFT.
+                for r in queue:
+                    if (r.arrival_step <= step_count + j + 1
+                            and r.t_eligible is None):
+                        r.t_eligible = now
+            step_count += n_steps
+            decode_steps += n_steps
+        wall = time.perf_counter() - t0
         return _aggregate(requests, wall, decode_steps)

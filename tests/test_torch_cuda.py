@@ -9,7 +9,11 @@ Tolerances are the reference's (tests/test_kernels.py:18): fp32 atol 2e-5 /
 rtol 2e-4, bf16 2e-2.  The point-cloud kernels (K9-K13) must match their
 plain versions exactly: indices, and the max-pool, which only selects.  The
 SSD scan kernels (K7, K8) hold the reference's atol 5e-4 / rtol 1e-3
-(tests/test_kernels.py:86).
+(tests/test_kernels.py:86).  The int8 GEMMs (K4, K5) hold, in fp32, an
+atol of K ulps (2^-23) of their largest product |x|·|scale·wq| (see
+``_int8_tol``) and, in bf16 and fp16, the reference's 0.5 / rtol 2e-2
+(tests/test_kernels.py:69); the int8-K/V flash kernel (K6) atol 2e-5 /
+rtol 1e-4 in fp32 (tests/test_kernels.py:124).
 """
 
 import pytest
@@ -19,7 +23,9 @@ from repro_torch.compile.config import LoweringConfig
 from repro_torch.configs.base import reduced
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_int8kv)
+from repro_torch.kernels.int8_matmul import int8_matmul
 from repro_torch.kernels import pipeline
 from repro_torch.kernels.pipeline import flash_attention_pipelined
 from repro_torch.kernels.ssd_scan import ssd_scan
@@ -402,3 +408,152 @@ def test_reduced_mamba2_cuda_backend_matches_torch_backend(gen):
     got, _ = cuda_m.decode_step(params, tok, gc, 100)
     want, _ = plain_m.decode_step(params, tok, wc, 100)
     torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# int8 kernels K4, K5, K6
+# ---------------------------------------------------------------------------
+
+INT8_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _int8_tol(x, wq, scale):
+    """fp32: K ulps (2^-23) of the largest product |x|·|scale·wq|, the
+    rounding of a K-term fp32 sum in either version's order, which a TF32
+    or bf16 rounding of x exceeds many times over; bf16 and fp16: the
+    reference's 0.5 / rtol 2e-2, whose output rounding dominates."""
+    if x.dtype != torch.float32:
+        return dict(atol=0.5, rtol=2e-2)
+    big = float(x.abs().max()) * float((scale[:, None] * wq).abs().max())
+    return dict(atol=x.shape[1] * big * 2.0 ** -23, rtol=0.0)
+
+
+def _int8_inputs(gen, M, N, K, dtype):
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+    wq = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    scale = 0.001 + 0.019 * torch.rand((N,), generator=gen, device="cuda")
+    return x, wq, scale
+
+
+# M, N, K: ragged M, N and K around the tiles (K4 64 x 64, K5 8 x 32, k steps
+# of 64), one row, llama110m's decode and prefill projections
+INT8 = [(1, 1000, 768), (7, 1000, 768), (100, 1000, 768), (8, 768, 768),
+        (8, 32000, 768), (512, 2048, 768), (65, 33, 2048), (3, 5, 16),
+        (130, 70, 80)]
+
+
+@pytest.mark.parametrize("dtype", INT8_DTYPES)
+@pytest.mark.parametrize("M,N,K", INT8)
+def test_int8_matmul_kernels(gen, M, N, K, dtype):
+    x, wq, scale = _int8_inputs(gen, M, N, K, dtype)
+    want = ref.int8_matmul_ref(x, wq, scale)
+    tol = _int8_tol(x, wq, scale)
+    got = _launched("int8_matmul", lambda: int8_matmul(x, wq, scale))
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, want, **tol)
+    for depth in pipeline.DEPTHS:
+        got = _launched("int8_matmul_pipelined", lambda: (
+            pipeline.int8_matmul_pipelined(x, wq, scale, depth=depth)))
+        torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("dtype", INT8_DTYPES)
+@pytest.mark.parametrize("M,N,K", [(1, 7, 5), (7, 1000, 100), (100, 1000, 100),
+                                   (64, 130, 1000)])
+def test_int8_matmul_k4_takes_k_off_the_16_grid(gen, M, N, K, dtype):
+    x, wq, scale = _int8_inputs(gen, M, N, K, dtype)
+    got = _launched("int8_matmul", lambda: int8_matmul(x, wq, scale))
+    torch.testing.assert_close(got, ref.int8_matmul_ref(x, wq, scale),
+                               **_int8_tol(x, wq, scale))
+
+
+def test_int8_route_falls_back_to_k4_where_k5_cannot_copy(gen):
+    """K off the 16-byte grid, or an operand off 16-byte alignment, goes
+    to K4 even when K5 is asked for; K5 itself refuses them.  A single
+    64-wide k step never pipelines."""
+    x, wq, scale = _int8_inputs(gen, 8, 96, 100, torch.float32)
+    got = _launched("int8_matmul", lambda: ops.int8_matmul(x, wq, scale,
+                                                           pipelined=True))
+    torch.testing.assert_close(got, ref.int8_matmul_ref(x, wq, scale),
+                               **_int8_tol(x, wq, scale))
+    x, wq, scale = _int8_inputs(gen, 8, 96, 768, torch.float32)
+    buf = torch.empty(x.numel() + 1, device="cuda")
+    xs = buf[1:].view(8, 768)          # contiguous, 4 bytes off alignment
+    xs.copy_(x)
+    assert xs.is_contiguous() and xs.data_ptr() % 16
+    got = _launched("int8_matmul", lambda: ops.int8_matmul(xs, wq, scale))
+    torch.testing.assert_close(got, ref.int8_matmul_ref(x, wq, scale),
+                               **_int8_tol(x, wq, scale))
+    x64, wq64, scale64 = _int8_inputs(gen, 8, 96, 64, torch.float32)
+    _launched("int8_matmul", lambda: ops.int8_matmul(x64, wq64, scale64,
+                                                     pipelined=True))
+    with pytest.raises(ValueError):
+        pipeline.int8_matmul_pipelined(*_int8_inputs(gen, 8, 96, 100,
+                                                     torch.float32))
+    x, wq, scale = _int8_inputs(gen, 8, 96, 768, torch.float32)
+    _launched("int8_matmul_pipelined", lambda: ops.int8_matmul(x, wq, scale))
+    _launched("int8_matmul", lambda: ops.int8_matmul(x, wq, scale,
+                                                     pipelined=False))
+    _launched("int8_matmul_pipelined",
+              lambda: LoweringConfig("cuda").int8_matmul(x, wq, scale))
+
+
+def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    x, wq, scale = _int8_inputs(gen, 8, 64, 64, torch.float32)
+    k5 = lambda *a: pipeline.int8_matmul_pipelined(*a, depth=2)  # noqa: E731
+    for fn in (int8_matmul, k5):
+        for args in ((x.double(), wq, scale), (x, wq.float(), scale),
+                     (x, wq, scale.double()), (x, wq[:, :32], scale),
+                     (x, wq, scale[:10]), (x.t(), wq, scale),
+                     (x[:0], wq, scale), (x.to("meta"), wq, scale)):
+            with pytest.raises(ValueError):
+                fn(*args)
+    with pytest.raises(ValueError):
+        pipeline.int8_matmul_pipelined(x, wq, scale, depth=5)
+
+
+def _int8kv_cuda(gen, B, S, H, K, T, hd, dtype):
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+    kf = torch.randn((B, T, K, hd), generator=gen, device="cuda")
+    vf = torch.randn((B, T, K, hd), generator=gen, device="cuda")
+    ks = kf.abs().amax(dim=(0, 1, 3)) / 127.0
+    vs = vf.abs().amax(dim=(0, 1, 3)) / 127.0
+    k8 = torch.round(kf / ks[None, None, :, None]).clamp(-127, 127)
+    v8 = torch.round(vf / vs[None, None, :, None]).clamp(-127, 127)
+    return q, kf, vf, k8.to(torch.int8), v8.to(torch.int8), ks, vs
+
+
+@pytest.mark.parametrize("per_batch_mask", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,K,hd", FLASH)
+def test_flash_int8kv_kernel(gen, B, S, T, H, K, hd, dtype, per_batch_mask):
+    q, kf, vf, k8, v8, ks, vs = _int8kv_cuda(gen, B, S, H, K, T, hd, dtype)
+    mask = _flash_inputs(gen, B, S, T, H, K, hd, dtype, per_batch_mask)[3]
+    scale = hd ** -0.5
+    want = ref.flash_attention_int8kv_ref(q, k8, v8, ks, vs, mask,
+                                          sm_scale=scale)
+    got = _launched("flash_attention_int8kv", lambda: flash_attention_int8kv(
+        q, k8, v8, ks, vs, mask, sm_scale=scale))
+    tol = (dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32
+           else _tol(dtype))
+    torch.testing.assert_close(got, want, **tol)
+    if per_batch_mask:
+        assert float(got[:, :_dead_rows(S)].abs().max()) == 0.0
+    if dtype == torch.float32:
+        fp = ref.flash_attention_ref(q, kf, vf, mask, sm_scale=scale)
+        assert float((got - fp).abs().max()) < 0.1
+
+
+def test_flash_int8kv_wrapper_raises_on_what_the_kernel_does_not_take(gen):
+    q, _, _, k8, v8, ks, vs = _int8kv_cuda(gen, 1, 64, 4, 2, 64, 64,
+                                           torch.float32)
+    mask = torch.ones((1, 64, 64), dtype=torch.bool, device="cuda")
+    for args in ((q, k8.float(), v8.float(), ks, vs, mask),
+                 (q, k8, v8, ks[:1], vs, mask),
+                 (q, k8, v8, ks, vs.double(), mask),
+                 (q[..., :48].contiguous(), k8[..., :48].contiguous(),
+                  v8[..., :48].contiguous(), ks, vs, mask),
+                 (q.half(), k8, v8, ks, vs, mask)):
+        with pytest.raises(ValueError):
+            flash_attention_int8kv(*args, sm_scale=0.125)

@@ -118,7 +118,7 @@ def test_unknown_op_and_backend_raise():
     with pytest.raises(ValueError):
         LoweringConfig("pallas")
     with pytest.raises(ValueError):
-        lower("int8_matmul", shape=(1, 1, 1), dtype=torch.float32)
+        lower("conv2d", shape=(1, 1, 1), dtype=torch.float32)
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
