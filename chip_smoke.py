@@ -18,13 +18,22 @@ Phases (any failure exits non-zero; nothing is caught):
 3. kernels: K1 rmsnorm, K2 flash attention, K3 pipelined flash attention at
    the main paths' shapes (batch 1 for the continuous engine's prefills,
    batch 8 and R = 8·bucket rows for run (i1)'s static groups) against
-   their plain versions (fp32 atol 2e-5 / rtol 2e-4, bf16 2e-2: the
-   reference's tests/test_kernels.py:18), one JSON
+   their plain versions (fp32 atol 2e-5 / rtol 2e-4, bf16 and fp16 2e-2:
+   the reference's tests/test_kernels.py:18), one JSON
    line per case with device times (CUDA events around back-to-back
-   launches queued behind a GPU spin, so host overhead is excluded), the
-   plain version's and one PyTorch library call's time as a yardstick, and
-   the bound: max(bytes / 3.35 TB/s, flops / peak), with fp32 work on the
-   67 TFLOP/s CUDA-core rate and bf16 on the 989 TFLOP/s tensor cores.
+   launches queued behind a GPU spin, so host overhead is excluded: ``ms``
+   repeats one call on the same inputs, ``cold_ms`` rotates through copies
+   of them past 4x the 50 MB L2), the plain version's and one PyTorch
+   library call's time as a yardstick, and the bound: max(bytes / 3.35
+   TB/s, flops / peak), with fp32 work on the 67 TFLOP/s CUDA-core rate
+   and bf16/fp16 on the 989 TFLOP/s tensor cores.  K1 rows also time the
+   first design's two-pass loop shape (``loop_ms``, ``loop_cold_ms``) and
+   ``F.rms_norm`` cold; K1 fp16 rows; K2/K3 at head dims 80, 96 and 256
+   (one KV head) and in fp16.
+4b. sync check: one ``layers.attention_decode_paged`` at llama110m's width
+   with inactive slots under ``torch.cuda.set_sync_debug_mode("error")``
+   (any host sync raises), equal to the same call outside it; then a whole
+   ``decode_step_paged`` under that mode, reported.
 4. serve: llama110m (12 layers, d 768, 12 heads, vocab 32000, fp32, random
    weights from seed 0) through ``ContinuousEngine`` on backend "cuda":
    16 Poisson requests, prompts up to 512, buckets 16..512, 8 slots, pages
@@ -50,7 +59,8 @@ Phases (any failure exits non-zero; nothing is caught):
    (b) PointNet++ SSG ModelNet40 SA1 (Qi et al., NeurIPS 2017: 1024 points,
    512 centers, r=0.2, 32 samples) at batch 16, C=64, points uniform in
    the unit ball; (c) run (a) with ``pipelined=False``.  Across the three,
-   every one of K9-K13 must have launched.
+   every one of K9-K13 must have launched.  The kernel rows include fp16
+   at (a)'s shape (distances in fp32, exact as bf16's).
 6. ssm kernels: K1 at the SSM path's widths (d 2560 and 5120, 2048 rows of
    a 4 x 512 prefill and 4 of a decode step, fp32 and bf16; tolerances of
    phase 3), then K7 ssd_scan and K8 ssd_scan_pipelined (every ring depth
@@ -63,7 +73,9 @@ Phases (any failure exits non-zero; nothing is caught):
    (K7 64, K8 32), a ragged S=300, and a strong decay (dt·A ≈ -7 a step,
    where exp(acum_q - acum_k) for k > q overflows fp32); bound = max(bytes
    / 3.35 TB/s, ops / 67 TFLOP/s), one bound for both kernels, see
-   SSD_FORMULA.  No single PyTorch call computes the scan: library null.
+   SSD_FORMULA.  Then bf16 and fp16 I/O (tolerance 2e-2) at the model's
+   widths, P = 6 and N = 256, in fp32 and bf16, K8 at every depth that
+   fits.  No single PyTorch call computes the scan: library null.
 7. ssm serve: mamba2-2.7b (64 layers, d 2560, 80 heads of 64, state 128,
    vocab 50280; random weights from seed 0), each run with launch counts
    zeroed just before and read just after and required exact: every
@@ -95,7 +107,8 @@ Phases (any failure exits non-zero; nothing is caught):
    ``flash_attention_int8kv_ref`` at atol 2e-5 / rtol 1e-4 (fp32,
    tests/test_kernels.py:124; bf16 phase 3's) and within 0.1 of the fp
    oracle on the unquantized K/V; bound as K2's over the causal pairs with
-   int8 K/V bytes; no one-call library counterpart.
+   int8 K/V bytes; no one-call library counterpart.  Also K6 at head dims
+   80, 96 and 256 and with fp16 q.
 9. int8 serve (i1): llama110m as in phase 4 (fp32, random weights from
    seed 0) through ``StaticBatchEngine(quantize=True)`` on backend "cuda":
    the serve phase's 16 Poisson requests in static groups of 8 padded to
@@ -128,7 +141,9 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,      # fp32 on the CUDA cores
               "bfloat16": 989e12,    # bf16 dense on the tensor cores
               "float16": 989e12}     # fp16 dense on the tensor cores
-TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 2e-2)}
+# fp16 keeps 3 more mantissa bits than bf16 and is held to bf16's bound
+TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 2e-2),
+       "float16": (2e-2, 2e-2)}
 BUCKETS = (16, 32, 64, 128, 256, 512)
 SERVE_KERNELS = ("rmsnorm", "flash_attention", "flash_attention_pipelined")
 SSD_TOL = (5e-4, 1e-3)
@@ -136,7 +151,8 @@ SSD_TOL = (5e-4, 1e-3)
 # kernels' fp32 rows are held tighter, see int8_tol
 INT8_TOL = {"float32": (1e-2, 2e-2), "bfloat16": (0.5, 2e-2),
             "float16": (0.5, 2e-2)}
-INT8KV_TOL = {"float32": (2e-5, 1e-4), "bfloat16": TOL["bfloat16"]}
+INT8KV_TOL = {"float32": (2e-5, 1e-4), "bfloat16": TOL["bfloat16"],
+              "float16": TOL["float16"]}
 LLAMA_PROJ = ((768, 768), (768, 2048), (2048, 768), (768, 32000))  # (K, N)
 # bf16 mamba2: backend "cuda" may be at most this many times as far from the
 # fp32 answer as backend "torch" (both are bf16 rounding apart from it)
@@ -169,6 +185,32 @@ def device_ms(fn, iters: int, spin: int = 200_000_000) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: Bytes of the card's L2; ``cold_ms`` rotates inputs through 4x that.
+L2_BYTES = 50 * 1024 ** 2
+#: Most calls ``cold_ms`` queues: the launch queue holds about a thousand,
+#: and a host that blocks on a full queue would show in the time.
+COLD_MAX_COPIES = 512
+
+
+def cold_ms(fn, inputs, iters: int = 20) -> float:
+    """Device time of one call whose inputs are not in L2: ``fn(*copy)``
+    over a rotation of copies of ``inputs`` whose bytes pass 4x the 50 MB L2
+    (at most COLD_MAX_COPIES copies: inputs under ~400 KB rotate through
+    less than 4x the L2, and partly hit it), so each timed call reads from
+    HBM inputs that ``device_ms``'s repeated call would find in L2; the
+    spin is long enough for the host to queue every call."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    n = min(COLD_MAX_COPIES, max(2, -(-4 * L2_BYTES // nbytes)))
+    copies = [[t.clone() for t in inputs] for _ in range(n)]
+    calls = max(n, iters)
+    k = [0]
+
+    def step():
+        fn(*copies[k[0] % n])
+        k[0] += 1
+    return device_ms(step, calls, spin=20_000_000 + 80_000 * calls)
+
+
 def build_kernels() -> dict:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -195,25 +237,60 @@ def _check(name: str, got, want, dtype: str, tol=None) -> float:
     return float(err.max())
 
 
-def rmsnorm_case(R: int, d: int, dtype: str, gen) -> dict:
+def rmsnorm_case(R: int, d: int, dtype: str, gen,
+                 alternatives: bool = False) -> dict:
+    """K1 at (R, d) against its plain version; device times warm (``ms``)
+    and with x out of L2 (``cold_ms``) for K1's plan, for its two-pass loop
+    shape (the first design, ``loop_ms``) and for ``F.rms_norm``.  With
+    ``alternatives``, also [warm, cold] of the row shapes of 1-4 vectors a
+    thread and the rows shapes of 1-2 (``alt_plans_ms``, by (mode, vpt,
+    threads)); shapes repeated across vpt are timed once."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels import rmsnorm as k1
     dt = getattr(torch, dtype)
     x = torch.randn((R, d), generator=gen, device="cuda").to(dt)
     g = torch.rand((d,), generator=gen, device="cuda") + 0.5
-    got = rmsnorm(x, g, eps=1e-6)
+    loop = k1.Plan(k1.LOOP, 0, k1.LOOP_THREADS)
+    want = ref.rmsnorm_ref(x, g)
+    got = k1.rmsnorm(x, g, eps=1e-6)
+    got_loop = k1.rmsnorm(x, g, eps=1e-6, shape=loop)
     torch.cuda.synchronize()
-    err = _check(f"rmsnorm R={R} {dtype}", got, ref.rmsnorm_ref(x, g), dtype)
+    err = _check(f"rmsnorm R={R} d={d} {dtype}", got, want, dtype)
+    _check(f"rmsnorm loop R={R} d={d} {dtype}", got_loop, want, dtype)
     g_lib = g.to(dt)
+    run = lambda x: k1.rmsnorm(x, g, eps=1e-6)  # noqa: E731
+    old = lambda x: k1.rmsnorm(x, g, eps=1e-6, shape=loop)  # noqa: E731
+    lib = lambda x: F.rms_norm(x, (d,), g_lib, 1e-6)  # noqa: E731
     nbytes = 2 * R * d * x.element_size() + d * 4
     flops = 4 * R * d
-    return _row("rmsnorm", f"R={R} d={d} {dtype}", err,
-                device_ms(lambda: rmsnorm(x, g, eps=1e-6), 100),
-                device_ms(lambda: ref.rmsnorm_ref(x, g, eps=1e-6), 100),
-                device_ms(lambda: F.rms_norm(x, (d,), g_lib, 1e-6), 100),
-                nbytes, flops, dtype)
+    row = _row("rmsnorm", f"R={R} d={d} {dtype}", err,
+               device_ms(lambda: run(x), 100),
+               device_ms(lambda: ref.rmsnorm_ref(x, g, eps=1e-6), 100),
+               device_ms(lambda: lib(x), 100), nbytes, flops, dtype)
+    row.update(plan=list(k1.plan(R, d, x.element_size())),
+               cold_ms=cold_ms(run, (x,)),
+               loop_ms=device_ms(lambda: old(x), 100),
+               loop_cold_ms=cold_ms(old, (x,)),
+               library_cold_ms=cold_ms(lib, (x,)))
+    if alternatives:
+        nv = d // (16 // x.element_size())
+        shapes = [k1.Plan(mode, vpt, 32 * -(-nv // (32 * vpt)))
+                  for mode, vpts in ((k1.ROW, (1, 2, 3, 4)),
+                                     (k1.ROWS, (1, 2)))
+                  for vpt in vpts]
+        alt = {}
+        for shape in dict.fromkeys(shapes):
+            if shape.threads > k1.MAX_ROW_THREADS:
+                continue
+            _check(f"rmsnorm {shape} R={R} d={d} {dtype}",
+                   k1.rmsnorm(x, g, shape=shape), want, dtype)
+            fn = lambda x, shape=shape: k1.rmsnorm(x, g, shape=shape)  # noqa: E731
+            alt[str(tuple(shape))] = [device_ms(lambda: fn(x), 100),
+                                      cold_ms(fn, (x,))]
+        row["alt_plans_ms"] = alt
+    return row
 
 
 def _row(kernel, case, err, ms, plain_ms, library_ms, nbytes, flops, dtype):
@@ -227,14 +304,14 @@ def _row(kernel, case, err, ms, plain_ms, library_ms, nbytes, flops, dtype):
 
 
 def flash_case(kernel: str, S: int, T: int, H: int, K: int, dtype: str, gen,
-               mask_kind: str = "causal", depth: int = 0, B: int = 1) -> dict:
+               mask_kind: str = "causal", depth: int = 0, B: int = 1,
+               hd: int = 64) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.pipeline import flash_attention_pipelined
     dt = getattr(torch, dtype)
-    hd = 64
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt)
     k = torch.randn((B, T, K, hd), generator=gen, device="cuda").to(dt)
     v = torch.randn((B, T, K, hd), generator=gen, device="cuda").to(dt)
@@ -246,10 +323,12 @@ def flash_case(kernel: str, S: int, T: int, H: int, K: int, dtype: str, gen,
         mask[:, :8, :] = False
     scale = hd ** -0.5
     if kernel == "flash_attention":
-        run = lambda: flash_attention(q, k, v, mask, sm_scale=scale)  # noqa: E731
+        call = lambda q, k, v: flash_attention(  # noqa: E731
+            q, k, v, mask, sm_scale=scale)
     else:
-        run = lambda: flash_attention_pipelined(  # noqa: E731
+        call = lambda q, k, v: flash_attention_pipelined(  # noqa: E731
             q, k, v, mask, sm_scale=scale, depth=depth)
+    run = lambda: call(q, k, v)  # noqa: E731
     plain = lambda: ref.flash_attention_ref(q, k, v, mask, sm_scale=scale)  # noqa: E731
     got = run()
     torch.cuda.synchronize()
@@ -270,9 +349,11 @@ def flash_case(kernel: str, S: int, T: int, H: int, K: int, dtype: str, gen,
         + mask.numel()
     flops = 4 * hd * H * int(mask.expand(B, S, T).sum())
     iters = 20 if B * S >= 256 else 50
-    return _row(kernel, case, err, device_ms(run, iters),
-                device_ms(plain, iters), device_ms(lib, iters), nbytes, flops,
-                dtype)
+    row = _row(kernel, case, err, device_ms(run, iters),
+               device_ms(plain, iters), device_ms(lib, iters), nbytes, flops,
+               dtype)
+    row["cold_ms"] = cold_ms(call, (q, k, v))
+    return row
 
 
 def kernel_phase() -> list[dict]:
@@ -283,8 +364,10 @@ def kernel_phase() -> list[dict]:
     for R in (8, *BUCKETS):                  # decode batch, prefill buckets
         rows.append(rmsnorm_case(R, 768, "float32", gen))
     for R in (1024, 4096):                   # (i1)'s groups of 8 at 128, 512
-        rows.append(rmsnorm_case(R, 768, "float32", gen))
+        rows.append(rmsnorm_case(R, 768, "float32", gen,
+                                 alternatives=R == 4096))
     rows.append(rmsnorm_case(512, 768, "bfloat16", gen))
+    rows.append(rmsnorm_case(512, 768, "float16", gen))
     for S in (16, 64, 256, 512):
         rows.append(flash_case("flash_attention", S, S, 12, 12, "float32", gen))
     rows.append(flash_case("flash_attention", 128, 128, 12, 4, "float32", gen))
@@ -311,6 +394,21 @@ def kernel_phase() -> list[dict]:
                            "float32", gen, depth=2, B=8))
     rows.append(flash_case("flash_attention_pipelined", 512, 512, 12, 12,
                            "float32", gen, depth=4, B=8))
+    # the instantiations the reference's lowering reaches beyond the main
+    # path: head dims 80 and 96 (run at width 128), 256 with one KV head
+    # (paligemma-3b's attention: 32-key tiles in K3), and fp16
+    for kernel, depths in (("flash_attention", {}),
+                           ("flash_attention_pipelined",
+                            {(80, "float32"): 2, (96, "bfloat16"): 4,
+                             (256, "float32"): 2, (256, "bfloat16"): 4,
+                             (64, "float16"): 4})):
+        for hd, H, K, dtype in ((80, 12, 12, "float32"),
+                                (96, 12, 12, "bfloat16"),
+                                (256, 8, 1, "float32"),
+                                (256, 8, 1, "bfloat16"),
+                                (64, 12, 12, "float16")):
+            rows.append(flash_case(kernel, 256, 256, H, K, dtype, gen,
+                                   depth=depths.get((hd, dtype), 0), hd=hd))
     for r in rows:
         print(json.dumps(r))
     return rows
@@ -410,6 +508,73 @@ def serve_phase() -> dict:
     return launches
 
 
+def sync_check_phase() -> dict:
+    """One call of ``layers.attention_decode_paged`` at llama110m's full
+    width (8 slots, 3 of them inactive) under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any host
+    sync; its output must equal the same call's outside that mode.  Then
+    one whole ``decode_step_paged`` under the same mode, reported (not
+    required): whether the step could be captured in a CUDA graph as it
+    stands."""
+    import torch
+    from repro_torch.compile.config import LoweringConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import layers
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.serve.kv_cache import PagedKVCache
+    cfg = get_config("llama110m")
+    lw = LoweringConfig("cuda")
+    model = get_model(cfg, lowering=lw)
+    params = model.init(0, "cuda")
+    cache = PagedKVCache(cfg, max_batch=8, page_size=16, n_pages=8 * 34,
+                         max_len=544, device=torch.device("cuda"))
+    for slot, n in ((0, 40), (2, 511), (3, 16), (5, 100), (6, 1)):
+        cache.bind_slot(slot, n + 16)
+        cache.seq_lens[slot] = n
+    pt, sl, act = cache.device_views({0, 2, 3, 5, 6})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    x = torch.randn((8, 1, cfg.d_model), generator=gen, device="cuda")
+    attn = layer_params(params["blocks"], 0)["attn"]
+    kp, vp = cache.k_pages[0], cache.v_pages[0]
+    pools = (kp.clone(), vp.clone())
+    want, _, _ = layers.attention_decode_paged(attn, x, cfg, *pools, pt, sl,
+                                               act, lowering=lw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, _, _ = layers.attention_decode_paged(attn, x, cfg, kp, vp, pt,
+                                                  sl, act, lowering=lw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the spare page (last) takes the inactive slots' colliding writes
+    if not torch.equal(got, want) or not (
+            torch.equal(kp[:-1], pools[0][:-1])
+            and torch.equal(vp[:-1], pools[1][:-1])):
+        raise AssertionError("attention_decode_paged under sync-debug "
+                             "differs from the same call outside it")
+    tokens = torch.randint(0, cfg.vocab, (8,), generator=gen, device="cuda")
+    model.decode_paged(params, tokens, cache.k_pages, cache.v_pages, pt, sl,
+                       act)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_paged(params, tokens, cache.k_pages, cache.v_pages, pt,
+                           sl, act)
+        step = "no host sync"
+    except RuntimeError as e:
+        step = "syncs: " + str(e).strip().splitlines()[0][:200]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    summary = {"phase": "sync_check", "attention_decode_paged": "no host sync",
+               "decode_step_paged": step}
+    print(json.dumps(summary))
+    return summary
+
+
 # -- point-cloud phase --------------------------------------------------------
 
 PC_SHAPES = {  # B, N, M, k, C, radius
@@ -449,7 +614,7 @@ def pc_inputs(shape: str, dtype: str = "float32"):
 
 
 def _pc_row(kernel, case, got, want, ms, plain_ms, nbytes, ops, dtype,
-            library_ms=None):
+            library_ms=None, cold=None):
     import torch
     if got.shape != want.shape or not torch.equal(got, want):
         bad = int((got != want).sum()) if got.shape == want.shape else -1
@@ -460,6 +625,7 @@ def _pc_row(kernel, case, got, want, ms, plain_ms, nbytes, ops, dtype,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS["float32"] * 1e3
     row = {"kernel": kernel, "case": case, "max_abs_err": 0.0, "ms": ms,
+           "cold_ms": cold_ms(*cold) if cold else None,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "library_note": PC_LIBRARY.get(kernel.replace("_pipelined", ""),
                                           "no single PyTorch call"),
@@ -481,7 +647,7 @@ def pointcloud_kernel_phase() -> list[dict]:
     def clouds():
         """(case, xyz, centers, features, S/M, k, radius) per case."""
         for shape, dtype in (("a", "float32"), ("a", "bfloat16"),
-                             ("b", "float32")):
+                             ("a", "float16"), ("b", "float32")):
             xyz, feats, M, k, r = pc_inputs(shape, dtype)
             yield f"{shape} {dtype}", xyz, None, feats, M, k, r
         gen = torch.Generator(device="cuda")
@@ -506,7 +672,8 @@ def pointcloud_kernel_phase() -> list[dict]:
                 "fps", case, pck.fps(xyz, M), sel,
                 device_ms(lambda: pck.fps(xyz, M), 10),
                 device_ms(lambda: pcref.fps_ref(xyz, M), 2),
-                B * N * 3 * it + B * M * 4, 10 * B * N * (M - 1), dtype))
+                B * N * 3 * it + B * M * 4, 10 * B * N * (M - 1), dtype,
+                cold=(lambda p: pck.fps(p, M), (xyz,), 10)))
             centers = torch.gather(xyz, 1, sel.long()[..., None].expand(-1, -1, 3))
         if "empty" in case:
             n_hit = (pcref.sqdist(centers[:, :, None], xyz[:, None])
@@ -519,13 +686,16 @@ def pointcloud_kernel_phase() -> list[dict]:
         rows.append(_pc_row(
             "ball_query", case, pck.ball_query(xyz, centers, r, k), idx,
             device_ms(lambda: pck.ball_query(xyz, centers, r, k), 20), plain,
-            nbytes, 10 * B * M * N, dtype))
+            nbytes, 10 * B * M * N, dtype,
+            cold=(lambda p, c: pck.ball_query(p, c, r, k), (xyz, centers))))
         for depth in (2, 3, 4):
-            run = lambda: pck.ball_query_pipelined(  # noqa: E731
-                xyz, centers, r, k, depth=depth)
+            call = lambda p, c, depth=depth: pck.ball_query_pipelined(  # noqa: E731
+                p, c, r, k, depth=depth)
+            run = lambda: call(xyz, centers)  # noqa: E731
             rows.append(_pc_row(
                 "ball_query_pipelined", f"{case} depth={depth}", run(), idx,
-                device_ms(run, 20), plain, nbytes, 10 * B * M * N, dtype))
+                device_ms(run, 20), plain, nbytes, 10 * B * M * N, dtype,
+                cold=(call, (xyz, centers))))
         f = feats.to(xyz.dtype)
         want = pcref.group_aggregate_ref(f, idx)
         rows_read = int(torch.unique(
@@ -545,13 +715,16 @@ def pointcloud_kernel_phase() -> list[dict]:
         rows.append(_pc_row(
             "group_aggregate", case, pck.group_aggregate(f, idx), want,
             device_ms(lambda: pck.group_aggregate(f, idx), 50), plain,
-            nbytes, B * M * k * C, dtype, lib_ms))
+            nbytes, B * M * k * C, dtype, lib_ms,
+            cold=(pck.group_aggregate, (f, idx))))
         for depth in (2, 3, 4):
-            run = lambda: pck.group_aggregate_pipelined(f, idx, depth=depth)  # noqa: E731
+            call = lambda f, i, depth=depth: pck.group_aggregate_pipelined(  # noqa: E731
+                f, i, depth=depth)
+            run = lambda: call(f, idx)  # noqa: E731
             rows.append(_pc_row(
                 "group_aggregate_pipelined", f"{case} depth={depth}", run(),
                 want, device_ms(run, 50), plain, nbytes, B * M * k * C, dtype,
-                lib_ms))
+                lib_ms, cold=(call, (f, idx))))
     return rows
 
 
@@ -622,8 +795,8 @@ def pointcloud_path_phase() -> dict:
 
 # -- SSM phase -----------------------------------------------------------------
 
-SSD_FORMULA = ("bytes = 4*(2*BT*H*S*P + BT*H*S + 2*BT*S*N + H) (x, y, dt, B, "
-               "C, A); ops = 4*BT*H*S*N*P: the least any form of the scan "
+SSD_FORMULA = ("bytes = itemsize*(2*BT*H*S*P + BT*H*S + 2*BT*S*N) + 4*H "
+               "(x, y, dt, B, C; A fp32); ops = 4*BT*H*S*N*P: the least any form of the scan "
                "needs, one FMA a state element a position for the update "
                "and one for the output (the chunked form does both and its "
                "causal Q x Q products on top); one bound for K7 and K8, "
@@ -632,10 +805,10 @@ SSD_MAIN = (4, 80, 512, 64, 128)     # BT, H, S, P, N of the serving prefill
 SSD_SHORT = (4, 80, 40, 64, 128)     # the 40-token prefill of run (s3): K7
 
 
-def ssd_inputs(BT, H, S, P, N, seed, strong=False):
+def ssd_inputs(BT, H, S, P, N, seed, strong=False, dtype="float32"):
     """x, dt, A, B, C on the card from numpy's ``seed`` (dt and A in the
     ranges of tests/test_kernels.py, or a decay strong enough to overflow
-    exp of the masked entries)."""
+    exp of the masked entries); x, dt, B, C in ``dtype``, A in fp32."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -645,45 +818,52 @@ def ssd_inputs(BT, H, S, P, N, seed, strong=False):
               rng.uniform(dt_lo, dt_hi, size=(BT, H, S)),
               -rng.uniform(a_lo, a_hi, size=(H,)),
               rng.normal(size=(BT, S, N)), rng.normal(size=(BT, S, N)))
-    return [torch.from_numpy(a.astype(np.float32)).cuda() for a in arrays]
+    dt = getattr(torch, dtype)
+    return [torch.from_numpy(a.astype(np.float32)).cuda().to(
+        torch.float32 if i == 2 else dt) for i, a in enumerate(arrays)]
 
 
 def ssd_case(kernel: str, shape, depth: int = 0, strong: bool = False,
-             plain: bool = True) -> dict:
+             plain: bool = True, dtype: str = "float32") -> dict:
     import torch
     from repro_torch.kernels import pipeline, ref
-    from repro_torch.kernels.ssd_scan import SSD_CHUNK, ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_scan
     BT, H, S, P, N = shape
-    args = ssd_inputs(BT, H, S, P, N, seed=S + BT, strong=strong)
+    args = ssd_inputs(BT, H, S, P, N, seed=S + BT, strong=strong, dtype=dtype)
+    itemsize = args[0].element_size()
     if kernel == "ssd_scan":
-        run = lambda: ssd_scan(*args)  # noqa: E731
-        Q = SSD_CHUNK
+        call = ssd_scan
+        Q = ssd_chunk(P, N)
     else:
-        run = lambda: pipeline.ssd_scan_pipelined(*args, depth=depth)  # noqa: E731
-        Q = pipeline.SSD_PIPE_CHUNK
+        call = lambda *a: pipeline.ssd_scan_pipelined(*a, depth=depth)  # noqa: E731
+        Q = pipeline.ssd_pipe_chunk(P, N, depth, itemsize)
+    run = lambda: call(*args)  # noqa: E731
     got = run()
     torch.cuda.synchronize()
     want = ref.ssd_scan_ref(*args)
-    atol, rtol = SSD_TOL
-    err = (got - want).abs()
-    bad = err > atol + rtol * want.abs()
+    atol, rtol = SSD_TOL if dtype == "float32" else TOL[dtype]
+    err = (got.float() - want.float()).abs()
+    bad = err > atol + rtol * want.float().abs()
     case = (f"BT={BT} H={H} S={S} P={P} N={N}" + (" strong" if strong else "")
+            + (f" {dtype}" if dtype != "float32" else "")
             + (f" depth={depth}" if depth else ""))
     if not torch.isfinite(got).all() or bad.any():
         raise AssertionError(f"{kernel} {case}: {int(bad.sum())} elements off "
                              f"(max abs err {float(err.max()):.3e})")
-    nbytes = 4 * (2 * BT * H * S * P + BT * H * S + 2 * BT * S * N + H)
+    nbytes = (itemsize * (2 * BT * H * S * P + BT * H * S + 2 * BT * S * N)
+              + 4 * H)
     ops = 4 * BT * H * S * N * P
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS["float32"] * 1e3
     plain_ms = device_ms(lambda: ref.ssd_scan_ref(*args), 2) if plain \
         else None
     row = {"kernel": kernel, "case": case, "max_abs_err": float(err.max()),
-           "ms": device_ms(run, 20), "plain_ms": plain_ms, "library_ms": None,
+           "ms": device_ms(run, 20), "cold_ms": cold_ms(call, args),
+           "plain_ms": plain_ms, "library_ms": None,
            "library_note": "no single PyTorch call",
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bound_formula": SSD_FORMULA, "chunk": Q, "dtype": "float32"}
+           "bound_formula": SSD_FORMULA, "chunk": Q, "dtype": dtype}
     print(json.dumps(row))
     return row
 
@@ -695,16 +875,17 @@ def ssm_kernel_phase() -> list[dict]:
     # 4 x 512 prefill, a decode step of 4), in fp32 (s1) and bf16 (s2, s3)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    rows = [rmsnorm_case(R, d, dtype, gen) for R in (2048, 4)
-            for d in (2560, 5120) for dtype in ("float32", "bfloat16")]
+    rows = [rmsnorm_case(R, d, dtype, gen, alternatives=R > 4)
+            for R in (2048, 4) for d in (2560, 5120)
+            for dtype in ("float32", "bfloat16")]
+    rows.append(rmsnorm_case(2048, 5120, "float16", gen))
     for r in rows:
         print(json.dumps(r))
     BT, H, S, P, N = SSD_MAIN
     # K7 at the one shape the path gives it, and at the 512-token shape
     # (which the router sends to K8) beside K8
     rows += [ssd_case("ssd_scan", SSD_SHORT), ssd_case("ssd_scan", SSD_MAIN)]
-    depths = [d for d in pipeline.DEPTHS
-              if pipeline.ssd_ring_bytes(P, N, d) <= pipeline.MAX_SMEM]
+    depths = [d for d in pipeline.DEPTHS if pipeline.ssd_pipe_chunk(P, N, d)]
     for d in depths:
         rows.append(ssd_case("ssd_scan_pipelined", SSD_MAIN, depth=d))
     # S=1, below/around K7's 64 and K8's 32, ragged, strong decay; 8 heads
@@ -716,6 +897,22 @@ def ssm_kernel_phase() -> list[dict]:
         for d in depths:
             rows.append(ssd_case("ssd_scan_pipelined", shape, depth=d,
                                  strong=strong, plain=False))
+    # the inputs the reference's lowering reaches beyond the path: bf16 and
+    # fp16 at the model's widths, P = 6 (element loads, padded to 8 in the
+    # block), N = 256 (K7 at a 32-position chunk, K8 at 16 in fp32); K8 at
+    # every depth that fits
+    for shape, dtype in (((2, 8, 300, P, N), "bfloat16"),
+                         ((2, 8, 300, P, N), "float16"),
+                         ((2, 8, 100, 6, N), "float32"),
+                         ((2, 8, 100, 6, N), "bfloat16"),
+                         ((2, 8, 100, P, 256), "float32"),
+                         ((2, 8, 100, P, 256), "bfloat16")):
+        rows.append(ssd_case("ssd_scan", shape, plain=False, dtype=dtype))
+        it = 4 if dtype == "float32" else 2
+        for d in pipeline.DEPTHS:
+            if pipeline.ssd_pipe_chunk(shape[3], shape[4], d, it):
+                rows.append(ssd_case("ssd_scan_pipelined", shape, depth=d,
+                                     plain=False, dtype=dtype))
     return rows
 
 
@@ -927,11 +1124,12 @@ def int8_case(kernel: str, M: int, N: int, K: int, dtype: str, gen) -> dict:
                        dtype=torch.int8)
     scale = 0.001 + 0.019 * torch.rand((N,), generator=gen, device="cuda")
     if kernel == "int8_matmul":
-        run = lambda: int8_matmul(x, wq, scale)  # noqa: E731
+        call = lambda x, wq: int8_matmul(x, wq, scale)  # noqa: E731
     else:
         depth = pipeline.int8_depth(K, x.element_size())
-        run = lambda: pipeline.int8_matmul_pipelined(  # noqa: E731
+        call = lambda x, wq: pipeline.int8_matmul_pipelined(  # noqa: E731
             x, wq, scale, depth=depth)
+    run = lambda: call(x, wq)  # noqa: E731
     plain = lambda: ref.int8_matmul_ref(x, wq, scale)  # noqa: E731
     got = run()
     torch.cuda.synchronize()
@@ -948,18 +1146,19 @@ def int8_case(kernel: str, M: int, N: int, K: int, dtype: str, gen) -> dict:
                device_ms(lib, max(3, iters // 4), spin) if lib else None,
                nbytes, 2 * M * N * K, dtype)
     row.update(library_note=note, bound_formula=INT8_FORMULA,
-               atol=tol[dtype][0], rtol=tol[dtype][1])
+               atol=tol[dtype][0], rtol=tol[dtype][1],
+               cold_ms=cold_ms(call, (x, wq)))
     print(json.dumps(row))
     return row
 
 
 def int8kv_case(S: int, H: int, K: int, dtype: str, gen,
-                mask_kind: str = "causal") -> dict:
+                mask_kind: str = "causal", hd: int = 64) -> dict:
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_int8kv
     dt = getattr(torch, dtype)
-    B, T, hd = 1, S, 64
+    B, T = 1, S
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt)
     kf = torch.randn((B, T, K, hd), generator=gen, device="cuda")
     vf = torch.randn((B, T, K, hd), generator=gen, device="cuda")
@@ -972,8 +1171,9 @@ def int8kv_case(S: int, H: int, K: int, dtype: str, gen,
     if mask_kind == "fully_masked_rows":
         mask[:, :8, :] = False
     scale = hd ** -0.5
-    run = lambda: flash_attention_int8kv(  # noqa: E731
+    call = lambda q, k8, v8: flash_attention_int8kv(  # noqa: E731
         q, k8, v8, ks, vs, mask, sm_scale=scale)
+    run = lambda: call(q, k8, v8)  # noqa: E731
     plain = lambda: ref.flash_attention_int8kv_ref(  # noqa: E731
         q, k8, v8, ks, vs, mask, sm_scale=scale)
     got = run()
@@ -998,7 +1198,8 @@ def int8kv_case(S: int, H: int, K: int, dtype: str, gen,
                device_ms(plain, iters, spin), None, nbytes, flops, dtype)
     row.update(library_note="no one-call counterpart (SDPA takes no int8 "
                             "K/V with per-head scales)",
-               max_abs_err_vs_fp_oracle=fp_err)
+               max_abs_err_vs_fp_oracle=fp_err,
+               cold_ms=cold_ms(call, (q, k8, v8)))
     print(json.dumps(row))
     return row
 
@@ -1027,6 +1228,12 @@ def int8_kernel_phase() -> list[dict]:
                                  (512, 12, 12, "bfloat16", "causal"),
                                  (64, 12, 12, "bfloat16", "causal")):
         rows.append(int8kv_case(S, H, K, dtype, gen, kind))
+    # head dims 80, 96 and 256 (one KV head), and fp16 q
+    for S, H, K, dtype, hd in ((256, 12, 12, "float32", 80),
+                               (256, 12, 12, "bfloat16", 96),
+                               (256, 8, 1, "float32", 256),
+                               (256, 12, 12, "float16", 64)):
+        rows.append(int8kv_case(S, H, K, dtype, gen, "causal", hd))
     return rows
 
 
@@ -1227,6 +1434,7 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
         out.append({"name": name, "route": "cuda", "source": kern.source,
                     "replaces": kern.replaces, "launches": launches[name],
                     "max_abs_err": err, "ms": row["ms"],
+                    "cold_ms": row.get("cold_ms"),
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"],
@@ -1256,6 +1464,7 @@ def main() -> int:
     print(json.dumps({"phase": "build", **build_kernels()}))
     rows = kernel_phase()
     launches = serve_phase()
+    sync_check_phase()
     rows += pointcloud_kernel_phase()
     pc_launches = pointcloud_path_phase()
     rows += ssm_kernel_phase()

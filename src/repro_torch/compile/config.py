@@ -12,17 +12,22 @@ Until the reference's e-graph dispatch engine is ported, ``lower`` is a
 fixed table that reproduces the reference's decisions for the dense, the
 SSM and the point-cloud ops:
 
+Every kernel takes fp32, bf16 and fp16, as the reference's do:
+
 * ``rmsnorm`` → the kernel at every shape;
-* ``attention`` / ``attention_decode`` / ``attention_paged`` with S ≥ 8 and
-  a head layout the flash kernels take → the flash kernel;
+* ``attention`` / ``attention_decode`` / ``attention_paged`` with S ≥ 8 →
+  the flash kernel, for H a multiple of K and any head dim up to 256 (the
+  widest instantiation); a head dim above 256 takes the reference, a
+  stated deviation (the reference's kernel takes any);
 * any of them with S < 8 (a degenerate query tile: decode) → the reference;
 * ``matmul`` → the reference (the negative control: no ISAX for a GEMM);
-* ``int8_matmul`` (M, K, N) with fp32, bf16 or fp16 activations → the
-  kernel at every shape (the reference's ``down_pow2`` always finds a
-  dividing tile; the port's kernels take any M, N, K);
-* ``ssd_scan`` in fp32 → the kernel at every sequence length (the reference
-  rounds its chunk down to a power of two that divides S; the port's
-  kernels take any S), unless P or N is one the kernels are not built for;
+* ``int8_matmul`` (M, K, N) → the kernel at every shape (the reference's
+  ``down_pow2`` always finds a dividing tile; the port's kernels take any
+  M, N, K);
+* ``ssd_scan`` → the kernel at every sequence length (the reference rounds
+  its chunk down to a power of two that divides S; the port's kernels take
+  any S) and at any P and N whose (N, P) fp32 state and chunk fit one
+  block's shared memory (``ssd_tileable``; P = N = 256 does not);
 * ``fps`` → the kernel unless asked for more samples than points;
 * ``ball_query`` / ``group_aggregate`` → the kernel unless the reference
   cannot tile the shape (``pointcloud.ops.tileable``).
@@ -39,13 +44,14 @@ from __future__ import annotations
 
 import dataclasses
 
-import torch
-
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as kernel_ref
-from repro_torch.kernels.flash_attention import DTYPE_CODES
-from repro_torch.kernels.int8_matmul import DTYPE_CODES as INT8_DTYPE_CODES
+from repro_torch.kernels.flash_attention import DTYPE_CODES as FLASH_DTYPES
+from repro_torch.kernels.flash_attention import MAX_HEAD_DIM
+from repro_torch.kernels.int8_matmul import DTYPE_CODES as INT8_DTYPES
 from repro_torch.kernels.ops import flash_tileable
+from repro_torch.kernels.rmsnorm import DTYPE_CODES as RMSNORM_DTYPES
+from repro_torch.kernels.ssd_scan import DTYPE_CODES as SSD_DTYPES
 from repro_torch.kernels.ssd_scan import ssd_tileable
 from repro_torch.pointcloud import ops as pc_ops
 from repro_torch.pointcloud import ref as pc_ref
@@ -56,6 +62,12 @@ MIN_QUERY_TILE = 8
 ATTENTION_OPS = ("attention", "attention_decode", "attention_paged")
 POINTCLOUD_TARGETS = {"fps": "fps", "ball_query": "ball_query",
                       "group_aggregate": "group_agg"}
+#: Activation dtypes each op's kernels take (the point-cloud kernels share
+#: the flash kernels' codes).
+KERNEL_DTYPES = {"rmsnorm": RMSNORM_DTYPES, "int8_matmul": INT8_DTYPES,
+                 "ssd_scan": SSD_DTYPES,
+                 **{op: FLASH_DTYPES for op in (*ATTENTION_OPS,
+                                                *POINTCLOUD_TARGETS)}}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,22 +115,21 @@ class LoweringConfig:
             raise ValueError(f"unknown op {op!r}")
         if self.backend == "torch":
             return Lowering("reference", "backend 'torch'")
-        if op == "ssd_scan":   # fp32 on the path (models/mamba2.ssm_block)
-            if dtype != torch.float32:
-                return Lowering("reference", f"no {target} kernel for "
-                                             f"{dtype}")
-            if not ssd_tileable(shape[3], shape[4]):
-                return Lowering("reference", f"untileable state "
-                                             f"P={shape[3]} N={shape[4]}")
-            return Lowering("isax", f"kernel {target}")
-        codes = INT8_DTYPE_CODES if op == "int8_matmul" else DTYPE_CODES
-        if dtype not in codes:
+        if dtype not in KERNEL_DTYPES[op]:
             return Lowering("reference", f"no {target} kernel for {dtype}")
+        if op == "ssd_scan" and not ssd_tileable(shape[3], shape[4]):
+            return Lowering("reference", f"state P={shape[3]} N={shape[4]} "
+                                         f"does not fit one block's shared "
+                                         f"memory")
         if op in ATTENTION_OPS:
             B, S, H, K, T, hd = shape
             if S < MIN_QUERY_TILE:
                 return Lowering("reference", f"degenerate query tile (S={S} "
                                              f"< {MIN_QUERY_TILE})")
+            if hd > MAX_HEAD_DIM:
+                return Lowering("reference", f"head dim {hd} > "
+                                             f"{MAX_HEAD_DIM}, the widest "
+                                             f"flash kernel")
             if not flash_tileable(H, K, hd, dtype):
                 return Lowering("reference", f"untileable shape H={H} K={K} "
                                              f"hd={hd}")

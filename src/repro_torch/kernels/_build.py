@@ -26,8 +26,11 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+# -split-compile=0 lets one source's optimizer use the cores the other,
+# shorter builds leave idle (flash_attention_pipelined.cu has 90 kernels)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+              "-split-compile=0")
 #: Dynamic shared memory one block may use on sm_90 (bytes).
 MAX_SMEM = 232_448
 

@@ -49,9 +49,18 @@ ball_query_kernel(const T* __restrict__ xyz, const T* __restrict__ centers,
   if (active) finalize(st, k, row);
 }
 
+template <typename T>
+cudaError_t launch(const void* xyz, const void* centers, void* out, int N, int M, int k,
+                   float r2, dim3 grid, cudaStream_t s) {
+  ball_query_kernel<T><<<grid, kThreads, 0, s>>>(static_cast<const T*>(xyz),
+                                                 static_cast<const T*>(centers),
+                                                 static_cast<int*>(out), N, M, k, r2);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// xyz (B, N, 3) and centers (B, M, 3), fp32 or bf16, contiguous;
+// xyz (B, N, 3) and centers (B, M, 3), fp32, bf16 or fp16, contiguous;
 // out (B, M, k) int32; r2 the squared radius as the reference rounds it.
 // Launches on `stream` and returns cudaGetLastError().
 REPRO_EXPORT int ball_query_launch(const void* xyz, const void* centers, void* out,
@@ -62,17 +71,5 @@ REPRO_EXPORT int ball_query_launch(const void* xyz, const void* centers, void* o
   if (B <= 0 || N <= 0 || M <= 0 || k <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid((M + kWarps - 1) / kWarps, B);
-  if (dtype == kFloat32) {
-    ball_query_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(xyz), static_cast<const float*>(centers),
-        static_cast<int*>(out), N, M, k, r2);
-  } else if (dtype == kBFloat16) {
-    ball_query_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(xyz),
-        static_cast<const __nv_bfloat16*>(centers), static_cast<int*>(out), N, M,
-        k, r2);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  REPRO_DISPATCH_FLOAT(dtype, T, launch<T>(xyz, centers, out, N, M, k, r2, grid, s));
 }

@@ -124,9 +124,6 @@ REPRO_EXPORT int ball_query_pipelined_launch(const void* xyz, const void* center
   if (B <= 0 || N <= 0 || M <= 0 || k <= 0) return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(xyz) & 15) return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return dispatch_depth<float>(depth, xyz, centers, out, B, N, M, k, r2, s);
-  if (dtype == kBFloat16)
-    return dispatch_depth<__nv_bfloat16>(depth, xyz, centers, out, B, N, M, k, r2, s);
-  return cudaErrorInvalidValue;
+  REPRO_DISPATCH_FLOAT(dtype, T,
+                       dispatch_depth<T>(depth, xyz, centers, out, B, N, M, k, r2, s));
 }

@@ -23,6 +23,7 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -70,7 +71,8 @@ __device__ __forceinline__ void load16(const __half* p, float* out) {
   }
 }
 
-// Store 4 fp32 or 8 bf16 values (given as fp32) at a 16-byte-aligned address.
+// Store 4 fp32 or 8 bf16/fp16 values (given as fp32) at a 16-byte-aligned
+// address.
 __device__ __forceinline__ void store16(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -81,6 +83,57 @@ __device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
 }
+__device__ __forceinline__ void store16(__half* p, const float* v) {
+  uint4 u;
+  __half2* h = reinterpret_cast<__half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// 4 consecutive elements at an address aligned to 4 elements, as fp32
+// (16 bytes of fp32, 8 of bf16 or fp16), and the matching store.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const T* e = reinterpret_cast<const T*>(&u);
+  return make_float4(to_f32(e[0]), to_f32(e[1]), to_f32(e[2]), to_f32(e[3]));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float4 v) {
+  uint2 u;
+  T* e = reinterpret_cast<T*>(&u);
+  e[0] = from_f32<T>(v.x);
+  e[1] = from_f32<T>(v.y);
+  e[2] = from_f32<T>(v.z);
+  e[3] = from_f32<T>(v.w);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// Launch `fn<T>()` for the dtype code of a float tensor (fp32, bf16, fp16);
+// cudaErrorInvalidValue for another code.
+#define REPRO_DISPATCH_FLOAT(dtype, T, ...)                 \
+  do {                                                     \
+    if ((dtype) == kFloat32) {                             \
+      using T = float;                                     \
+      return __VA_ARGS__;                                  \
+    }                                                      \
+    if ((dtype) == kBFloat16) {                            \
+      using T = __nv_bfloat16;                             \
+      return __VA_ARGS__;                                  \
+    }                                                      \
+    if ((dtype) == kFloat16) {                             \
+      using T = __half;                                    \
+      return __VA_ARGS__;                                  \
+    }                                                      \
+    return cudaErrorInvalidValue;                          \
+  } while (0)
 
 // Four int8 values packed in a 32-bit word (byte i = element i) as fp32,
 // exactly: each byte is biased to unsigned (xor 0x80), spliced into the

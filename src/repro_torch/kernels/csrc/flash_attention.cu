@@ -11,16 +11,18 @@
 // (2*S + 2*T)*hd*4 bytes, i.e. ~S/4 flop/byte: compute-bound on the fp32
 // CUDA-core rate (67 TFLOP/s) once S passes ~80, memory-bound below.
 //
-// Design: flash::baseline_kernel (flash_tile.cuh) with K/V of q's type:
-// each 64-row K/V tile is loaded with 16-byte vector loads and converted to
-// fp32 in shared memory, and flash::tile_update folds it into the running
+// Design: flash::baseline_kernel (flash_tile.cuh) with K/V of q's type
+// (fp32, bf16 or fp16; any head dim up to 256, built at the padded widths
+// 16 ... 256): each 64-row K/V tile is loaded with 16-byte vector loads and
+// converted to fp32 in shared memory, and flash::tile_update folds it into the running
 // state (fp32 FFMA, no TF32: parity with the fp32 reference is the point
 // of this first version; tensor cores come later).
 #include "flash_tile.cuh"
 
 // q: (B,S,H,hd), k/v: (B,T,K,hd), out: (B,S,H,hd), all contiguous of
-// `dtype`; mask: (mask_b,S,T) contiguous bool with mask_b in {1, B}.
-// hd in {16, 32, 64, 128}; H % K == 0.  Returns cudaGetLastError().
+// `dtype` (fp32, bf16, fp16); mask: (mask_b,S,T) contiguous bool with
+// mask_b in {1, B}.  1 <= hd <= 256; H % K == 0.  Returns
+// cudaGetLastError().
 REPRO_EXPORT int flash_attention_launch(const void* q, const void* k, const void* v,
                                         const void* mask, void* out, int B, int S,
                                         int T_len, int H, int K, int hd, int mask_b,
@@ -30,13 +32,8 @@ REPRO_EXPORT int flash_attention_launch(const void* q, const void* k, const void
   if (e != cudaSuccess) return e;
   if (B <= 0 || S <= 0 || T_len <= 0 || K <= 0 || H % K != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return flash::dispatch_baseline<float, float>(hd, q, k, v, nullptr, nullptr, mask,
-                                                  out, B, S, T_len, H, K, mask_b,
-                                                  sm_scale, s);
-  if (dtype == kBFloat16)
-    return flash::dispatch_baseline<__nv_bfloat16, __nv_bfloat16>(
-        hd, q, k, v, nullptr, nullptr, mask, out, B, S, T_len, H, K, mask_b,
-        sm_scale, s);
-  return cudaErrorInvalidValue;
+  REPRO_DISPATCH_FLOAT(dtype, T,
+                       flash::dispatch_baseline<T, T>(hd, q, k, v, nullptr, nullptr,
+                                                      mask, out, B, S, T_len, H, K,
+                                                      mask_b, sm_scale, s));
 }

@@ -21,8 +21,8 @@
 
 // q: (B,S,H,hd) of `dtype`; k8/v8: (B,T,K,hd) int8; k_scale/v_scale: (K,)
 // fp32; mask: (mask_b,S,T) bool with mask_b in {1, B}; out: (B,S,H,hd) of
-// `dtype`; all contiguous, k8/v8 16-byte aligned.  hd in {16, 32, 64, 128};
-// H % K == 0.  Returns cudaGetLastError().
+// `dtype` (fp32, bf16, fp16); all contiguous, k8/v8 16-byte aligned.
+// 1 <= hd <= 256; H % K == 0.  Returns cudaGetLastError().
 REPRO_EXPORT int flash_attention_int8kv_launch(
     const void* q, const void* k8, const void* v8, const void* k_scale,
     const void* v_scale, const void* mask, void* out, int B, int S, int T_len, int H,
@@ -33,11 +33,8 @@ REPRO_EXPORT int flash_attention_int8kv_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
-  if (dtype == kFloat32)
-    return flash::dispatch_baseline<float, int8_t>(hd, q, k8, v8, ks, vs, mask, out, B,
-                                                   S, T_len, H, K, mask_b, sm_scale, s);
-  if (dtype == kBFloat16)
-    return flash::dispatch_baseline<__nv_bfloat16, int8_t>(
-        hd, q, k8, v8, ks, vs, mask, out, B, S, T_len, H, K, mask_b, sm_scale, s);
-  return cudaErrorInvalidValue;
+  REPRO_DISPATCH_FLOAT(dtype, T,
+                       flash::dispatch_baseline<T, int8_t>(hd, q, k8, v8, ks, vs, mask,
+                                                           out, B, S, T_len, H, K,
+                                                           mask_b, sm_scale, s));
 }

@@ -159,7 +159,7 @@ cudaError_t launch(const void* xyz, void* out, void* dscr, int B, int N, int S,
 
 }  // namespace
 
-// xyz (B, N, 3) fp32 or bf16, contiguous; out (B, S) int32.  1 <= S <= N.
+// xyz (B, N, 3) fp32, bf16 or fp16, contiguous; out (B, S) int32.  1 <= S <= N.
 // Above 8 * 1024 points `dscr` must hold B * N floats of scratch (it is not
 // touched at or below that size).
 // Launches on `stream` and returns cudaGetLastError().
@@ -169,7 +169,5 @@ REPRO_EXPORT int fps_launch(const void* xyz, void* out, void* dscr, int B, int N
   if (e != cudaSuccess) return e;
   if (B <= 0 || N <= 0 || S <= 0 || S > N) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch<float>(xyz, out, dscr, B, N, S, s);
-  if (dtype == kBFloat16) return launch<__nv_bfloat16>(xyz, out, dscr, B, N, S, s);
-  return cudaErrorInvalidValue;
+  REPRO_DISPATCH_FLOAT(dtype, T, launch<T>(xyz, out, dscr, B, N, S, s));
 }

@@ -56,7 +56,7 @@ cudaError_t launch(const void* f, const void* idx, void* out, int B, int N, int 
 
 }  // namespace
 
-// features (B, N, C) fp32 or bf16 and idx (B, M, k) int32, contiguous;
+// features (B, N, C) fp32, bf16 or fp16 and idx (B, M, k) int32, contiguous;
 // out (B, M, C) in the features' dtype.  k >= 1.
 // Launches on `stream` and returns cudaGetLastError().
 REPRO_EXPORT int group_aggregate_launch(const void* f, const void* idx, void* out,
@@ -66,7 +66,5 @@ REPRO_EXPORT int group_aggregate_launch(const void* f, const void* idx, void* ou
   if (e != cudaSuccess) return e;
   if (B <= 0 || N <= 0 || M <= 0 || k <= 0 || C <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch<float>(f, idx, out, B, N, M, k, C, s);
-  if (dtype == kBFloat16) return launch<__nv_bfloat16>(f, idx, out, B, N, M, k, C, s);
-  return cudaErrorInvalidValue;
+  REPRO_DISPATCH_FLOAT(dtype, T, launch<T>(f, idx, out, B, N, M, k, C, s));
 }

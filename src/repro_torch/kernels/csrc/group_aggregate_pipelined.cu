@@ -151,9 +151,6 @@ REPRO_EXPORT int group_aggregate_pipelined_launch(const void* f, const void* idx
   if (B <= 0 || N <= 0 || M <= 0 || k <= 0 || C <= 0) return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(f) & 15) return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return dispatch_depth<float>(depth, f, idx, out, B, N, M, k, C, s);
-  if (dtype == kBFloat16)
-    return dispatch_depth<__nv_bfloat16>(depth, f, idx, out, B, N, M, k, C, s);
-  return cudaErrorInvalidValue;
+  REPRO_DISPATCH_FLOAT(dtype, T,
+                       dispatch_depth<T>(depth, f, idx, out, B, N, M, k, C, s));
 }

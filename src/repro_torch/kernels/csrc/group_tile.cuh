@@ -5,7 +5,8 @@
 // kernel gathers rows as a one-hot matmul per streamed feature tile (the
 // MXU's spelling of a gather) into a running max.  On this card the gather
 // is a direct indexed load, which is exact, and the max runs in fp32
-// registers; a bf16 value survives the round trip through fp32 unchanged.
+// registers; a bf16 or fp16 value survives the round trip through fp32
+// unchanged.
 #pragma once
 
 #include <math.h>

@@ -13,97 +13,104 @@
 // order, which takes the place of the TPU's sequential grid dimension; the
 // state stays in shared memory from chunk to chunk (ssd_tile.cuh).  The
 // chunk is this card's, 64 positions (135 KB of shared memory at N=128,
-// P=64), not the TPU schedule's, and any S is taken: positions past S in
-// the last chunk are read as dt = 0 and never written.  Each chunk is
-// loaded straight from global memory (B transposed on the way in, B and C
-// being shared by the heads of a batch row and mostly L2 hits), then the
-// block computes the masked scores, the output and the state update.
-// fp32 throughout, no TF32.
+// P=64), not the TPU schedule's, or 32 where a 64-position block does not
+// fit (N = 256 at P = 64: 236.5 KB against 227 KB); the wrapper picks it.
+// Any S is taken: positions past S in the last chunk are read as dt = 0
+// and never written.  Each chunk is loaded straight from global memory and
+// widened to fp32 (B transposed on the way in, B and C being shared by the
+// heads of a batch row and mostly L2 hits), then the block computes the
+// masked scores, the output and the state update.  fp32 arithmetic
+// throughout, no TF32; x, dt, B, C and y are fp32, bf16 or fp16, A fp32.
 #include "ssd_tile.cuh"
 
 namespace {
 
 using namespace ssd;
 
-constexpr int kChunk = 64;
-
 // Shared memory of one block (bytes); kernels/ssd_scan.py mirrors it.
-long long smem_bytes(int P, int N) {
-  return 4LL * (fixed_floats(kChunk, P, N) + chunk_floats(kChunk, P, N));
+long long smem_bytes(int Q, const Dims& dm) {
+  return 4LL * (fixed_floats(Q, dm.PP, dm.NP) + chunk_floats(Q, dm.PP, dm.NP));
 }
 
-template <int Q>
+// ALIGNED: P and N are whole 16-byte vectors of T, so every row loads and
+// stores 4 at a time (fixed at compile time).
+template <typename T, int Q, bool ALIGNED>
 __global__ void __launch_bounds__(kThreads, 1)
-ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const float* __restrict__ B,
-                const float* __restrict__ C, float* __restrict__ y, int H, int S,
-                int P, int N) {
+ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                const float* __restrict__ A, const T* __restrict__ B,
+                const T* __restrict__ C, T* __restrict__ y, int H, int S, Dims dm) {
   extern __shared__ __align__(16) float smem[];
-  const Smem s = carve(smem, Q, P, N);
-  float* x_s = smem + fixed_floats(Q, P, N);
-  float* c_s = x_s + Q * P;
+  const Smem s = carve(smem, Q, dm);
+  float* x_s = smem + fixed_floats(Q, dm.PP, dm.NP);
+  float* c_s = x_s + Q * dm.PP;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const float a = A[h];
   const size_t bh = static_cast<size_t>(b) * H + h;
   const int nc = (S + Q - 1) / Q;
-  zero_state(s, P, N);
+  const bool vx = ALIGNED || dm.P % 4 == 0, vbc = ALIGNED || dm.N % 4 == 0;
+  zero_state(s, dm);
 
   for (int ci = 0; ci < nc; ++ci) {
     const int c0 = ci * Q;
     const int valid = min(Q, S - c0);
     __syncthreads();  // the previous chunk is done with x_s, c_s, bt and h
-    const float* xg = x + (bh * S + c0) * P;
-    const float* bg = B + (static_cast<size_t>(b) * S + c0) * N;
-    const float* cg = C + (static_cast<size_t>(b) * S + c0) * N;
-    for (int idx = threadIdx.x; idx < Q * (P / 4); idx += kThreads) {
-      const int row = idx / (P / 4);
-      const int col = (idx % (P / 4)) * 4;
-      st4(x_s + row * P + col,
-          row < valid ? ld4(xg + static_cast<size_t>(row) * P + col) : make_float4(0.f, 0.f, 0.f, 0.f));
-    }
-    for (int idx = threadIdx.x; idx < Q * (N / 4); idx += kThreads) {
-      const int row = idx / (N / 4);
-      const int col = (idx % (N / 4)) * 4;
-      st4(c_s + row * (N + 4) + col,
-          row < valid ? ld4(cg + static_cast<size_t>(row) * N + col) : make_float4(0.f, 0.f, 0.f, 0.f));
-    }
-    transpose_b<Q>(s.bt, bg, N, valid, N);
+    const size_t bc = (static_cast<size_t>(b) * S + c0) * dm.N;
+    load_rows<Q>(x_s, dm.PP, x + (bh * S + c0) * dm.P, dm.P, dm.P, valid, vx);
+    load_rows<Q>(c_s, dm.NP + 4, C + bc, dm.N, dm.N, valid, vbc);
+    transpose_b<Q>(s.bt, B + bc, dm.N, valid, dm, vbc);
     scan_chunk<Q>(s, dt + bh * S + c0, a, valid);
     __syncthreads();
-    scores<Q>(s, c_s, N);
-    __syncthreads();
-    chunk_out<Q>(s, x_s, c_s, P, N, ci > 0, y + (bh * S + c0) * P, valid);
-    if (ci + 1 < nc) {  // the last chunk's state is not needed
-      __syncthreads();
-      scale_x<Q>(s, x_s, P);
-      __syncthreads();
-      state_update<Q>(s, x_s, P, N);
-    }
+    chunk_step<Q>(s, x_s, c_s, dm, ci == 0, ci + 1 == nc, y + (bh * S + c0) * dm.P,
+                  valid, vx);
+  }
+}
+
+template <typename T, int Q>
+cudaError_t launch(const void* x, const void* dt, const void* A, const void* B,
+                   const void* C, void* y, int BT, int H, int S, const Dims& dm,
+                   cudaStream_t stream) {
+  const long long smem = smem_bytes(Q, dm);
+  if (smem > 232448) return cudaErrorInvalidConfiguration;
+  constexpr int V = Vec16<T>::N;
+  auto kern = dm.P % V == 0 && dm.N % V == 0 ? ssd_scan_kernel<T, Q, true>
+                                             : ssd_scan_kernel<T, Q, false>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(H, BT), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dt), static_cast<const float*>(A),
+      static_cast<const T*>(B), static_cast<const T*>(C), static_cast<T*>(y), H, S, dm);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_chunk(int chunk, const void* x, const void* dt, const void* A,
+                           const void* B, const void* C, void* y, int BT, int H, int S,
+                           const Dims& dm, cudaStream_t s) {
+  switch (chunk) {
+    case 64: return launch<T, 64>(x, dt, A, B, C, y, BT, H, S, dm, s);
+    case 32: return launch<T, 32>(x, dt, A, B, C, y, BT, H, S, dm, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// x, y: (BT, H, S, P); dt: (BT, H, S); A: (H,); B, C: (BT, S, N); all fp32,
-// contiguous, 16-byte aligned; P and N multiples of 4.  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape it
-// does not take, cudaErrorInvalidConfiguration if the block does not fit).
+// x, y: (BT, H, S, P); dt: (BT, H, S); B, C: (BT, S, N), all of `dtype`
+// (fp32, bf16, fp16); A: (H,) fp32; all contiguous, 16-byte aligned.
+// `chunk` (64 or 32) positions a step.  Returns cudaGetLastError() after
+// the launch (cudaErrorInvalidValue for a shape it does not take,
+// cudaErrorInvalidConfiguration if the block does not fit).
 REPRO_EXPORT int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                  const void* B, const void* C, void* y, int BT, int H,
-                                 int S, int P, int N, int device, void* stream) {
+                                 int S, int P, int N, int chunk, int dtype, int device,
+                                 void* stream) {
   cudaError_t e = repro_set_device(device);
   if (e != cudaSuccess) return e;
   if (!shape_ok(BT, H, S, P, N)) return cudaErrorInvalidValue;
-  const long long smem = smem_bytes(P, N);
-  if (smem > 232448) return cudaErrorInvalidConfiguration;
-  auto kern = ssd_scan_kernel<kChunk>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  kern<<<dim3(H, BT), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const float*>(B),
-      static_cast<const float*>(C), static_cast<float*>(y), H, S, P, N);
-  return cudaGetLastError();
+  const Dims dm = dims(P, N);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  REPRO_DISPATCH_FLOAT(dtype, T,
+                       dispatch_chunk<T>(chunk, x, dt, A, B, C, y, BT, H, S, dm, st));
 }

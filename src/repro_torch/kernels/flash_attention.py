@@ -5,13 +5,15 @@ The port of ``repro/kernels/flash_attention.py::flash_attention``: q
 (B,S,H,hd), k/v (B,T,K,hd), mask (1|B,S,T) bool → (B,S,H,hd).  Masked
 scores are -1e30 with p = 0, and a row with no valid key gives 0.  The
 CUDA kernel tiles 64 query rows by 64 keys and masks ragged edges itself,
-so any S and T are taken; hd must be one of ``HEAD_DIMS``.  On CPU tensors
-the wrappers compute the plain versions (``ref.flash_attention_ref``,
+so any S and T are taken.  q, k and v are fp32, bf16 or fp16; any head dim
+up to ``MAX_HEAD_DIM`` is taken, run at the least of ``HEAD_WIDTHS`` that
+holds it (columns past hd zero-filled, never stored).  On CPU tensors the
+wrappers compute the plain versions (``ref.flash_attention_ref``,
 ``ref.flash_attention_int8kv_ref``).
 
 K6 is the port of ``flash_attention_int8kv``: k8/v8 (B,T,K,hd) int8 with
 one fp32 scale a KV head, (K,) each, dequantized inside the tile; q and the
-output are fp32 or bf16.
+output are fp32, bf16 or fp16.
 """
 
 from __future__ import annotations
@@ -25,9 +27,16 @@ from repro_torch.kernels import _build, ref
 #: Tile of the CUDA kernels (query rows x keys); must match csrc/flash_tile.cuh.
 BLOCK_Q = 64
 BLOCK_K = 64
-#: Head widths the kernels are instantiated for.
-HEAD_DIMS = (16, 32, 64, 128)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: Head widths the kernels are instantiated for; a head dim runs at the
+#: least that holds it.
+HEAD_WIDTHS = (16, 32, 64, 128, 256)
+MAX_HEAD_DIM = HEAD_WIDTHS[-1]
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def padded_head_dim(hd: int) -> int:
+    """The instantiated width a head dim runs at (csrc/flash_tile.cuh)."""
+    return next(w for w in HEAD_WIDTHS if hd <= w)
 
 FLASH_ATTENTION = _build.CudaKernel(
     "flash_attention", lib="flash_attention", symbol="flash_attention_launch",
@@ -48,12 +57,12 @@ def check_flash_args(name: str, q, k, v, mask, kv_dtype=None) -> None:
     if k.shape[0] != B or k.shape[3] != hd or H % K:
         raise ValueError(f"{name}: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not match (H % K must be 0)")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {hd} not in 1..{MAX_HEAD_DIM}")
     kv_dtype = q.dtype if kv_dtype is None else kv_dtype
     if q.dtype not in DTYPE_CODES or k.dtype != kv_dtype or v.dtype != kv_dtype:
-        raise ValueError(f"{name}: want q fp32 or bf16 and k, v {kv_dtype}, "
-                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError(f"{name}: want q fp32, bf16 or fp16 and k, v "
+                         f"{kv_dtype}, got {q.dtype}, {k.dtype}, {v.dtype}")
     if (mask.dtype != torch.bool or mask.dim() != 3
             or mask.shape[0] not in (1, B) or tuple(mask.shape[1:]) != (S, T)):
         raise ValueError(f"{name}: mask must be bool (1|B, S, T), got "
@@ -91,7 +100,7 @@ FLASH_ATTENTION_INT8KV = _build.CudaKernel(
 def flash_attention_int8kv(q, k8, v8, k_scale, v_scale, mask, *,
                            sm_scale: float):
     """K6 on CUDA tensors, the plain version on CPU tensors.  q (B,S,H,hd)
-    fp32/bf16, k8/v8 (B,T,K,hd) int8, k_scale/v_scale (K,) fp32, mask
+    fp32/bf16/fp16, k8/v8 (B,T,K,hd) int8, k_scale/v_scale (K,) fp32, mask
     (1|B,S,T) bool → (B,S,H,hd) of q's dtype."""
     if q.device.type == "cpu":
         return ref.flash_attention_int8kv_ref(q, k8, v8, k_scale, v_scale,

@@ -1,26 +1,27 @@
-"""Public kernel entry points the model layers call.
+"""Public kernel entry points the model layers call, each after
+``LoweringConfig.lower`` has said ``isax``.
 
-``flash_attention_gqa`` routes between K2 and K3 and keeps the reference's
-fallback to the plain version for shapes the kernels cannot take (a head
-width they are not built for, H not a multiple of K, a dtype other than
-fp32/bf16).  Tiles are Hopper's (64 x 64, see ``flash_attention.py``), not
-the TPU schedule's.  ``rmsnorm`` is K1.  ``ssd_scan`` routes between K7
-and K8.  ``int8_matmul`` routes between K4 and K5.
+``flash_attention_gqa`` routes between K2 and K3; ``flash_tileable`` is the
+test ``lower`` reads (H a multiple of K, a head dim up to 256, fp32, bf16
+or fp16), and a shape it refuses raises on CUDA tensors rather than taking
+the plain version.  Tiles are Hopper's (64 x 64, see
+``flash_attention.py``), not the TPU schedule's.  ``rmsnorm`` is K1.
+``ssd_scan`` routes between K7 and K8.  ``int8_matmul`` routes between K4
+and K5.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (BLOCK_K, DTYPE_CODES,
-                                                 HEAD_DIMS, flash_attention)
+                                                 MAX_HEAD_DIM, flash_attention)
 from repro_torch.kernels.int8_matmul import BLOCK_K as INT8_BLOCK_K
 from repro_torch.kernels.int8_matmul import int8_matmul as _int8_matmul
 from repro_torch.kernels.pipeline import (choose_depth,
                                           flash_attention_pipelined,
                                           int8_depth, int8_matmul_pipelined,
-                                          int8_ring_takes, ssd_depth,
+                                          int8_ring_takes, ssd_plan,
                                           ssd_scan_pipelined, use_pipeline)
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 from repro_torch.kernels.ssd_scan import SSD_CHUNK
@@ -29,7 +30,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
 
 def flash_tileable(H: int, K: int, hd: int, dtype) -> bool:
     """True iff the CUDA flash kernels take this head layout and dtype."""
-    return H % K == 0 and hd in HEAD_DIMS and dtype in DTYPE_CODES
+    return H % K == 0 and 1 <= hd <= MAX_HEAD_DIM and dtype in DTYPE_CODES
 
 
 def flash_attention_gqa(q, k, v, mask, *, sm_scale: float,
@@ -39,10 +40,8 @@ def flash_attention_gqa(q, k, v, mask, *, sm_scale: float,
     K3 (``pipelined``) when the K/V sweep has two 64-key tiles or more,
     else K2; ``pipelined`` forces the choice where the sweep allows it.
     """
-    B, S, H, hd = q.shape
-    T, K = k.shape[1], k.shape[2]
-    if not flash_tileable(H, K, hd, q.dtype):
-        return ref.flash_attention_ref(q, k, v, mask, sm_scale=sm_scale)
+    S, T = q.shape[1], k.shape[1]
+    hd = q.shape[3]
     mask = mask.expand(mask.shape[0], S, T).contiguous()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     n_steps = -(-T // BLOCK_K)
@@ -83,15 +82,18 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, *, eps: float = 1e-6):
 
 
 def ssd_scan(x, dt, A, B, C, *, pipelined: bool | None = None):
-    """SSD chunked scan: x (BT,H,S,P), dt (BT,H,S), A (H,), B/C (BT,S,N),
-    fp32 → y (BT,H,S,P).
+    """SSD chunked scan: x (BT,H,S,P), dt (BT,H,S), A (H,), B/C (BT,S,N)
+    → y (BT,H,S,P) of x's dtype, computed in fp32.
 
     K8 (``pipelined``) when the sweep has two of K7's 64-position chunks
-    or more, else K7; ``pipelined`` forces the choice where the sweep
-    allows it.
+    or more and a K8 ring fits the state (``ssd_plan``), else K7;
+    ``pipelined`` forces the choice where the sweep and the ring allow it.
+    x, dt, B and C share one dtype; A is taken in fp32, as the reference
+    widens it.
     """
-    x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
+    x, dt, A, B, C = (t.contiguous() for t in (x, dt, A.float(), B, C))
     S, P, N = x.shape[2], x.shape[3], B.shape[-1]
-    if use_pipeline(-(-S // SSD_CHUNK), pipelined):
-        return ssd_scan_pipelined(x, dt, A, B, C, depth=ssd_depth(P, N, S))
+    plan = ssd_plan(P, N, S, x.element_size())
+    if plan is not None and use_pipeline(-(-S // SSD_CHUNK), pipelined):
+        return ssd_scan_pipelined(x, dt, A, B, C, depth=plan[1])
     return _ssd_scan(x, dt, A, B, C)

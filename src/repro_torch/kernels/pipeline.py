@@ -22,7 +22,9 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import int8_matmul as _i8
 from repro_torch.kernels.flash_attention import (BLOCK_K, BLOCK_Q, DTYPE_CODES,
-                                                 check_flash_args)
+                                                 check_flash_args,
+                                                 padded_head_dim)
+from repro_torch.kernels.ssd_scan import DTYPE_CODES as SSD_DTYPE_CODES
 from repro_torch.kernels.ssd_scan import (check_ssd_args, chunk_floats,
                                           fixed_floats)
 
@@ -47,11 +49,23 @@ def use_pipeline(n_steps: int, override: bool | None = None) -> bool:
     return True if override is None else bool(override)
 
 
+#: K3's keys a tile at the padded width 256, where a 64-key fp32 stage
+#: alone would take 133 KB (csrc/flash_tile.cuh BK_WIDE).
+BLOCK_K_WIDE = 32
+
+
+def ring_block_k(hd: int) -> int:
+    """Keys a K/V tile of K3 at head dim ``hd``."""
+    return BLOCK_K_WIDE if padded_head_dim(hd) > 128 else BLOCK_K
+
+
 def ring_smem_bytes(hd: int, itemsize: int, depth: int) -> int:
-    """Shared memory of one K3 block: fp32 Q and P tiles plus ``depth``
-    K and V tiles, each row padded by 16 bytes (csrc/flash_tile.cuh)."""
-    q_and_p = 4 * (BLOCK_Q * (hd + 4) + BLOCK_Q * (BLOCK_K + 4))
-    return q_and_p + 2 * depth * BLOCK_K * (hd * itemsize + 16)
+    """Shared memory of one K3 block at the padded head width: fp32 Q and
+    P tiles plus ``depth`` K and V tiles, each row padded by 16 bytes
+    (csrc/flash_tile.cuh)."""
+    w, bk = padded_head_dim(hd), ring_block_k(hd)
+    q_and_p = 4 * (BLOCK_Q * (w + 4) + BLOCK_Q * (bk + 4))
+    return q_and_p + 2 * depth * bk * (w * itemsize + 16)
 
 
 def deepest_ring(ring_bytes, n_steps: int, cap: int = 4) -> int | None:
@@ -163,31 +177,58 @@ def int8_matmul_pipelined(x, wq, scale, *, depth: int = 2):
 # ---------------------------------------------------------------------------
 
 #: Positions per chunk of K8 (csrc/ssd_scan_pipelined.cu): smaller than
-#: K7's 64 so that a depth-4 ring fits at N=128, P=64.
+#: K7's 64 so that a depth-4 ring fits at N=128, P=64; 16 where not even a
+#: depth-2 ring of 32-position chunks fits (fp32 at N=256, P=64).
 SSD_PIPE_CHUNK = 32
+SSD_PIPE_CHUNKS = (SSD_PIPE_CHUNK, 16)
 
 SSD_SCAN_PIPELINED = _build.CudaKernel(
     "ssd_scan_pipelined", lib="ssd_scan_pipelined",
     symbol="ssd_scan_pipelined_launch",
-    argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     replaces="src/repro/kernels/pipeline.py:334")
 
 
-def ssd_ring_bytes(P: int, N: int, depth: int) -> int:
-    """Shared memory of one K8 block: the fixed part of K7's layout plus
-    ``depth`` stages of x, B and C (B and C rows padded to N+4 floats)."""
-    Q = SSD_PIPE_CHUNK
-    stage = chunk_floats(Q, P, N) + Q * (N + 4)
-    return 4 * (fixed_floats(Q, P, N) + depth * stage)
+def ssd_ring_bytes(P: int, N: int, depth: int, itemsize: int = 4,
+                   chunk: int = SSD_PIPE_CHUNK) -> int:
+    """Shared memory of one K8 block: the fixed part of K7's layout, for
+    bf16/fp16 an fp32 x and C of the chunk, and ``depth`` stages of raw x,
+    B and C (x rows of P, B and C rows of N plus one 16-byte vector, each
+    rounded up to whole vectors)."""
+    Q, V = chunk, 16 // itemsize
+    xs = -(-P // V) * V
+    bs = -(-N // V) * V + V
+    work = 0 if itemsize == 4 else chunk_floats(Q, P, N)
+    return (4 * (fixed_floats(Q, P, N) + work)
+            + depth * Q * (xs + 2 * bs) * itemsize)
 
 
-def ssd_depth(P: int, N: int, S: int, cap: int = 4) -> int:
+def ssd_plan(P: int, N: int, S: int, itemsize: int = 4,
+             cap: int = 4) -> tuple[int, int] | None:
+    """K8's (chunk, depth): the largest chunk of ``SSD_PIPE_CHUNKS`` with a
+    ring of depth 2 or more that fits, at its deepest ring no deeper than
+    the sweep (``deepest_ring``); None if no ring fits."""
+    for Q in SSD_PIPE_CHUNKS:
+        depth = deepest_ring(lambda d: ssd_ring_bytes(P, N, d, itemsize, Q),
+                             -(-S // Q), cap)
+        if depth is not None:
+            return Q, depth
+    return None
+
+
+def ssd_depth(P: int, N: int, S: int, cap: int = 4, itemsize: int = 4) -> int:
     """Deepest K8 ring that fits for a sweep of S positions."""
-    depth = deepest_ring(lambda d: ssd_ring_bytes(P, N, d),
-                         -(-S // SSD_PIPE_CHUNK), cap)
-    if depth is None:
-        raise ValueError(f"no SSD ring depth fits P={P}, N={N}")
-    return depth
+    plan = ssd_plan(P, N, S, itemsize, cap)
+    if plan is None:
+        raise ValueError(f"no SSD ring fits P={P}, N={N}")
+    return plan[1]
+
+
+def ssd_pipe_chunk(P: int, N: int, depth: int, itemsize: int = 4) -> int | None:
+    """K8's chunk at a given ring depth: the largest whose ring fits."""
+    return next((Q for Q in SSD_PIPE_CHUNKS
+                 if ssd_ring_bytes(P, N, depth, itemsize, Q) <= MAX_SMEM),
+                None)
 
 
 def ssd_scan_pipelined(x, dt, A, B, C, *, depth: int = 2):
@@ -202,12 +243,13 @@ def ssd_scan_pipelined(x, dt, A, B, C, *, depth: int = 2):
     N = B.shape[-1]
     if depth not in DEPTHS:
         raise ValueError(f"depth {depth} not in {DEPTHS}")
-    if ssd_ring_bytes(P, N, depth) > MAX_SMEM:
+    chunk = ssd_pipe_chunk(P, N, depth, x.element_size())
+    if chunk is None:
         raise ValueError(f"a depth-{depth} SSD ring at P={P}, N={N} does not "
                          f"fit in {MAX_SMEM} bytes of shared memory")
     y = torch.empty_like(x)
     SSD_SCAN_PIPELINED.launch(
         _build.ptr(x), _build.ptr(dt), _build.ptr(A), _build.ptr(B),
-        _build.ptr(C), _build.ptr(y), BT, H, S, P, N, depth, x.device.index,
-        _build.stream_of(x))
+        _build.ptr(C), _build.ptr(y), BT, H, S, P, N, chunk, depth,
+        SSD_DTYPE_CODES[x.dtype], x.device.index, _build.stream_of(x))
     return y

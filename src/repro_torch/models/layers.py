@@ -203,14 +203,19 @@ def attention_decode_paged(params, x, cfg: ModelConfig, k_pages, v_pages,
 
     x: (B,1,d) new-token activations for every batch slot (inactive slots
     carry dummy tokens so the batch shape stays fixed).
-    k_pages/v_pages: (N, page, K, hd) page pools of this layer.
+    k_pages/v_pages: (N + 1, page, K, hd) page pools of this layer: N pages
+    a sequence may own and, last, a spare page that none owns.
     page_table: (B, P) int32 — logical page p of slot b lives in physical
     page ``page_table[b, p]``; unused entries may hold any valid index.
     seq_lens: (B,) int32 tokens already stored per slot; the new token is
     written at logical position ``seq_lens[b]``.
-    active: (B,) bool — inactive slots write nowhere.  The reference drops
-    their writes with an out-of-bounds index; ``index_put_`` has no drop
-    mode, so the write here goes to the active rows only.
+    active: (B,) bool — inactive slots write into no live page.  The
+    reference drops their writes with an out-of-bounds index;
+    ``index_put_`` has no drop mode, so their writes go to the spare page
+    instead, an index chosen on the device with no host sync (reading the
+    old values back under a mask instead would race: an inactive and an
+    active row can name the same slot).  The spare page's contents are
+    never read unmasked.
     The pools are updated in place.  Returns (out (B,1,d), k_pages, v_pages).
     """
     lw = lowering or _DEFAULT_LOWERING
@@ -220,12 +225,13 @@ def attention_decode_paged(params, x, cfg: ModelConfig, k_pages, v_pages,
     P = page_table.shape[1]
     positions = seq_lens[:, None].to(torch.int32)
     q, k, v = _qkv(params, x, cfg, positions)
-    rows = torch.nonzero(active).flatten()
-    sl = seq_lens[rows].long()
-    phys = page_table[rows, sl // page].long()
+    sl = seq_lens.long()
+    lp = torch.clamp(sl // page, max=P - 1)  # in range for an inactive slot
+    phys = page_table.gather(1, lp[:, None])[:, 0].long()
+    phys = torch.where(active, phys, k_pages.shape[0] - 1)
     slot = sl % page
-    k_pages[phys, slot] = k[rows, 0].to(k_pages.dtype)
-    v_pages[phys, slot] = v[rows, 0].to(v_pages.dtype)
+    k_pages[phys, slot] = k[:, 0].to(k_pages.dtype)
+    v_pages[phys, slot] = v[:, 0].to(v_pages.dtype)
     pt = page_table.long()
     kg = k_pages[pt].reshape(B, P * page, *k_pages.shape[2:])
     vg = v_pages[pt].reshape(B, P * page, *v_pages.shape[2:])

@@ -166,7 +166,8 @@ def decode_step_paged(params, tokens, k_pages, v_pages, page_table, seq_lens,
                       lowering: Optional[LoweringConfig] = None):
     """One-token decode through the paged KV pools (see
     ``layers.attention_decode_paged``).  tokens: (B,) int; pools carry a
-    leading layer axis (L, N, page, K, hd) and are updated in place (the
+    leading layer axis (L, N + 1, page, K, hd), the last page a spare that
+    takes inactive slots' writes, and are updated in place (the
     reference donates them), so batch and pool shapes stay fixed across
     admissions and retirements.
 

@@ -10,7 +10,8 @@ The port of ``repro/pointcloud/kernels.py``:
   ``group_aggregate_pipelined`` (``csrc/group_aggregate_pipelined.cu``, the
   gathered rows through a ``cp.async`` ring): a direct row gather and a max.
 
-Points are 3-d, fp32 or bf16; indices are int32.  On CPU tensors each
+Points are 3-d, fp32, bf16 or fp16 (distances in fp32 either way);
+indices are int32.  On CPU tensors each
 wrapper computes the plain version (``pointcloud/ref.py``); on CUDA tensors
 it launches its kernel or raises.
 """
@@ -77,13 +78,13 @@ def _check(name: str, *tensors) -> None:
 
 
 def _check_points(name: str, *clouds) -> None:
-    """Raise unless every cloud is (B, n, 3) of one fp32/bf16 dtype."""
+    """Raise unless every cloud is (B, n, 3) of one fp32/bf16/fp16 dtype."""
     for c in clouds:
         if c.dim() != 3 or c.shape[-1] != 3 or c.shape[0] != clouds[0].shape[0]:
             raise ValueError(f"{name}: want (B, n, 3) points, got "
                              f"{tuple(c.shape)}")
         if c.dtype not in DTYPE_CODES or c.dtype != clouds[0].dtype:
-            raise ValueError(f"{name}: points must share fp32 or bf16, got "
+            raise ValueError(f"{name}: points must share fp32, bf16 or fp16, got "
                              f"{c.dtype}")
 
 
@@ -172,7 +173,7 @@ def _group_args(name, features, idx):
         raise ValueError(f"{name}: want features (B, N, C) and idx (B, M, k), "
                          f"got {tuple(features.shape)} and {tuple(idx.shape)}")
     if features.dtype not in DTYPE_CODES or idx.dtype != torch.int32:
-        raise ValueError(f"{name}: features must be fp32 or bf16 and idx "
+        raise ValueError(f"{name}: features must be fp32, bf16 or fp16 and idx "
                          f"int32, got {features.dtype} and {idx.dtype}")
     B, N, C = features.shape
     M, k = idx.shape[1], idx.shape[2]

@@ -11,7 +11,7 @@ the reference's fallbacks, and ``LoweringConfig.lower`` reads it too:
 
 Everything else goes to a kernel wrapper (``kernel_*``), which raises on
 CUDA tensors the kernel does not take (points other than 3-d, dtypes other
-than fp32/bf16).  Baseline or pipelined follows the port's rule
+than fp32/bf16/fp16).  Baseline or pipelined follows the port's rule
 (``kernels.pipeline.use_pipeline``): pipeline from two streamed tiles up,
 or as ``pipelined`` says.  The streamed tiles are K11's 256-point X tiles
 and K13's 16-neighbour stages.

@@ -126,7 +126,9 @@ class PagedKVCache:
         if self.max_len % self.page_size:
             raise ValueError("max_len must be a page multiple")
         self.pages_per_seq = self.max_len // self.page_size
-        shape = (cfg.n_layers, self.n_pages, self.page_size,
+        # n_pages pages for the allocator, then the spare page that takes
+        # the decode writes of inactive slots (layers.attention_decode_paged)
+        shape = (cfg.n_layers, self.n_pages + 1, self.page_size,
                  cfg.n_kv_heads, cfg.resolved_head_dim())
         cd = L.dtype_of(cfg.compute_dtype)
         self.k_pages = torch.zeros(shape, dtype=cd, device=self.device)

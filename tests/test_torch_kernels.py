@@ -18,16 +18,20 @@ from repro.kernels.pipeline import flash_attention_pipelined as jax_flash_pipe
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm
 from repro_torch.core.tiling import down_pow2
 from repro_torch.kernels import ops, pipeline, ref
+from repro_torch.kernels import rmsnorm as rmsnorm_mod
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+          "bfloat16": (jnp.bfloat16, torch.bfloat16),
+          "float16": (jnp.float16, torch.float16)}
 
 
 def _tol(name):
-    return (dict(atol=2e-2, rtol=2e-2) if name == "bfloat16"
-            else dict(atol=2e-5, rtol=2e-4))
+    """fp32 atol 2e-5 / rtol 2e-4; bf16, and fp16 (which keeps 3 more
+    mantissa bits), the reference's 2e-2."""
+    return (dict(atol=2e-5, rtol=2e-4) if name == "float32"
+            else dict(atol=2e-2, rtol=2e-2))
 
 
 def _pair(a: np.ndarray, name: str):
@@ -62,8 +66,8 @@ def test_down_pow2_matches_reference(n, cap):
     assert down_pow2(n, cap) == jax_down_pow2(n, cap)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("R,d", [(16, 64), (8, 768), (24, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("R,d", [(16, 64), (8, 768), (24, 96), (8, 2560)])
 def test_rmsnorm_matches_pallas(R, d, dtype):
     rng = np.random.default_rng(R * d)
     x_np = rng.normal(size=(R, d)).astype(np.float32)
@@ -86,6 +90,14 @@ FLASH_CASES = [
     (1, 32, 4, 2, 64, 32, "causal"),             # GQA, (1,S,T) mask, S < T
     (1, 64, 2, 1, 64, 16, "fully_masked_rows"),
 ]
+# Head dims that run at a wider instantiation (80 and 96 at 128, 256 with
+# one KV head as paligemma-3b's), and one not a multiple of 8.
+WIDE_CASES = [
+    (1, 32, 2, 2, 64, 80, "causal"),
+    (1, 32, 2, 1, 32, 96, "batch"),
+    (1, 32, 2, 1, 64, 256, "causal"),
+    (1, 16, 2, 2, 16, 20, "causal"),
+]
 
 
 def _flash_inputs(B, S, H, K, T, hd, kind, dtype, seed):
@@ -99,8 +111,8 @@ def _flash_inputs(B, S, H, K, T, hd, kind, dtype, seed):
     return jax_in, torch_in
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,H,K,T,hd,kind", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("B,S,H,K,T,hd,kind", FLASH_CASES + WIDE_CASES)
 def test_flash_attention_matches_pallas(B, S, H, K, T, hd, kind, dtype):
     (qj, kj, vj, mj), (qt, kt, vt, mt) = _flash_inputs(
         B, S, H, K, T, hd, kind, dtype, seed=S + T + H)
@@ -118,10 +130,10 @@ def test_flash_attention_matches_pallas(B, S, H, K, T, hd, kind, dtype):
         np.testing.assert_allclose(_np32(got)[0, :8], 0.0, atol=1e-6)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("depth", [2, 3])
 @pytest.mark.parametrize("B,S,H,K,T,hd,kind", [FLASH_CASES[0], FLASH_CASES[1],
-                                               FLASH_CASES[3]])
+                                               FLASH_CASES[3], WIDE_CASES[2]])
 def test_flash_attention_pipelined_matches_pallas(B, S, H, K, T, hd, kind,
                                                   depth, dtype):
     (qj, kj, vj, mj), (qt, kt, vt, mt) = _flash_inputs(
@@ -140,16 +152,25 @@ def test_flash_attention_pipelined_matches_pallas(B, S, H, K, T, hd, kind,
 
 
 def test_untileable_head_dim_falls_back_to_reference():
-    """hd = 24 is not a width the CUDA kernels are built for: the ops
-    wrapper takes the plain version, as the reference's wrapper does for
-    shapes its kernel cannot tile."""
+    """Every head dim up to 256 is tileable (hd = 24 runs at width 32); one
+    above 256 is not, and the attention layer then takes the plain version
+    through ``lower``, as the reference's wrapper does for shapes its
+    kernel cannot tile.  The ops wrapper itself never falls back."""
+    from repro_torch.compile.config import LoweringConfig
+    from repro_torch.kernels.flash_attention import padded_head_dim
+    from repro_torch.models import layers
+    assert ops.flash_tileable(2, 2, 24, torch.float16)
+    assert padded_head_dim(24) == 32 and padded_head_dim(256) == 256
+    assert not ops.flash_tileable(2, 2, 320, torch.float32)
     rng = np.random.default_rng(7)
-    q = torch.from_numpy(rng.normal(size=(1, 16, 2, 24)).astype(np.float32))
-    k = torch.from_numpy(rng.normal(size=(1, 16, 2, 24)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(1, 16, 2, 320)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(1, 16, 2, 320)).astype(np.float32))
     m = torch.ones((1, 16, 16), dtype=torch.bool)
-    assert not ops.flash_tileable(2, 2, 24, torch.float32)
-    got = ops.flash_attention_gqa(q, k, k, m, sm_scale=0.2)
-    want = ref.flash_attention_ref(q, k, k, m, sm_scale=0.2)
+    lw = LoweringConfig("cuda")
+    assert lw.lower("attention", (1, 16, 2, 2, 16, 320),
+                    torch.float32).impl == "reference"
+    got = layers.sdpa(q, k, k, m, 320, lw)
+    want = layers._sdpa_xla(q, k, k, m, 320)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
@@ -162,7 +183,8 @@ def test_use_pipeline_never_pipelines_one_tile(n_steps, override, want):
 
 @pytest.mark.parametrize("hd,itemsize,n_steps,want", [
     (64, 4, 8, 4), (64, 4, 2, 2), (64, 4, 3, 3), (128, 4, 8, 2),
-    (128, 2, 8, 4)])
+    (128, 2, 8, 4), (80, 4, 8, 2), (96, 2, 8, 4), (256, 4, 8, 2),
+    (256, 2, 8, 4)])
 def test_choose_depth_fits_shared_memory(hd, itemsize, n_steps, want):
     depth = pipeline.choose_depth(hd, itemsize, n_steps)
     assert depth == want
@@ -176,3 +198,46 @@ def test_deepest_ring_is_the_deepest_that_fits(stage_bytes, n_steps, cap,
                                                want):
     assert pipeline.deepest_ring(lambda d: d * stage_bytes, n_steps,
                                  cap) == want
+
+
+K1 = rmsnorm_mod
+
+
+@pytest.mark.parametrize("R,d,itemsize,want", [
+    (512, 768, 4, (K1.ROW, 2, 96)),          # llama110m prefill, fp32
+    (8, 768, 4, (K1.ROW, 2, 96)),            # llama110m decode
+    (4096, 768, 2, (K1.ROW, 2, 64)),
+    (2048, 2560, 2, (K1.ROW, 2, 160)),       # mamba2 norm, bf16
+    (2048, 5120, 2, (K1.ROWS, 1, 640)),      # mamba2 gate norm, bf16
+    (4, 5120, 2, (K1.ROW, 2, 320)),          # ... in a decode step
+    (2048, 5120, 4, (K1.ROW, 2, 640)),       # mamba2 gate norm, fp32
+    (2048, 2560, 4, (K1.ROW, 2, 320)),
+    (64, 16, 4, (K1.ROW, 2, 32)),
+    (100, 100, 2, (K1.LOOP, 0, 128)),        # rows not whole vectors
+    (8, 1 << 16, 4, (K1.LOOP, 0, 128)),      # too wide for registers
+])
+def test_rmsnorm_plan_holds_every_vector_of_the_row(R, d, itemsize, want):
+    """K1's shape: a block a row at two vectors a thread (more only past
+    1024 threads); 16-bit rows of 512-1024 vectors that every resident
+    block would meet twice walk the rows one ahead; the loop kernel where a
+    row is not whole vectors or too wide for registers."""
+    got = K1.plan(R, d, itemsize)
+    assert tuple(got) == want
+    if got.mode != K1.LOOP:
+        assert got.vpt * got.threads * (16 // itemsize) >= d
+        assert got.vpt <= (K1.MAX_ROWS_VPT if got.mode == K1.ROWS
+                           else K1.MAX_VPT)
+        assert got.threads <= K1.MAX_ROW_THREADS
+
+
+@pytest.mark.parametrize("R,threads,sms,want", [
+    (2048, 640, 132, 342), (2048, 320, 132, 683), (100, 640, 132, 100),
+    (396, 640, 132, 396), (397, 640, 132, 199)])
+def test_rmsnorm_rows_grid_evens_out_the_rows(R, threads, sms, want):
+    """The ROWS grid is resident (2048 threads an SM) and every block
+    walks ceil(R / grid) or one fewer rows."""
+    grid = K1.rows_grid(R, threads, sms)
+    assert grid == want
+    assert grid <= sms * (K1.SM_THREADS // threads)
+    per = -(-R // grid)
+    assert (per - 1) * grid < R <= per * grid

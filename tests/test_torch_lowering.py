@@ -103,15 +103,46 @@ def test_ssd_routing_matches_reference_dispatch(shape, backend, ref_backend):
     assert got.impl == want.impl, got.note
 
 
-def test_ssd_lowering_falls_back_where_the_kernels_do_not_take_it():
-    """bf16 and a head dim that is not a multiple of 4 take the plain
-    version; the serving shapes take the kernel."""
-    assert lower("ssd_scan", shape=(4, 512, 80, 64, 128),
-                 dtype=torch.float32).impl == "isax"
-    for shape, dtype in (((4, 512, 80, 64, 128), torch.bfloat16),
-                         ((1, 8, 2, 6, 128), torch.float32),
-                         ((1, 8, 2, 64, 256), torch.float32)):
-        assert lower("ssd_scan", shape=shape, dtype=dtype).impl == "reference"
+# Keys where the port's lowering once said "reference" while the
+# reference's said "isax" (fp16 everywhere; head dims 80, 96, 256 with one
+# KV head; SSD in bf16/fp16, at P = 6 and at N = 256), and neighbours that
+# were right already.
+FAULT1_KEYS = [
+    ("rmsnorm", (512, 768)), ("attention", (1, 64, 12, 12, 64, 64)),
+    ("attention", (1, 64, 12, 12, 64, 80)),
+    ("attention", (1, 64, 12, 12, 64, 96)),
+    ("attention", (1, 64, 8, 1, 64, 256)),
+    ("attention", (1, 64, 12, 12, 64, 128)),
+    ("ssd_scan", (1, 512, 80, 64, 128)), ("ssd_scan", (1, 8, 2, 6, 128)),
+    ("ssd_scan", (1, 8, 2, 64, 256)), ("ssd_scan", (1, 8, 2, 64, 64)),
+    ("fps", (2, 4096, 512)), ("ball_query", (2, 4096, 512, 16)),
+    ("group_aggregate", (2, 4096, 512, 16, 64)),
+    ("int8_matmul", (8, 768, 768)),
+]
+ALL_KEYS = (FAULT1_KEYS + MAIN_PATH_KEYS + POINTCLOUD_KEYS
+            + [("ssd_scan", s) for s in SSD_KEYS])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("op,shape", ALL_KEYS)
+def test_lowering_matches_reference_in_every_dtype(op, shape, dtype):
+    """The port's ``impl`` on backend cuda is the reference's on backend
+    pallas, for every key set and every dtype the reference's kernels take."""
+    want = jax_compile.lower(op, shape=shape, dtype=dtype, backend="pallas")
+    got = lower(op, shape=shape, dtype=getattr(torch, dtype))
+    assert got.impl == want.impl, (got.note, want.note)
+
+
+@pytest.mark.parametrize("op,shape,note", [
+    ("attention", (1, 64, 8, 1, 64, 320), "head dim 320 > 256"),
+    ("ssd_scan", (1, 8, 2, 256, 256), "does not fit"),
+])
+def test_lowering_states_its_deviations(op, shape, note):
+    """Where the port's kernels stop short of the reference's (a head dim
+    above 256, an SSD state that does not fit one block), ``lower`` says
+    ``reference`` and why."""
+    got = lower(op, shape=shape, dtype=torch.float32)
+    assert got.impl == "reference" and note in got.note
 
 
 def test_unknown_op_and_backend_raise():

@@ -75,8 +75,10 @@ def _scan_inputs(BT, H, S, P, N, seed, dt_range=(0.1, 0.9),
 
 
 def _port_routes(arrays):
-    """Every CPU route of the port on the same inputs, by name."""
-    x, dt, A, B, C = (torch.from_numpy(a) for a in arrays)
+    """Every CPU route of the port on the same inputs (numpy arrays or
+    tensors), by name."""
+    x, dt, A, B, C = (a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
+                      for a in arrays)
     return {
         "ssd_scan_ref": ref.ssd_scan_ref(x, dt, A, B, C),
         "ops.ssd_scan": ops.ssd_scan(x, dt, A, B, C),
@@ -115,6 +117,38 @@ def test_ssd_scan_routes_match_jax_kernels(BT, H, S, P, N, chunk):
     for name, got in _port_routes(arrays).items():
         assert got.shape == (BT, H, S, P) and got.dtype == torch.float32
         _close(got, want, SCAN_TOL, name)
+
+
+# (BT, H, S, P, N, chunk of the JAX kernel, dtype): bf16 and fp16 I/O at
+# the served widths (two heads), P = 6 (not a multiple of 4), N = 256 (K7
+# at a 32-position chunk, K8 at 16 in fp32), and a ragged state in bf16.
+DTYPE_SCAN_CASES = [
+    (1, 2, 128, 64, 128, 64, "bfloat16"),
+    (1, 2, 128, 64, 128, 64, "float16"),
+    (2, 2, 96, 6, 16, 32, "float32"),
+    (1, 2, 64, 64, 256, 32, "float32"),
+    (1, 2, 64, 6, 6, 32, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("BT,H,S,P,N,chunk,dtype", DTYPE_SCAN_CASES)
+def test_ssd_scan_routes_match_jax_kernels_in_every_dtype(BT, H, S, P, N,
+                                                         chunk, dtype):
+    """x, dt, B, C in ``dtype`` (A fp32), y in x's dtype: the reference
+    widens every input to fp32 and rounds y once; fp32 at the scan's
+    tolerance, bf16/fp16 at the reference's 2e-2."""
+    arrays = list(_scan_inputs(BT, H, S, P, N, seed=S + P + N))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    j = [jnp.asarray(a, jnp.float32 if i == 2 else jd)
+         for i, a in enumerate(arrays)]
+    want = jax_ssd_scan(*j, chunk=chunk, interpret=True)
+    assert want.dtype == jd
+    tol = SCAN_TOL if dtype == "float32" else dict(atol=2e-2, rtol=2e-2)
+    x, dt, A, B, C = (torch.from_numpy(a) for a in arrays)
+    x, dt, B, C = (t.to(td) for t in (x, dt, B, C))
+    for name, got in _port_routes((x, dt, A, B, C)).items():
+        assert got.shape == (BT, H, S, P) and got.dtype == td, name
+        _close(got.float(), jnp.asarray(want, jnp.float32), tol, name)
 
 
 def test_ssd_scan_strong_decay_stays_finite():
@@ -323,16 +357,24 @@ def test_ops_route_k7_for_one_chunk_and_k8_for_more(monkeypatch, S,
 
 def test_ssd_ring_depth_rule():
     """K8's ring: the deepest of 2-4 that fits 227 KB, no deeper than the
-    sweep of 32-position chunks."""
+    sweep of 32-position chunks, or of 16-position chunks where no ring of
+    32 fits (fp32 at N = 256); K7 takes a 32-position chunk where its
+    64-position block does not fit.  Only a state too large for one block
+    is refused."""
     assert pipeline.ssd_depth(64, 128, 512) == 4
     assert pipeline.ssd_ring_bytes(64, 128, 4) <= pipeline.MAX_SMEM
     assert pipeline.ssd_depth(64, 128, 65) == 3
     assert pipeline.ssd_depth(8, 16, 20) == 2
     assert pipeline.ssd_depth(128, 128, 512) == 2
+    assert pipeline.ssd_plan(64, 256, 512) == (16, 3)
+    assert pipeline.ssd_plan(64, 256, 512, itemsize=2) == (32, 2)
+    assert pipeline.ssd_plan(128, 256, 512) is None
     with pytest.raises(ValueError):
-        pipeline.ssd_depth(64, 256, 512)
-    assert k7.ssd_tileable(64, 128) and not k7.ssd_tileable(6, 128)
-    assert not k7.ssd_tileable(64, 256)
+        pipeline.ssd_depth(128, 256, 512)
+    assert [k7.ssd_chunk(P, N) for P, N in ((64, 128), (6, 128), (64, 256),
+                                             (256, 256))] == [64, 64, 32, None]
+    assert k7.ssd_tileable(6, 128) and k7.ssd_tileable(64, 256)
+    assert not k7.ssd_tileable(256, 256)
 
 
 # ---------------------------------------------------------------------------

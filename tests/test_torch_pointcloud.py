@@ -33,7 +33,8 @@ from repro_torch.pointcloud import ref
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 B, N, M, K, C = 2, 256, 64, 8, 32
 DTYPES = {"float32": (torch.float32, jnp.float32),
-          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+          "bfloat16": (torch.bfloat16, jnp.bfloat16),
+          "float16": (torch.float16, jnp.float16)}
 
 
 def _cloud(kind: str, dtype: str):
@@ -64,7 +65,7 @@ def _cloud(kind: str, dtype: str):
 
 
 def _jax(t: torch.Tensor, dtype: str):
-    """The same values in JAX (exact: bf16 goes through fp32)."""
+    """The same values in JAX (exact: bf16 and fp16 go through fp32)."""
     return jnp.asarray(t.float().numpy(), DTYPES[dtype][1])
 
 

@@ -258,3 +258,130 @@ def test_static_engine_generates_greedy_tokens(cfg):
     toks, stats = eng.generate({"tokens": prompts}, 4)
     assert toks.shape == (2, 4) and stats.tokens == 4
     assert ((toks >= 0) & (toks < cfg.vocab)).all()
+
+
+# ---------------------------------------------------------------------------
+# paged decode: inactive slots, the spare page, no host sync
+# ---------------------------------------------------------------------------
+
+def _old_attention_decode_paged(params, x, cfg, k_pages, v_pages, page_table,
+                                seq_lens, active, lowering):
+    """The port's paged decode as it stood before the spare page: the
+    writes gathered to the active rows through ``torch.nonzero`` (a host
+    sync); kept here as the bit-for-bit oracle of the new one."""
+    from repro_torch.models import layers as L
+    hd = cfg.resolved_head_dim()
+    B, page, P = x.shape[0], k_pages.shape[1], page_table.shape[1]
+    q, k, v = L._qkv(params, x, cfg, seq_lens[:, None].to(torch.int32))
+    rows = torch.nonzero(active).flatten()
+    sl = seq_lens[rows].long()
+    phys = page_table[rows, sl // page].long()
+    k_pages[phys, sl % page] = k[rows, 0].to(k_pages.dtype)
+    v_pages[phys, sl % page] = v[rows, 0].to(v_pages.dtype)
+    pt = page_table.long()
+    kg = k_pages[pt].reshape(B, P * page, *k_pages.shape[2:])
+    vg = v_pages[pt].reshape(B, P * page, *v_pages.shape[2:])
+    mask = (torch.arange(P * page)[None, None, :] <= seq_lens[:, None, None])
+    out = L.sdpa(q, kg.to(q.dtype), vg.to(q.dtype), mask, hd, lowering,
+                 kind="attention_paged")
+    return L._out_proj(out, params["wo"])
+
+
+def _paged_layer_case(active_bits, seed=0):
+    """Layer-0 attention params of reduced llama110m (the reference's
+    initializer), a token batch and page pools of N = 6 pages (the port's
+    with its spare page appended), from numpy's ``seed``.  Slot 1's table
+    row points at pages that slot 0 owns, and slot 3 sits at the last
+    position of its table, where seq_lens // page runs past the table."""
+    from repro.models.registry import get_model as jax_get_model
+    from repro_torch.models.transformer import layer_params
+    jcfg = jax_reduced(jax_get_config("llama110m"))
+    jparams = jax_get_model(jcfg).init(jax.random.key(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    jattn = jax.tree.map(lambda a: a[0], jparams["blocks"]["attn"])
+    tattn = layer_params(tparams["blocks"], 0)["attn"]
+    rng = np.random.default_rng(seed)
+    Bn, page, P, N = 4, 4, 3, 6
+    K, hd = jcfg.n_kv_heads, jcfg.resolved_head_dim()
+    x = rng.normal(size=(Bn, 1, jcfg.d_model)).astype(np.float32)
+    pools = [rng.normal(size=(N + 1, page, K, hd)).astype(np.float32)
+             for _ in range(2)]
+    table = np.array([[0, 1, 2], [0, 1, 0], [3, 4, 5], [5, 4, 3]], np.int32)
+    lens = np.array([5, 2, 9, P * page], np.int32)
+    active = np.array(active_bits, bool)
+    return (jcfg, jattn, tattn, x, pools, table, lens, active, N)
+
+
+@pytest.mark.parametrize("active_bits", [(1, 0, 1, 0), (1, 1, 1, 0),
+                                         (0, 0, 0, 0), (1, 0, 0, 0)])
+def test_paged_decode_matches_reference_with_inactive_slots(cfg, active_bits):
+    """``attention_decode_paged`` with inactive slots: the output and the
+    first N pages of each pool match the reference's (which drops the
+    inactive writes; atol 1e-5, tests/test_serve.py:75), match bit for bit
+    the port's earlier version (which wrote only the active rows), and
+    every page no active row writes is untouched."""
+    from repro.models import layers as jax_layers
+    from repro_torch.models import layers as L
+    (jcfg, jattn, tattn, x, pools, table, lens, active,
+     N) = _paged_layer_case(active_bits)
+    jout, jk, jv = jax_layers.attention_decode_paged(
+        jattn, jnp.asarray(x), jcfg, jnp.asarray(pools[0][:N]),
+        jnp.asarray(pools[1][:N]), jnp.asarray(table), jnp.asarray(lens),
+        jnp.asarray(active), lowering=JaxLowering.from_registry("xla"))
+    lw = LoweringConfig("cuda")
+    kp, vp = (torch.from_numpy(p.copy()) for p in pools)
+    args = (torch.from_numpy(x), cfg, kp, vp, torch.from_numpy(table),
+            torch.from_numpy(lens), torch.from_numpy(active))
+    out, kp2, vp2 = L.attention_decode_paged(tattn, *args, lowering=lw)
+    assert kp2 is kp and vp2 is vp                   # updated in place
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(kp[:N].numpy(), np.asarray(jk), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(vp[:N].numpy(), np.asarray(jv), atol=1e-5,
+                               rtol=0)
+
+    old_k, old_v = (torch.from_numpy(p.copy()) for p in pools)
+    old_out = _old_attention_decode_paged(
+        tattn, torch.from_numpy(x), cfg, old_k, old_v, *args[4:],
+        lowering=lw)
+    assert torch.equal(out, old_out)
+    assert torch.equal(kp[:N], old_k[:N]) and torch.equal(vp[:N], old_v[:N])
+
+    page = pools[0].shape[1]
+    written = {(int(table[b, lens[b] // page]), int(lens[b] % page))
+               for b in range(len(active)) if active[b]}
+    for p in range(N):
+        for s in range(page):
+            if (p, s) not in written:
+                assert np.array_equal(kp[p, s].numpy(), pools[0][p, s])
+                assert np.array_equal(vp[p, s].numpy(), pools[1][p, s])
+
+
+def test_paged_decode_makes_no_host_sync(cfg, monkeypatch):
+    """The paged KV write picks its page on the device: no
+    ``torch.nonzero``, ``.item()``, ``.cpu()``, ``.tolist()`` or
+    ``.numpy()`` in ``attention_decode_paged`` (each would copy to the host
+    and wait for the card)."""
+    from repro_torch.models import layers as L
+    (_, _, tattn, x, pools, table, lens, active,
+     _) = _paged_layer_case((1, 0, 1, 0))
+    args = [torch.from_numpy(a) for a in (x, pools[0], pools[1], table, lens,
+                                          active)]
+
+    def sync(*a, **k):
+        raise AssertionError("host sync in the paged decode")
+    monkeypatch.setattr(torch, "nonzero", sync)
+    for name in ("nonzero", "item", "cpu", "tolist", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name, sync)
+    out, _, _ = L.attention_decode_paged(tattn, args[0], cfg, *args[1:],
+                                         lowering=LoweringConfig("cuda"))
+    monkeypatch.undo()
+    assert out.shape == (4, 1, cfg.d_model) and torch.isfinite(out).all()
+
+
+def test_paged_cache_keeps_a_spare_page_the_allocator_never_hands_out(cfg):
+    c = PagedKVCache(cfg, max_batch=2, page_size=16, n_pages=4, max_len=64)
+    assert c.k_pages.shape[1] == c.v_pages.shape[1] == 5
+    assert sorted(c.allocator.alloc(4)) == [0, 1, 2, 3]
+    assert not c.allocator.can_alloc(1)
