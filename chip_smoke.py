@@ -29,7 +29,19 @@ Phases (any failure exits non-zero; nothing is caught):
    and bf16/fp16 on the 989 TFLOP/s tensor cores.  K1 rows also time the
    first design's two-pass loop shape (``loop_ms``, ``loop_cold_ms``) and
    ``F.rms_norm`` cold; K1 fp16 rows; K2/K3 at head dims 80, 96 and 256
-   (one KV head) and in fp16.
+   (one KV head) and in fp16; K3 at (i1)'s B = 8, S = T = 512 at ring
+   depths 2, 3 and 4 in fp32 and bf16 (the sweep ``choose_depth``'s rule
+   rests on); a local + strided block-sparse mask (K2, K3); a long T in
+   bf16 (S = 64, T = 4096: P rounded to bf16 over 4096 keys; its outputs
+   average ~4000 values and are held to 2e-2 of the largest output, not
+   an atol of 2e-2).  Rows that differ only in the kernel or its ring
+   depth share one timing of the plain version and of SDPA.  Every K2,
+   K3 and K6 row carries ``blocks_per_sm`` (what
+   ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports) and
+   ``live_tiles`` ([K/V tiles the kernel counted computing in one more
+   launch, all tile pairs] per batch and head; the run fails unless the
+   count is that of the tiles with a valid entry), and every row with a
+   fully masked query row checks it is exactly 0.
 4b. sync check: one ``layers.attention_decode_paged`` at llama110m's width
    with inactive slots under ``torch.cuda.set_sync_debug_mode("error")``
    (any host sync raises), equal to the same call outside it; then a whole
@@ -122,8 +134,9 @@ Phases (any failure exits non-zero; nothing is caught):
    and M = 8: exactly 85 K4 launches at M = 512 and 85 K5 launches at M = 8,
    each output against the plain version at phase 8's fp32 tolerance.
 
-Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
+Prints the seconds each phase took (``{"phase": "wall", ...}``), a
+``{"kernels": [...]}`` line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
 result when no CUDA device is visible or when run outside a checkout.
 """
 
@@ -303,9 +316,60 @@ def _row(kernel, case, err, ms, plain_ms, library_ms, nbytes, flops, dtype):
             "dtype": dtype}
 
 
+def flash_mask(kind: str, S: int, T: int):
+    """(1, S, T) bool: ``causal`` (the diagonal ending at the last key);
+    ``fully_masked_rows`` (tests/test_kernels.py:45); ``block_sparse``,
+    causal keys of the query's own 64-key tile and of every even-numbered
+    tile (a local + strided pattern: 24 of 64 tile pairs live at S = T =
+    512, where causal has 36)."""
+    import torch
+    mask = torch.tril(torch.ones((S, T), dtype=torch.bool, device="cuda"),
+                      diagonal=T - S)[None]
+    if kind == "fully_masked_rows":
+        mask = torch.zeros((1, S, T), dtype=torch.bool, device="cuda")
+        mask[:, :, :8] = True
+        mask[:, :8, :] = False
+    elif kind == "block_sparse":
+        qt = (torch.arange(S, device="cuda") + T - S)[:, None] // 64
+        kt = torch.arange(T, device="cuda")[None, :] // 64
+        mask &= (kt == qt) | (kt % 2 == 0)
+    return mask
+
+
+def flash_shape_fields(kernel: str, dtype, hd: int, mask, B: int, H: int,
+                       counted, depth: int = 0):
+    """``blocks_per_sm`` the card reports for the kernel, and
+    ``live_tiles``: [K/V tiles the kernel reports computing in one launch
+    with a counter (``counted(live_count)``), all tile pairs], per (batch,
+    head) of a (1,S,T) mask.  Fails where the kernel computed other tiles
+    than those with a valid entry (``flash_attention.live_tiles``)."""
+    import torch
+    from repro_torch.kernels.flash_attention import blocks_per_sm, live_tiles
+    count = torch.zeros(1, dtype=torch.int32, device="cuda")
+    counted(count)
+    computed = int(count)
+    live, total = live_tiles(mask, hd)
+    if computed != B * H * live:
+        raise AssertionError(f"{kernel}: computed {computed} K/V tiles, the "
+                             f"mask has {B * H * live} live")
+    return {"blocks_per_sm": blocks_per_sm(kernel, dtype, hd, depth or None),
+            "live_tiles": [computed // (B * H), total]}
+
+
+#: Device times of the plain version and of SDPA by (B, S, T, H, K, hd,
+#: dtype, mask kind): rows that differ only in the kernel or its ring depth
+#: share one measurement of each.
+_YARDSTICK_MS: dict[tuple, tuple[float, float]] = {}
+
+
 def flash_case(kernel: str, S: int, T: int, H: int, K: int, dtype: str, gen,
                mask_kind: str = "causal", depth: int = 0, B: int = 1,
-               hd: int = 64) -> dict:
+               hd: int = 64, cold: bool = True,
+               scaled_tol: bool = False) -> dict:
+    """K2 or K3 (at ring ``depth``) against the plain version; ``cold``
+    times it with inputs out of L2 too.  ``scaled_tol`` holds the row to
+    TOL's atol times the largest output, for outputs much smaller than 1
+    (a long T averages the values over many keys)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -315,19 +379,14 @@ def flash_case(kernel: str, S: int, T: int, H: int, K: int, dtype: str, gen,
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt)
     k = torch.randn((B, T, K, hd), generator=gen, device="cuda").to(dt)
     v = torch.randn((B, T, K, hd), generator=gen, device="cuda").to(dt)
-    mask = torch.tril(torch.ones((S, T), dtype=torch.bool, device="cuda"),
-                      diagonal=T - S)[None]
-    if mask_kind == "fully_masked_rows":    # tests/test_kernels.py:45
-        mask = torch.zeros((1, S, T), dtype=torch.bool, device="cuda")
-        mask[:, :, :8] = True
-        mask[:, :8, :] = False
+    mask = flash_mask(mask_kind, S, T)
     scale = hd ** -0.5
     if kernel == "flash_attention":
-        call = lambda q, k, v: flash_attention(  # noqa: E731
-            q, k, v, mask, sm_scale=scale)
+        call = lambda q, k, v, **kw: flash_attention(  # noqa: E731
+            q, k, v, mask, sm_scale=scale, **kw)
     else:
-        call = lambda q, k, v: flash_attention_pipelined(  # noqa: E731
-            q, k, v, mask, sm_scale=scale, depth=depth)
+        call = lambda q, k, v, **kw: flash_attention_pipelined(  # noqa: E731
+            q, k, v, mask, sm_scale=scale, depth=depth, **kw)
     run = lambda: call(q, k, v)  # noqa: E731
     plain = lambda: ref.flash_attention_ref(q, k, v, mask, sm_scale=scale)  # noqa: E731
     got = run()
@@ -335,8 +394,14 @@ def flash_case(kernel: str, S: int, T: int, H: int, K: int, dtype: str, gen,
     case = ((f"B={B} " if B > 1 else "")
             + f"S={S} T={T} H={H} K={K} hd={hd} {dtype} {mask_kind}"
             + (f" depth={depth}" if depth else ""))
-    err = _check(f"{kernel} {case}", got, plain(), dtype)
-    if mask_kind == "fully_masked_rows" and float(got[:, :8].abs().max()) != 0:
+    want = plain()
+    tol = None
+    if scaled_tol:
+        atol, rtol = TOL[dtype]
+        tol = {dtype: (atol * float(want.float().abs().max()), rtol)}
+    err = _check(f"{kernel} {case}", got, want, dtype, tol)
+    dead = ~mask.expand(B, S, T).any(-1)
+    if dead.any() and float(got[dead].abs().max()) != 0:
         raise AssertionError(f"{kernel}: fully-masked rows are not 0")
     # library yardstick (never called by the port): SDPA on (B,H,S,hd)
     # views with the K/V heads repeated for GQA outside the timed call
@@ -349,10 +414,18 @@ def flash_case(kernel: str, S: int, T: int, H: int, K: int, dtype: str, gen,
         + mask.numel()
     flops = 4 * hd * H * int(mask.expand(B, S, T).sum())
     iters = 20 if B * S >= 256 else 50
-    row = _row(kernel, case, err, device_ms(run, iters),
-               device_ms(plain, iters), device_ms(lib, iters), nbytes, flops,
-               dtype)
-    row["cold_ms"] = cold_ms(call, (q, k, v))
+    key = (B, S, T, H, K, hd, dtype, mask_kind)
+    if key not in _YARDSTICK_MS:
+        _YARDSTICK_MS[key] = device_ms(plain, iters), device_ms(lib, iters)
+    row = _row(kernel, case, err, device_ms(run, iters), *_YARDSTICK_MS[key],
+               nbytes, flops, dtype)
+    if tol:
+        row["atol"] = tol[dtype][0]
+    if cold:
+        row["cold_ms"] = cold_ms(call, (q, k, v))
+    row.update(flash_shape_fields(
+        kernel, dt, hd, mask, B, H,
+        lambda n: call(q, k, v, live_count=n), depth))
     return row
 
 
@@ -394,6 +467,24 @@ def kernel_phase() -> list[dict]:
                            "float32", gen, depth=2, B=8))
     rows.append(flash_case("flash_attention_pipelined", 512, 512, 12, 12,
                            "float32", gen, depth=4, B=8))
+    # ... the same group at the other ring depths (``choose_depth`` takes
+    # the one that leaves room for the most blocks an SM; warm times only
+    # where it does not) and in bf16; a local + strided block-sparse mask;
+    # a long T in bf16, where P is rounded to bf16 for p.v over 4096 keys
+    for depth in (2, 3):
+        rows.append(flash_case("flash_attention_pipelined", 512, 512, 12, 12,
+                               "float32", gen, depth=depth, B=8,
+                               cold=depth == 2))
+    for depth in (2, 3, 4):
+        rows.append(flash_case("flash_attention_pipelined", 512, 512, 12, 12,
+                               "bfloat16", gen, depth=depth, B=8,
+                               cold=depth == 2))
+    rows.append(flash_case("flash_attention_pipelined", 512, 512, 12, 12,
+                           "float32", gen, "block_sparse", depth=2, B=8))
+    rows.append(flash_case("flash_attention", 512, 512, 12, 12, "float32",
+                           gen, "block_sparse"))
+    rows.append(flash_case("flash_attention_pipelined", 64, 4096, 12, 12,
+                           "bfloat16", gen, depth=4, scaled_tol=True))
     # the instantiations the reference's lowering reaches beyond the main
     # path: head dims 80 and 96 (run at width 128), 256 with one KV head
     # (paligemma-3b's attention: 32-key tiles in K3), and fp16
@@ -1166,13 +1257,12 @@ def int8kv_case(S: int, H: int, K: int, dtype: str, gen,
     vs = vf.abs().amax(dim=(0, 1, 3)) / 127.0
     k8 = torch.round(kf / ks[None, None, :, None]).clamp(-127, 127).to(torch.int8)
     v8 = torch.round(vf / vs[None, None, :, None]).clamp(-127, 127).to(torch.int8)
-    mask = torch.tril(torch.ones((S, T), dtype=torch.bool, device="cuda"),
-                      diagonal=T - S)[None]
+    mask = flash_mask("causal", S, T)
     if mask_kind == "fully_masked_rows":
         mask[:, :8, :] = False
     scale = hd ** -0.5
-    call = lambda q, k8, v8: flash_attention_int8kv(  # noqa: E731
-        q, k8, v8, ks, vs, mask, sm_scale=scale)
+    call = lambda q, k8, v8, **kw: flash_attention_int8kv(  # noqa: E731
+        q, k8, v8, ks, vs, mask, sm_scale=scale, **kw)
     run = lambda: call(q, k8, v8)  # noqa: E731
     plain = lambda: ref.flash_attention_int8kv_ref(  # noqa: E731
         q, k8, v8, ks, vs, mask, sm_scale=scale)
@@ -1199,7 +1289,10 @@ def int8kv_case(S: int, H: int, K: int, dtype: str, gen,
     row.update(library_note="no one-call counterpart (SDPA takes no int8 "
                             "K/V with per-head scales)",
                max_abs_err_vs_fp_oracle=fp_err,
-               cold_ms=cold_ms(call, (q, k8, v8)))
+               cold_ms=cold_ms(call, (q, k8, v8)),
+               **flash_shape_fields(
+                   "flash_attention_int8kv", dt, hd, mask, B, H,
+                   lambda n: call(q, k8, v8, live_count=n)))
     print(json.dumps(row))
     return row
 
@@ -1407,11 +1500,14 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
     largest shape the main path gives it) and the largest fp32 error over
     all its cases."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.pipeline import choose_depth
+    i1_depth = choose_depth(64, 4, 512 // 64)
     main_case = {"rmsnorm": "R=2048 d=5120 bfloat16",   # (s2)'s gate_norm
                  "flash_attention": "S=64 T=64 H=12 K=12 hd=64 float32 causal",
                  # (i1)'s largest group: 8 prompts at bucket 512
                  "flash_attention_pipelined":
-                     "B=8 S=512 T=512 H=12 K=12 hd=64 float32 causal depth=4",
+                     "B=8 S=512 T=512 H=12 K=12 hd=64 float32 causal "
+                     f"depth={i1_depth}",
                  # shape (a) for K9-K12, (b) for K13, as the path takes them
                  "fps": "a float32",
                  "ball_query": "a float32",
@@ -1440,10 +1536,14 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                     "library_ms": row["library_ms"],
                     "library_note": row.get("library_note"),
                     "case": row["case"]})
+        for key in ("blocks_per_sm", "live_tiles"):
+            if key in row:
+                out[-1][key] = row[key]
     return out
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1461,20 +1561,29 @@ def main() -> int:
     print(f"card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(json.dumps({"phase": "build", **build_kernels()}))
-    rows = kernel_phase()
-    launches = serve_phase()
-    sync_check_phase()
-    rows += pointcloud_kernel_phase()
-    pc_launches = pointcloud_path_phase()
-    rows += ssm_kernel_phase()
-    ssm_launches = ssm_serve_phase()
-    rows += int8_kernel_phase()
-    i1_launches, qtree = int8_serve_phase()
-    i2_launches = int8_gemm_phase(qtree)
+    seconds = {"start": time.perf_counter() - t_start}
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+    print(json.dumps({"phase": "build", **timed("build", build_kernels)}))
+    rows = timed("kernels", kernel_phase)
+    launches = timed("serve", serve_phase)
+    timed("sync_check", sync_check_phase)
+    rows += timed("pointcloud_kernels", pointcloud_kernel_phase)
+    pc_launches = timed("pointcloud", pointcloud_path_phase)
+    rows += timed("ssm_kernels", ssm_kernel_phase)
+    ssm_launches = timed("ssm", ssm_serve_phase)
+    rows += timed("int8_kernels", int8_kernel_phase)
+    i1_launches, qtree = timed("int8_serve", int8_serve_phase)
+    i2_launches = timed("int8_gemm", int8_gemm_phase, qtree)
     runs = (launches, pc_launches, ssm_launches, i1_launches, i2_launches)
     launches = {n: sum(d.get(n, 0) for d in runs)
                 for n in set().union(*runs)}
+    print(json.dumps({"phase": "wall", "seconds": seconds,
+                      "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernel_summary(rows, launches)}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,13 @@
 
 Each ``csrc/<name>.cu`` becomes one library with a plain C interface,
 compiled by ``nvcc`` for ``sm_90a`` and loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds).  Libraries land in ``_build/`` under a
-name that carries a hash of the sources, so an edited source is rebuilt
-and a stale library is never loaded.  ``build`` starts one ``nvcc`` per
-missing library, all at once, and waits for all of them.
+headers, so a build takes seconds).  A library may have parts,
+``csrc/<name>.<part>.cu``, compiled apart and linked in, so that a source
+with many kernels builds on several cores.  Libraries land in ``_build/``
+under a name that carries a hash of the sources, so an edited source is
+rebuilt and a stale library is never loaded.  ``build`` starts one
+``nvcc`` per source of every missing library, all at once, waits for all
+of them, and links each library.
 
 A ``CudaKernel`` binds one C entry point and counts its launches: the count
 goes up by one where the kernel was launched and nowhere else, so a run
@@ -27,10 +30,11 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 # -split-compile=0 lets one source's optimizer use the cores the other,
-# shorter builds leave idle (flash_attention_pipelined.cu has 90 kernels)
+# shorter builds leave idle
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
               "-split-compile=0")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 #: Dynamic shared memory one block may use on sm_90 (bytes).
 MAX_SMEM = 232_448
 
@@ -60,25 +64,32 @@ def find_nvcc() -> str:
 
 
 def library_names() -> list[str]:
-    """One library per ``csrc/*.cu`` source."""
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
+    """One library per ``csrc/*.cu`` source that is not a part."""
+    return sorted(p.stem for p in CSRC.glob("*.cu") if "." not in p.stem)
+
+
+def sources(name: str) -> list[pathlib.Path]:
+    """``csrc/<name>.cu`` and its parts, ``csrc/<name>.<part>.cu``."""
+    return [CSRC / f"{name}.cu", *sorted(CSRC.glob(f"{name}.*.cu"))]
 
 
 def _lib_path(name: str) -> pathlib.Path:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
-    for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for p in [*sources(name), *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=None) -> dict[str, pathlib.Path]:
-    """Compile every named library that is not built yet, all in parallel.
+    """Compile every named library that is not built yet, all sources in
+    parallel, then link each.
 
     Returns the library paths; raises ``KernelBuildError`` with nvcc's
-    output if any source fails to compile.  Each ``<lib>.log`` keeps nvcc's
-    ``-Xptxas -v`` report (registers, shared memory, spills).
+    output if any source fails to compile or link.  Each ``<lib>.log``
+    keeps nvcc's ``-Xptxas -v`` report of all its sources (registers,
+    shared memory, spills).
     """
     names = library_names() if names is None else list(names)
     paths = {n: _lib_path(n) for n in names}
@@ -87,22 +98,38 @@ def build(names=None) -> dict[str, pathlib.Path]:
         return paths
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for n, p in todo.items():
-        tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, p)
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    procs = {n: [] for n in todo}
+    for n in todo:
+        for src in sources(n):
+            obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs[n].append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT,
+                                              text=True), obj))
     failed = []
-    for n, (proc, tmp, p) in procs.items():
-        out, _ = proc.communicate()
-        p.with_suffix(".log").write_text(out)
-        if proc.returncode != 0:
-            failed.append(f"--- {n} (nvcc exit {proc.returncode}) ---\n{out}")
-            tmp.unlink(missing_ok=True)
-        else:
+    for n, p in todo.items():
+        log, objs, ok = [], [], True
+        for proc, obj in procs[n]:
+            out, _ = proc.communicate()
+            log.append(out)
+            objs.append(obj)
+            ok = ok and proc.returncode == 0
+        tmp = p.with_name(f"{p.name}.{tag}.tmp")
+        if ok:
+            link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True,
+                                  text=True)
+            log.append(link.stdout + link.stderr)
+            ok = link.returncode == 0
+        p.with_suffix(".log").write_text("".join(log))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if ok:
             os.replace(tmp, p)
+        else:
+            failed.append(f"--- {n} ---\n" + "".join(log))
+            tmp.unlink(missing_ok=True)
     if failed:
         raise KernelBuildError("\n".join(failed))
     return paths
@@ -147,6 +174,15 @@ class CudaKernel:
             fn.restype = ctypes.c_int
             self._fn = (lib, fn)
         return self._fn
+
+    def query(self, symbol: str, *args: int) -> int:
+        """Call another entry point of the kernel's library that takes ints
+        and returns an int (an occupancy query); never counts a launch."""
+        lib, _ = self._entry()
+        fn = getattr(lib, symbol)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_int
+        return fn(*args)
 
     def launch(self, *args) -> None:
         """Call the C entry point (which launches on the given stream and

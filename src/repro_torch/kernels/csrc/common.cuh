@@ -14,7 +14,9 @@
 // dtype codes passed from Python (see kernels/_build.py callers).
 enum ReproDtype : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
-REPRO_EXPORT const char* repro_cuda_error_string(int err) {
+// Weak: a library linked from several sources (kernels/_build.py parts)
+// carries one copy.
+REPRO_EXPORT __attribute__((weak)) const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

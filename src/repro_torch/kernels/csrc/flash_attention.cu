@@ -6,28 +6,33 @@
 // grid dimension walks the K/V tiles while the running max, denominator and
 // accumulator sit in VMEM scratch.
 //
-// Bound on an H100: at the prefill buckets of llama110m (S = T <= 512,
-// hd = 64, fp32) the work is 4*S*T*hd flops per head against
-// (2*S + 2*T)*hd*4 bytes, i.e. ~S/4 flop/byte: compute-bound on the fp32
-// CUDA-core rate (67 TFLOP/s) once S passes ~80, memory-bound below.
+// Bound on an H100: 4*hd flops per valid (query, key) pair and head
+// against (2*S*H + 2*T*K)*hd*itemsize bytes.  In fp32 (the served path:
+// llama110m's prefill buckets of 16-64 tokens, hd 64) that is the 67
+// TFLOP/s of the CUDA cores from S ~ 80 up; at the served S <= 64 one
+// block per (q tile, head) runs a single K/V tile, so the time is the
+// latency of one load-compute-store chain.  In bf16/fp16 the tensor cores
+// (989 TFLOP/s) leave it bound by bytes and latency.
 //
-// Design: flash::baseline_kernel (flash_tile.cuh) with K/V of q's type
-// (fp32, bf16 or fp16; any head dim up to 256, built at the padded widths
-// 16 ... 256): each 64-row K/V tile is loaded with 16-byte vector loads and
-// converted to fp32 in shared memory, and flash::tile_update folds it into the running
-// state (fp32 FFMA, no TF32: parity with the fp32 reference is the point
-// of this first version; tensor cores come later).
+// Design: flash::flash_kernel (flash_tile.cuh) with one K/V stage: the
+// block lists its live K/V tiles from its mask rows (skipping wholly
+// masked ones; a one-tile sweep is not scanned), and for each live tile
+// copies K, V and, where the tile is partial, its mask bytes into shared
+// memory (16-byte cp.async), waits, and folds the tile in: fp32 rows on
+// the CUDA cores (fp32 FFMA, no TF32), bf16/fp16 rows on the tensor cores
+// (mma.sync m16n8k16, fp32 accumulators).
 #include "flash_tile.cuh"
 
 // q: (B,S,H,hd), k/v: (B,T,K,hd), out: (B,S,H,hd), all contiguous of
 // `dtype` (fp32, bf16, fp16); mask: (mask_b,S,T) contiguous bool with
-// mask_b in {1, B}.  1 <= hd <= 256; H % K == 0.  Returns
+// mask_b in {1, B}.  1 <= hd <= 256; H % K == 0.  `live`: null, or one
+// int to which every block adds the K/V tiles it computed.  Returns
 // cudaGetLastError().
 REPRO_EXPORT int flash_attention_launch(const void* q, const void* k, const void* v,
                                         const void* mask, void* out, int B, int S,
                                         int T_len, int H, int K, int hd, int mask_b,
-                                        float sm_scale, int dtype, int device,
-                                        void* stream) {
+                                        float sm_scale, void* live, int dtype,
+                                        int device, void* stream) {
   cudaError_t e = repro_set_device(device);
   if (e != cudaSuccess) return e;
   if (B <= 0 || S <= 0 || T_len <= 0 || K <= 0 || H % K != 0) return cudaErrorInvalidValue;
@@ -35,5 +40,19 @@ REPRO_EXPORT int flash_attention_launch(const void* q, const void* k, const void
   REPRO_DISPATCH_FLOAT(dtype, T,
                        flash::dispatch_baseline<T, T>(hd, q, k, v, nullptr, nullptr,
                                                       mask, out, B, S, T_len, H, K,
-                                                      mask_b, sm_scale, s));
+                                                      mask_b, sm_scale,
+                                                      static_cast<int*>(live), s));
+}
+
+// Blocks of K2 resident on one SM at head dim hd and `dtype`
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -error.
+REPRO_EXPORT int flash_attention_occupancy(int hd, int dtype, int device) {
+  cudaError_t e = repro_set_device(device);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  if (dtype < kFloat32 || dtype > kFloat16) return -static_cast<int>(cudaErrorInvalidValue);
+  REPRO_DISPATCH_FLOAT(dtype, T,
+                       [&]() -> int {
+                         FLASH_DISPATCH_HD(hd, -static_cast<int>(cudaErrorInvalidValue),
+                                           (flash::occupancy<W, T, T, 1>(hd)));
+                       }());
 }

@@ -1,33 +1,59 @@
-// The online-softmax tile update shared by K2 (flash_attention.cu), K3
-// (flash_attention_pipelined.cu) and K6 (flash_attention_int8kv.cu), so the
-// masked-row arithmetic lives in one place -- the counterpart of
-// _online_softmax_update / _init_flash_scratch / _finalize_flash_output in
-// src/repro/kernels/flash_attention.py -- and the baseline kernel K2 and K6
-// share, which differ only in their K/V tile loader (load_kv_tile).
+// The flash-attention kernel shared by K2 (flash_attention.cu, a single
+// K/V stage), K3 (flash_attention_pipelined.cu, a `DEPTH`-stage cp.async
+// ring) and K6 (flash_attention_int8kv.cu, int8 K/V widened to fp32 in the
+// tile loader): the counterpart of _online_softmax_update /
+// _init_flash_scratch / _finalize_flash_output in
+// src/repro/kernels/flash_attention.py.
 //
-// Block shape: 256 threads own a BQ x BKT score tile (BKT = 64 keys, or 32
-// where a wide head's ring would not fit).  Thread (ty, tx) = (tid / 16,
-// tid % 16) owns query rows ty + 16*i (i < 4), key columns tx + 16*j
-// (j < BKT/16) and output dims tx + 16*jd (jd < HD/16).  The 16 threads that
-// share a row are one half-warp, so row max and row sum are 4 xor-shuffles.
-// All arithmetic is fp32 FFMA on the CUDA cores (no TF32).
-//
-// Head widths: the kernels are built for HD in {16, 32, 64, 128, 256} and
-// take any real head dim hd <= HD at run time (the wrappers pick the least
-// HD >= hd): tiles are loaded with columns at or past hd zero-filled, so
-// the padding adds nothing to q.k or to p.v, the q.k loop stops at hd
-// rounded up to 4, the p.v loop skips the 16-wide column groups wholly past
-// hd, and only columns below hd are stored.  Rows of hd elements that are
-// whole 16-byte vectors load as vectors; others element by element.  Where
-// hd == HD (EXACT) the kernel passes HD itself down as hd, so every one of
-// those tests folds away at compile time.
-//
-// Semantics (bit-for-bit the reference's rules, not its summation order):
+// What it computes (the reference's rules, not its summation order):
 //   s = (q . k) * sm_scale, and -1e30 where the mask is false;
 //   m' = max(m, rowmax s); alpha = exp(m - m'); p = mask ? exp(s - m') : 0;
 //   l = alpha * l + rowsum p; acc = alpha * acc + p v;
 //   out = acc / max(l, 1e-30), so a row with no valid key gives 0.
 // Keys past T and queries past S are treated as masked / not written.
+//
+// One block owns a tile of 64 query rows of one (batch, head) and walks
+// the K/V tiles of BKT keys (64; 32 at head widths above 128).
+//
+// 1. Tile skipping.  On entry the block reads its 64 mask rows once, as
+//    16-byte vectors (scan_window), and lists in shared memory the K/V
+//    tiles with at least one valid entry, each marked *full* (every entry
+//    valid: no per-score test) or *partial*.  Only listed tiles are loaded
+//    and computed; a wholly masked tile would leave m, l and acc bit for
+//    bit as they were, so skipping it is exact.  A partial tile's mask
+//    bytes ride the ring beside its K and V (cp.async where T % 16 == 0),
+//    so the tile reads its mask from shared memory.  The list holds
+//    kWindow tiles; a longer sweep is walked window by window, the ring
+//    drained between windows.  A sweep of one tile is not scanned: that
+//    tile is taken as partial.  fp32 rows start tile 0's copies before the
+//    scan and keep them where the list begins with tile 0.  Blocks are
+//    ordered heaviest query tile first (the last q tile has the most
+//    causal keys), so the causal imbalance does not leave a tail wave.
+//    Given a counter (`live`), each block adds the K/V tiles it computed,
+//    so a caller can check the skipping against the mask.
+// 2. fp32 rows (K/V fp32, or int8 widened to fp32; F32Tile): 256 threads,
+//    all math fp32 FFMA on the CUDA cores (no TF32: fp32 parity).  q.k
+//    takes 4 rows x 4 keys a thread over float4 columns (8 FFMA a load);
+//    p.v takes 4 rows x 4 consecutive output dims a thread, P read as
+//    float4 over 4 keys and V rows as float4 (8 FFMA a load at hd 64).  A
+//    row of P stays within a half-warp, so P needs a warp barrier only.
+//    At hd 64 a block holds to 128 registers, so that two share an SM.
+// 3. bf16/fp16 rows (MmaTile): 4 warps of 16 query rows each (128
+//    threads) on the tensor cores, mma.sync m16n8k16 with fp32
+//    accumulators.  Q and K fragments come by ldmatrix, V's by
+//    ldmatrix.trans, from K/V kept in shared memory in their own 16-bit
+//    type.  S = QK^T stays in registers, the online softmax runs there
+//    (quad shuffles), and P is rounded to the input type in registers to
+//    become the A fragment of P.V (as SDPA's tensor-core kernels do; l is
+//    the sum of the fp32 p).
+//
+// Head widths: built for HD in {16, 32, 64, 128, 256}; any real head dim
+// hd <= HD runs at the least HD >= hd.  Columns at or past hd are zero
+// filled, so the padding adds nothing to q.k or p.v, and only columns below
+// hd are stored.  Where hd == HD (EXACT) the kernel passes HD itself down
+// as hd, so every such test folds away at compile time.  Rows of hd
+// elements that are not whole 16-byte vectors are copied element by
+// element at the same point of the schedule (only the overlap is lost).
 #pragma once
 
 #include <type_traits>
@@ -37,49 +63,221 @@
 namespace flash {
 
 constexpr int BQ = 64;
-constexpr int BK = 64;  // keys a tile, except BK_WIDE at HD = 256 in K3
-constexpr int BK_WIDE = 32;
-constexpr int kThreads = 256;
+constexpr int kWindow = 128;        // K/V tiles one live list holds
+constexpr int kWords = kWindow / 32;
+constexpr int kMaxWarps = 8;
+
+constexpr uint16_t kPartial = 0x8000;  // list entry: tile (low bits) | partial
 constexpr float kNegInf = -1e30f;
-constexpr int kQStride = 4;  // fp32 padding of the Q and P rows
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Row stride (elements) of a K/V tile held as TS in shared memory: padded by
-// 16 bytes so rows stay 16-byte aligned and neighbouring rows start in
-// different banks.
-template <int HD, typename TS, int BKT = BK>
-struct KVLayout {
-  static constexpr int kStride = HD + 16 / static_cast<int>(sizeof(TS));
-  static constexpr int kTileElems = BKT * kStride;
-};
-
-template <int HD>
-struct QLayout {
-  static constexpr int kStride = HD + kQStride;
-};
-template <int BKT>
-struct PLayout {
-  static constexpr int kStride = BKT + kQStride;
-};
-
-// 4 consecutive elements of a shared-memory row as fp32 (16 B for fp32, 8 B
-// for bf16 or fp16; both aligned since d % 4 == 0 and rows are 16-byte
-// aligned).
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+template <typename TKV>
+__host__ __device__ constexpr bool uses_mma() {
+  return std::is_same<TKV, __nv_bfloat16>::value || std::is_same<TKV, __half>::value;
 }
-__device__ __forceinline__ float4 lds4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
+
+// The live list of one window of K/V tiles (scan_window): 528 bytes.
+struct LiveList {
+  uint16_t entry[kWindow];           // window-relative tile | kPartial
+  uint32_t bits[kMaxWarps][2][kWords];  // per warp: some entry valid / invalid
+  int n;
+  int computed;                      // live tiles of the windows so far
+  int pad[2];
+};
+
+// Shared memory of one block, in bytes and in order: the Q tile; the fp32
+// tile's P (BQ x BKT fp32); DEPTH stages of (K tile, V tile, mask tile);
+// the live list.  K/V (and Q) are held as TS: fp32 on the fp32 tile, the
+// 16-bit input type on the tensor cores.  Rows are padded by 16 bytes, so
+// they stay 16-byte aligned and neighbouring rows start in other banks.
+// kernels/pipeline.ring_smem_bytes mirrors this layout.
+template <int HD, typename TKV, int DEPTH>
+struct Layout {
+  static constexpr bool kMma = uses_mma<TKV>();
+  using TS = typename std::conditional<kMma, TKV, float>::type;
+  static constexpr int BKT = HD > 128 ? 32 : 64;
+  static constexpr int kThreads = kMma ? 128 : 256;
+  static constexpr int KS = HD + 16 / static_cast<int>(sizeof(TS));  // Q, K, V row
+  static constexpr int PS = BKT + 4;                 // P row (fp32 tile)
+  static constexpr int MS = kMma ? BKT + 16 : BKT;   // mask row (bytes)
+  static constexpr size_t kQBytes = sizeof(TS) * BQ * KS;
+  static constexpr size_t kPBytes = kMma ? 0 : sizeof(float) * BQ * PS;
+  static constexpr size_t kKVBytes = sizeof(TS) * BKT * KS;
+  static constexpr size_t kStageBytes = 2 * kKVBytes + BQ * MS;
+  static constexpr size_t kListBytes = sizeof(LiveList);
+  static constexpr size_t kBytes =
+      kQBytes + kPBytes + DEPTH * kStageBytes + kListBytes;
+};
+
+__device__ __forceinline__ bool has_zero_byte(unsigned w) {
+  return ((w - 0x01010101u) & ~w & 0x80808080u) != 0;
 }
-__device__ __forceinline__ float4 lds4(const __half* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __half2* h = reinterpret_cast<const __half2*>(&u);
-  const float2 a = __half22float2(h[0]);
-  const float2 b = __half22float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
+
+// List the live tiles w0 .. w0+ntw-1 of the block's 64 mask rows
+// (`mrow`: row q0 of this batch's (S, T) mask; `rows` of them below S).
+// For each word of 32 tiles, every thread walks its 16-byte chunks of them
+// (16-byte loads where `mvec`, T % 16 == 0, a batch of them issued
+// before the first is read, so the scan pays about one L2 latency a
+// batch) and keeps a bit a tile for "some entry valid" and
+// "some entry invalid"; a
+// warp ORs its lanes' bits (__reduce_or_sync) into its own words of shared
+// memory, and warp 0 ORs the warps' words and compacts them into the list.
+// Two block barriers (three past the first window).
+template <int NT, int BKT>
+__device__ __forceinline__ void scan_window(LiveList& ll, const uint8_t* __restrict__ mrow,
+                                            int rows, int T, int w0, int ntw, bool mvec) {
+  constexpr int CPR = BKT / 16;  // chunks a tile row
+  constexpr int CPT = BQ * CPR;  // chunks a tile, a multiple of 32
+  constexpr int kWarps = NT / 32;
+  static_assert(kWarps <= kMaxWarps, "a bit word per warp");
+  constexpr int kScanBatch = 8;  // mask loads a thread has in flight
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (w0 > 0) __syncthreads();  // the previous window's list is no longer read
+  for (int t0 = 0; t0 < ntw; t0 += 32) {
+    const int end = min(t0 + 32, ntw) * CPT;  // a multiple of 32: warp-uniform
+    unsigned live = 0, part = 0;
+    for (int c0 = t0 * CPT; c0 < end; c0 += kScanBatch * NT) {
+      uint4 u[kScanBatch];
+#pragma unroll
+      for (int i = 0; i < kScanBatch; ++i) {
+        const int c = c0 + i * NT + threadIdx.x;
+        const int r = (c % CPT) / CPR;
+        const int col = (w0 + c / CPT) * BKT + (c % CPR) * 16;
+        u[i] = make_uint4(0u, 0u, 0u, 0u);
+        if (mvec && c < end && r < rows && col < T)
+          u[i] = __ldg(reinterpret_cast<const uint4*>(mrow + static_cast<size_t>(r) * T + col));
+      }
+#pragma unroll
+      for (int i = 0; i < kScanBatch; ++i) {
+        const int c = c0 + i * NT + threadIdx.x;
+        if (c >= end) break;
+        const int t = c / CPT;
+        const int r = (c % CPT) / CPR;
+        const int col = (w0 + t) * BKT + (c % CPR) * 16;
+        bool any = false, all = true;
+        if (r < rows) {
+          if (mvec) {
+            any = (u[i].x | u[i].y | u[i].z | u[i].w) != 0;
+            all = col < T && !(has_zero_byte(u[i].x) || has_zero_byte(u[i].y) ||
+                               has_zero_byte(u[i].z) || has_zero_byte(u[i].w));
+          } else {  // rows that are not whole vectors: byte by byte
+            const uint8_t* src = mrow + static_cast<size_t>(r) * T + col;
+#pragma unroll
+            for (int e = 0; e < 16; ++e) {
+              const bool on = col + e < T && src[e] != 0;
+              any |= on;
+              all &= on;
+            }
+          }
+        }
+        live |= static_cast<unsigned>(any) << (t - t0);
+        part |= static_cast<unsigned>(!all) << (t - t0);
+      }
+    }
+    live = __reduce_or_sync(0xffffffffu, live);
+    part = __reduce_or_sync(0xffffffffu, part);
+    if (lane == 0) {
+      ll.bits[warp][0][t0 / 32] = live;
+      ll.bits[warp][1][t0 / 32] = part;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int w = 0; w < (ntw + 31) / 32; ++w) {
+      unsigned live = 0, part = 0;
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) {
+        live |= ll.bits[i][0][w];
+        part |= ll.bits[i][1][w];
+      }
+      if ((live >> lane) & 1u)
+        ll.entry[n + __popc(live & ((1u << lane) - 1u))] =
+            static_cast<uint16_t>(w * 32 + lane) | (((part >> lane) & 1u) ? kPartial : 0);
+      n += __popc(live);
+    }
+    if (lane == 0) {
+      ll.n = n;
+      ll.computed = (w0 > 0 ? ll.computed : 0) + n;
+    }
+  }
+  __syncthreads();
+}
+
+// Copy `rows` (BQ or BKT) rows of hd <= HD elements of T into shared
+// memory of the same type (row stride KS, HD columns, those past hd and
+// rows at or past `valid` zero-filled): 16-byte cp.async chunks where rows
+// are whole vectors (`vec`), else plain element copies.
+template <int NT, int HD, int KS, typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int rows, const T* __restrict__ src,
+                                          size_t ld, int valid, int hd, bool vec) {
+  constexpr int V = Vec16<T>::N;
+  constexpr int kChunks = HD / V;
+  for (int c = threadIdx.x; c < rows * kChunks; c += NT) {
+    const int r = c / kChunks;
+    const int d = (c % kChunks) * V;
+    const bool ok = r < valid && d < hd;
+    if (vec) {
+      cp_async16(dst + r * KS + d, ok ? src + r * ld + d : src, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        dst[r * KS + d + j] = ok && d + j < hd ? src[r * ld + d + j] : from_f32<T>(0.f);
+    }
+  }
+}
+
+// Load `rows` rows of hd <= HD elements of T into fp32 shared memory (row
+// stride KS), through registers: bf16/fp16 q on the fp32 tile (K6), and
+// int8 K/V, turned into fp32 exactly (i8x4_to_f32) and multiplied by the
+// KV head's `scale`, the same single product as the plain version's
+// k8.float() * k_scale.  Rows at or past `valid` and columns past hd are 0.
+template <int NT, int HD, int KS, typename T>
+__device__ __forceinline__ void widen_rows(float* dst, int rows, const T* __restrict__ src,
+                                           size_t ld, int valid, int hd, float scale) {
+  constexpr int V = Vec16<T>::N;
+  constexpr int kChunks = HD / V;
+  const bool vec = hd % V == 0;
+  for (int c = threadIdx.x; c < rows * kChunks; c += NT) {
+    const int r = c / kChunks;
+    const int d = (c % kChunks) * V;
+    float v[V];
+    if (r < valid && vec && d < hd) {
+      load16(src + r * ld + d, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        v[j] = r < valid && d + j < hd ? to_f32(src[r * ld + d + j]) : 0.f;
+    }
+    if constexpr (std::is_same<T, int8_t>::value) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] *= scale;
+    }
+#pragma unroll
+    for (int j = 0; j < V; j += 4) store16(dst + r * KS + d + j, v + j);
+  }
+}
+
+// The mask bytes of one partial tile (BQ rows x BKT keys from `src`, row
+// stride T) into shared memory (row stride MS); rows at or past `rows`
+// and keys at or past `cols` are 0 (masked).
+template <int NT, int BKT, int MS>
+__device__ __forceinline__ void copy_mask(uint8_t* dst, const uint8_t* __restrict__ src,
+                                          int T, int rows, int cols, bool mvec) {
+  constexpr int CPR = BKT / 16;
+  for (int c = threadIdx.x; c < BQ * CPR; c += NT) {
+    const int r = c / CPR;
+    const int d = (c % CPR) * 16;
+    const uint8_t* s = src + static_cast<size_t>(r) * T + d;
+    if (mvec) {
+      const bool ok = r < rows && d < cols;
+      cp_async16(dst + r * MS + d, ok ? s : src, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        dst[r * MS + d + e] = r < rows && d + e < cols ? s[e] : 0;
+    }
+  }
 }
 
 __device__ __forceinline__ float half_warp_max(float v) {
@@ -94,13 +292,34 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// Per-thread running state of the online softmax for its 4 query rows.
-template <int HD>
-struct RowState {
-  static constexpr int kDims = HD / 16;
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void fma4(float4& a, float p, float4 v) {
+  a.x = fmaf(p, v.x, a.x);
+  a.y = fmaf(p, v.y, a.y);
+  a.z = fmaf(p, v.z, a.z);
+  a.w = fmaf(p, v.w, a.w);
+}
+
+// ---------------------------------------------------------------------------
+// fp32 tile: 256 threads on the CUDA cores.  Thread (ty, tx) = (tid / 16,
+// tid % 16) owns query rows ty + 16i (i < 4).  In q.k it owns keys tx + 16j
+// (j < BKT/16); the 16 threads of a row are one half-warp, so row max and
+// row sum are 4 xor-shuffles.  In p.v it owns 4 consecutive output dims
+// 4*dtx + 64*jd (dtx = tx % DT); below hd 64 the DT threads of a row cover
+// all dims and the KSPLIT = 16/DT groups of them take every KSPLIT-th
+// 4-key step, summed by shuffles at the end.
+// ---------------------------------------------------------------------------
+template <int HD, class L>
+struct F32Tile {
+  static constexpr int NJ = L::BKT / 16;
+  static constexpr int DT = HD >= 64 ? 16 : HD / 4;
+  static constexpr int KSPLIT = 16 / DT;
+  static constexpr int DV = HD >= 64 ? HD / 64 : 1;
   float m[4];
   float l[4];
-  float acc[4][kDims];
+  float4 acc[4][DV];
 
   __device__ __forceinline__ void init() {
 #pragma unroll
@@ -108,256 +327,563 @@ struct RowState {
       m[i] = kNegInf;
       l[i] = 0.f;
 #pragma unroll
-      for (int jd = 0; jd < kDims; ++jd) acc[i][jd] = 0.f;
+      for (int jd = 0; jd < DV; ++jd) acc[i][jd] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+
+  __device__ __forceinline__ void load_q(const float*) {}
+
+  // Fold one K/V tile into the state.  mask_s: the tile's mask bytes, or
+  // null for a full tile.  A row of P is written and read by the 16
+  // threads of one half-warp, so a warp barrier orders P's writes before
+  // its reads; the caller syncs the block before P or the tile is
+  // overwritten.
+  __device__ __forceinline__ void step(const float* q_s, const float* k_s, const float* v_s,
+                                       float* p_s, const uint8_t* mask_s, int hd,
+                                       float sm_scale) {
+    const int tx = threadIdx.x % 16;
+    const int ty = threadIdx.x / 16;
+    float s[4][NJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
+
+    const int hd4 = (hd + 3) & ~3;  // columns past hd are 0
+#pragma unroll 4
+    for (int d = 0; d < hd4; d += 4) {
+      float4 qv[4], kv[NJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = lds4(q_s + (ty + 16 * i) * L::KS + d);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) kv[j] = lds4(k_s + (tx + 16 * j) * L::KS + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          float a = s[i][j];
+          a = fmaf(qv[i].x, kv[j].x, a);
+          a = fmaf(qv[i].y, kv[j].y, a);
+          a = fmaf(qv[i].z, kv[j].z, a);
+          a = fmaf(qv[i].w, kv[j].w, a);
+          s[i][j] = a;
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      bool ok[NJ];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        ok[j] = !mask_s || mask_s[(ty + 16 * i) * L::MS + tx + 16 * j] != 0;
+        s[i][j] = ok[j] ? s[i][j] * sm_scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = half_warp_max(mx);
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        p_s[(ty + 16 * i) * L::PS + tx + 16 * j] = p;
+        rs += p;
+      }
+      rs = half_warp_sum(rs);
+      l[i] = alpha * l[i] + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int jd = 0; jd < DV; ++jd) {
+        acc[i][jd].x *= alpha;
+        acc[i][jd].y *= alpha;
+        acc[i][jd].z *= alpha;
+        acc[i][jd].w *= alpha;
+      }
+    }
+    __syncwarp();
+
+    const int dtx = tx % DT;
+    const int ks = tx / DT;
+#pragma unroll 2
+    for (int c = 4 * ks; c < L::BKT; c += 4 * KSPLIT) {
+      float4 p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = lds4(p_s + (ty + 16 * i) * L::PS + c);
+#pragma unroll
+      for (int jd = 0; jd < DV; ++jd) {
+        if (64 * jd >= hd) continue;
+        const float* vc = v_s + c * L::KS + 4 * dtx + 64 * jd;
+        const float4 v0 = lds4(vc), v1 = lds4(vc + L::KS), v2 = lds4(vc + 2 * L::KS),
+                     v3 = lds4(vc + 3 * L::KS);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          fma4(acc[i][jd], p[i].x, v0);
+          fma4(acc[i][jd], p[i].y, v1);
+          fma4(acc[i][jd], p[i].z, v2);
+          fma4(acc[i][jd], p[i].w, v3);
+        }
+      }
+    }
+  }
+
+  // out[b, r, h, :hd] = acc / max(l, 1e-30) for this thread's rows below S.
+  template <typename T>
+  __device__ __forceinline__ void finalize(T* __restrict__ out, int b, int h, int q0, int S,
+                                           int H, int hd) {
+    const int tx = threadIdx.x % 16;
+    const int ty = threadIdx.x / 16;
+    const int dtx = tx % DT;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + ty + 16 * i;
+      const float denom = fmaxf(l[i], 1e-30f);
+      T* orow = out + ((static_cast<size_t>(b) * S + r) * H + h) * hd;
+#pragma unroll
+      for (int jd = 0; jd < DV; ++jd) {
+        float4 a = acc[i][jd];
+#pragma unroll
+        for (int off = DT; off < 16; off *= 2) {
+          a.x += __shfl_xor_sync(0xffffffffu, a.x, off);
+          a.y += __shfl_xor_sync(0xffffffffu, a.y, off);
+          a.z += __shfl_xor_sync(0xffffffffu, a.z, off);
+          a.w += __shfl_xor_sync(0xffffffffu, a.w, off);
+        }
+        const int d = 4 * dtx + 64 * jd;
+        if (tx >= DT || r >= S || d >= hd) continue;
+        const float4 o = make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom);
+        if (hd % 4 == 0) {
+          store4(orow + d, o);
+        } else {
+          const float e[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (d + j < hd) orow[d + j] = from_f32<T>(e[j]);
+        }
+      }
     }
   }
 };
 
-// V elements of row `src` from column d as fp32: a 16-byte vector load
-// where the row is whole vectors (`vec`, so d + V <= hd whenever d < hd),
-// else one element at a time; columns at or past hd are 0.  int8 values
-// are multiplied by `scale` (the KV head's) in registers, the same single
-// product as the plain version's k8.float() * k_scale.
+// ---------------------------------------------------------------------------
+// Tensor-core tile: 4 warps, warp w owns query rows 16w .. 16w+15.  In the
+// m16n8k16 fragments lane (g, t) = (lane / 4, lane % 4) holds rows g and
+// g + 8 and columns 2t, 2t+1 of each 8-column block.
+// ---------------------------------------------------------------------------
 template <typename T>
-__device__ __forceinline__ void load_chunk(const T* __restrict__ src, int d, int hd,
-                                           bool vec, float scale, float* v) {
-  constexpr int V = Vec16<T>::N;
-  if (vec && d < hd) {
-    load16(src + d, v);
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// c += a (16x16, row) * b (16x8, col), fp32 accumulators.
+template <typename T>
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = d + j < hd ? to_f32(src[d + j]) : 0.f;
-  }
-  if constexpr (std::is_same<T, int8_t>::value) {
-#pragma unroll
-    for (int j = 0; j < V; ++j) v[j] *= scale;
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
 }
 
-// Load `rows` (BQ or BKT) rows of hd <= HD elements of T into fp32 shared
-// memory (row stride `dst_stride`, HD columns, those past hd zero-filled).
-// Row r of the source starts at src + r * ld; rows at or past `valid` are
-// zero-filled (never read from global memory).  `scale` is int8 K/V's.
-template <int HD, typename T>
-__device__ __forceinline__ void load_tile_f32(float* dst, int dst_stride, int rows,
-                                              const T* __restrict__ src, size_t ld,
-                                              int valid, int hd, float scale = 1.f) {
-  constexpr int V = Vec16<T>::N;
-  constexpr int kChunks = HD / V;  // 16-byte chunks per row
-  const bool vec = hd % V == 0;
-  for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int d = (c % kChunks) * V;
-    float v[V];
-    if (r < valid) {
-      load_chunk(src + r * ld, d, hd, vec, scale, v);
-    } else {
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float x, float y);
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+template <>
+__device__ __forceinline__ void store2<__half>(__half* p, float x, float y) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
+}
+
+template <int HD, class L>
+struct MmaTile {
+  using T = typename L::TS;
+  static constexpr int BKT = L::BKT;
+  static constexpr int NB = BKT / 8;  // 8-key blocks of S
+  static constexpr int ND = HD / 8;   // 8-dim blocks of the output
+  static constexpr int KD = HD / 16;  // 16-dim steps of q.k
+  // Q fragments stay in registers up to HD 128; at 256 they would not
+  // leave room for the 128 accumulators, and are re-read from shared.
+  static constexpr bool kQRegs = HD <= 128;
+  static_assert(4 * NB <= 32, "one ok bit a score in a 32-bit word");
+  float m[2];  // rows g, g+8, in log2 units (scores times log2 e)
+  float l[2];  // this lane's share of the row sum; quad-summed at the end
+  float o[ND][4];
+  uint32_t qf[kQRegs ? KD : 1][4];
+
+  __device__ __forceinline__ void init() {
 #pragma unroll
-      for (int j = 0; j < V; ++j) v[j] = 0.f;
+    for (int i = 0; i < 2; ++i) {
+      m[i] = kNegInf;
+      l[i] = 0.f;
     }
 #pragma unroll
-    for (int j = 0; j < V; j += 4) store16(dst + r * dst_stride + d + j, v + j);
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   }
-}
 
-// One K/V tile: update the running state of this thread's rows.
-//   q_s: BQ x HD fp32 (stride QLayout::kStride); k_s, v_s: BKT x HD of TS
-//   (stride KVLayout::kStride), rows past T and columns past hd zero-filled;
-//   p_s: BQ x BKT fp32 scratch.  mask_b points at mask[b or 0], shaped
-//   (S, T) uint8.
-// Contains one __syncthreads (P written -> P read); the caller must sync
-// before p_s or the K/V tile is overwritten.
-template <int HD, int BKT, typename TS>
-__device__ __forceinline__ void tile_update(
-    RowState<HD>& st, const float* q_s, const TS* k_s, const TS* v_s, float* p_s,
-    const uint8_t* __restrict__ mask_b, int q0, int k0, int S, int T, int hd,
-    float sm_scale) {
-  constexpr int QS = QLayout<HD>::kStride;
-  constexpr int KS = KVLayout<HD, TS, BKT>::kStride;
-  constexpr int PS = PLayout<BKT>::kStride;
-  constexpr int NJ = BKT / 16;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  // A fragment of q.k step kd: rows 16w + (lane % 16), columns 16kd +
+  // 8 (lane / 16).
+  __device__ __forceinline__ void q_frag(uint32_t* a, const T* q_s, int kd) const {
+    const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+    ldsm_x4(a, q_s + (16 * w + lane % 16) * L::KS + 16 * kd + 8 * (lane / 16));
+  }
 
-  float s[4][NJ];
+  __device__ __forceinline__ void load_q(const T* q_s) {
+    if constexpr (kQRegs) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
+      for (int kd = 0; kd < KD; ++kd) q_frag(qf[kd], q_s, kd);
+    }
+  }
 
-  const int hd4 = (hd + 3) & ~3;  // columns past hd are 0
-#pragma unroll 4
-  for (int d = 0; d < hd4; d += 4) {
-    float4 qv[4], kv[NJ];
+  __device__ __forceinline__ void step(const T* q_s, const T* k_s, const T* v_s, float*,
+                                       const uint8_t* mask_s, int hd, float sm_scale) {
+    const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+    const int g = lane / 4, t = lane % 4;
+    float s[NB][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) qv[i] = lds4(q_s + (ty + 16 * i) * QS + d);
+    for (int j = 0; j < NB; ++j)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) kv[j] = lds4(k_s + (tx + 16 * j) * KS + d);
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+
+    // S = Q K^T: B fragments of 8-key blocks j, j+1 from K rows
+    // 8j + 8 (lane / 16) + lane % 8, columns 16kd + 8 ((lane / 8) % 2).
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int kd = 0; kd < KD; ++kd) {
+      if (16 * kd >= hd) continue;  // columns past hd are 0
+      uint32_t a[4];
+      if constexpr (kQRegs) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        float a = s[i][j];
-        a = fmaf(qv[i].x, kv[j].x, a);
-        a = fmaf(qv[i].y, kv[j].y, a);
-        a = fmaf(qv[i].z, kv[j].z, a);
-        a = fmaf(qv[i].w, kv[j].w, a);
-        s[i][j] = a;
+        for (int e = 0; e < 4; ++e) a[e] = qf[kd][e];
+      } else {
+        q_frag(a, q_s, kd);
       }
-  }
+#pragma unroll
+      for (int j = 0; j < NB; j += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, k_s + (8 * j + 8 * (lane / 16) + lane % 8) * L::KS + 16 * kd +
+                       8 * ((lane / 8) % 2));
+        mma16816<T>(s[j], a, b[0], b[1]);
+        mma16816<T>(s[j + 1], a, b[2], b[3]);
+      }
+    }
 
-  bool ok[4][NJ];
+    // Online softmax on the fragments: element e of block j is row
+    // 16w + g + 8 (e / 2), key 8j + 2t + e % 2.
+    const float sl = sm_scale * kLog2e;
+    uint32_t ok = 0xffffffffu;
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+    for (int j = 0; j < NB; ++j)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = k0 + tx + 16 * j;
-      ok[i][j] = r < S && c < T && mask_b[static_cast<size_t>(r) * T + c] != 0;
-      s[i][j] = ok[i][j] ? s[i][j] * sm_scale : kNegInf;
+      for (int e = 0; e < 4; ++e) {
+        if (mask_s && mask_s[(16 * w + g + 8 * (e / 2)) * L::MS + 8 * j + 2 * t + e % 2] == 0)
+          ok &= ~(1u << (4 * j + e));
+        s[j][e] = (ok >> (4 * j + e)) & 1u ? s[j][e] * sl : kNegInf;
+        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = (ok >> (4 * j + e)) & 1u ? exp2f(s[j][e] - m[e / 2]) : 0.f;
+        s[j][e] = p;
+        l[e / 2] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V: P's A fragment of keys 16kk .. 16kk+15 is S blocks 2kk and
+    // 2kk+1 rounded to T; V's B fragments of 8-dim blocks n, n+1 come by
+    // ldmatrix.trans from V rows 16kk + 8 ((lane / 8) % 2) + lane % 8,
+    // columns 8n + 8 (lane / 16).
+#pragma unroll
+    for (int kk = 0; kk < BKT / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        if (8 * n >= hd) continue;
+        uint32_t b[4];
+        ldsm_x4_trans(b, v_s + (16 * kk + 8 * ((lane / 8) % 2) + lane % 8) * L::KS + 8 * n +
+                             8 * (lane / 16));
+        mma16816<T>(o[n], a, b[0], b[1]);
+        mma16816<T>(o[n + 1], a, b[2], b[3]);
+      }
     }
   }
 
+  __device__ __forceinline__ void finalize(T* __restrict__ out, int b, int h, int q0, int S,
+                                           int H, int hd) {
+    const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+    const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float mx = s[i][0];
+    for (int i = 0; i < 2; ++i) {
+      float li = l[i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      const float denom = fmaxf(li, 1e-30f);
+      const int r = q0 + 16 * w + g + 8 * i;
+      if (r >= S) continue;
+      T* orow = out + ((static_cast<size_t>(b) * S + r) * H + h) * hd;
 #pragma unroll
-    for (int j = 1; j < NJ; ++j) mx = fmaxf(mx, s[i][j]);
-    mx = half_warp_max(mx);
-    const float m_new = fmaxf(st.m[i], mx);
-    const float alpha = expf(st.m[i] - m_new);
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float p = ok[i][j] ? expf(s[i][j] - m_new) : 0.f;
-      p_s[(ty + 16 * i) * PS + tx + 16 * j] = p;
-      rs += p;
-    }
-    rs = half_warp_sum(rs);
-    st.l[i] = alpha * st.l[i] + rs;
-    st.m[i] = m_new;
-#pragma unroll
-    for (int jd = 0; jd < RowState<HD>::kDims; ++jd) st.acc[i][jd] *= alpha;
-  }
-  __syncthreads();
-
-#pragma unroll 4
-  for (int c = 0; c < BKT; ++c) {
-    float vv[RowState<HD>::kDims];
-#pragma unroll
-    for (int jd = 0; jd < RowState<HD>::kDims; ++jd)
-      vv[jd] = 16 * jd < hd ? to_f32(v_s[c * KS + tx + 16 * jd]) : 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p = p_s[(ty + 16 * i) * PS + c];
-#pragma unroll
-      for (int jd = 0; jd < RowState<HD>::kDims; ++jd)
-        if (16 * jd < hd) st.acc[i][jd] = fmaf(p, vv[jd], st.acc[i][jd]);
+      for (int n = 0; n < ND; ++n) {
+        const int d = 8 * n + 2 * t;
+        const float x = o[n][2 * i] / denom, y = o[n][2 * i + 1] / denom;
+        if (hd % 2 == 0) {
+          if (d < hd) store2<T>(orow + d, x, y);
+        } else {
+          if (d < hd) orow[d] = from_f32<T>(x);
+          if (d + 1 < hd) orow[d + 1] = from_f32<T>(y);
+        }
+      }
     }
   }
+};
+
+template <int HD, class L>
+using Tile = typename std::conditional<L::kMma, MmaTile<HD, L>, F32Tile<HD, L>>::type;
+
+// fp32 blocks at the served width 64 with at most two stages are held to
+// 128 registers, so that two of them share an SM (a deeper ring leaves
+// room for one block only); tensor-core blocks up to width 64 to 170, so
+// that three do.
+template <int HD, class L, int DEPTH>
+__host__ __device__ constexpr int min_blocks() {
+  if (L::kMma) return HD <= 64 ? 3 : 1;
+  return HD == 64 && DEPTH <= 2 ? 2 : 1;
 }
 
-// out[b, r, h, :hd] = acc / max(l, 1e-30) for this thread's rows below S.
-template <int HD, typename T>
-__device__ __forceinline__ void finalize(const RowState<HD>& st, T* __restrict__ out,
-                                         int b, int h, int q0, int S, int H, int hd) {
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= S) continue;
-    const float denom = fmaxf(st.l[i], 1e-30f);
-    T* orow = out + ((static_cast<size_t>(b) * S + r) * H + h) * hd;
-#pragma unroll
-    for (int jd = 0; jd < RowState<HD>::kDims; ++jd)
-      if (tx + 16 * jd < hd) orow[tx + 16 * jd] = from_f32<T>(st.acc[i][jd] / denom);
-  }
-}
-
-// Dynamic shared memory of one block: Q tile + P tile + `kv_tiles` K/V tiles
-// of TS (2 per pipeline stage) of BKT keys.
-template <int HD, typename TS, int BKT = BK>
-constexpr size_t smem_bytes(int kv_tiles) {
-  return sizeof(float) * (BQ * QLayout<HD>::kStride + BQ * PLayout<BKT>::kStride) +
-         sizeof(TS) * static_cast<size_t>(kv_tiles) * KVLayout<HD, TS, BKT>::kTileElems;
-}
-
-// The baseline kernel (K2 with TKV = T, K6 with TKV = int8_t): one block of
-// 256 threads per (q tile of 64 rows, head, batch).  Blocks run in no order
-// on 132 SMs, so the TPU's sequential K/V grid dimension becomes a loop
-// inside the block.  The Q tile is loaded once as fp32; each 64-row K/V
-// tile is loaded into fp32 shared memory (int8 K/V converted exactly,
-// i8x4_to_f32, and multiplied by the KV head's scale in registers),
-// synchronised, and folded into the running state by tile_update.  Query
-// head h reads KV head h / (H/K) and, for int8 K/V, that head's two scales
-// (k_scale, v_scale; null for float K/V).  Shared memory: Q + P + one K and
-// one V tile, 68 KB at HD = 64 and 212 KB at HD = 256, requested as dynamic
-// shared memory above the 48 KB static limit.
-template <int HD, bool EXACT, typename T, typename TKV>
-__global__ void __launch_bounds__(kThreads)
-baseline_kernel(const T* __restrict__ q, const TKV* __restrict__ k,
-                const TKV* __restrict__ v, const float* __restrict__ k_scale,
-                const float* __restrict__ v_scale, const uint8_t* __restrict__ mask,
-                T* __restrict__ out, int S, int T_len, int H, int K, int hd_arg,
-                int mask_b, float sm_scale) {
+// The kernel: one block per (64-row q tile, head, batch), grid (B*H, nq)
+// with the q tile counted from the last.  q/out of T, K/V of TKV (float,
+// bf16 or fp16 as q; int8 for K6, with one fp32 scale per KV head).
+// Query head h reads KV head h / (H/K).  DEPTH == 1 loads each live tile
+// and computes it (K2, K6); DEPTH >= 2 streams the live tiles through a
+// DEPTH-stage ring (K3): fill DEPTH-1 tiles, then at list position p wait
+// for tile p (cp.async.wait_group DEPTH-2), sync the block, start the copy
+// of tile p+DEPTH-1 into the slot that position p-1 just finished with, and
+// compute tile p while the later copies fly; one commit group per position
+// (empty past the end) keeps the wait count uniform.
+template <int HD, bool EXACT, typename T, typename TKV, int DEPTH>
+__global__ void __launch_bounds__(Layout<HD, TKV, DEPTH>::kThreads,
+                                  (min_blocks<HD, Layout<HD, TKV, DEPTH>, DEPTH>()))
+flash_kernel(const T* __restrict__ q, const TKV* __restrict__ k, const TKV* __restrict__ v,
+             const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+             const uint8_t* __restrict__ mask, T* __restrict__ out, int S, int T_len, int H,
+             int K, int hd_arg, int mask_b, float sm_scale, int* __restrict__ live) {
+  using L = Layout<HD, TKV, DEPTH>;
+  using TS = typename L::TS;
+  constexpr int NT = L::kThreads;
+  constexpr int BKT = L::BKT;
+  static_assert(L::kMma ? std::is_same<T, TKV>::value : !uses_mma<TKV>(),
+                "16-bit K/V run on the tensor cores with q of their type");
   const int hd = EXACT ? HD : hd_arg;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int KS = KVLayout<HD, float>::kStride;
-  float* q_s = reinterpret_cast<float*>(smem_raw);
-  float* p_s = q_s + BQ * QLayout<HD>::kStride;
-  float* k_s = p_s + BQ * PLayout<BK>::kStride;
-  float* v_s = k_s + KVLayout<HD, float>::kTileElems;
+  TS* q_s = reinterpret_cast<TS*>(smem_raw);
+  float* p_s = reinterpret_cast<float*>(smem_raw + L::kQBytes);
+  unsigned char* ring = smem_raw + L::kQBytes + L::kPBytes;
+  LiveList& ll = *reinterpret_cast<LiveList*>(ring + DEPTH * L::kStageBytes);
+  auto k_slot = [&](int s) { return reinterpret_cast<TS*>(ring + s * L::kStageBytes); };
+  auto v_slot = [&](int s) {
+    return reinterpret_cast<TS*>(ring + s * L::kStageBytes + L::kKVBytes);
+  };
+  auto m_slot = [&](int s) { return ring + s * L::kStageBytes + 2 * L::kKVBytes; };
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x % H;
+  const int b = blockIdx.x / H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest q tile first
   const int kvh = h / (H / K);
   const float ks = k_scale ? __ldg(k_scale + kvh) : 1.f;
   const float vs = v_scale ? __ldg(v_scale + kvh) : 1.f;
-  const uint8_t* mask_b_ptr =
-      mask + (mask_b > 1 ? static_cast<size_t>(b) * S * T_len : 0);
-
-  load_tile_f32<HD, T>(q_s, QLayout<HD>::kStride, BQ,
-                       q + ((static_cast<size_t>(b) * S + q0) * H + h) * hd,
-                       static_cast<size_t>(H) * hd, S - q0, hd);
-  RowState<HD> st;
-  st.init();
-
+  const uint8_t* mrow =
+      mask + (mask_b > 1 ? static_cast<size_t>(b) * S * T_len : 0) + static_cast<size_t>(q0) * T_len;
+  const int rows = S - q0;
+  const int nt = (T_len + BKT - 1) / BKT;
+  const bool scan = nt > 1;
+  const bool mvec = T_len % 16 == 0;
   const size_t kv_ld = static_cast<size_t>(K) * hd;
-  const int nk = (T_len + BK - 1) / BK;
-  for (int t = 0; t < nk; ++t) {
-    const int k0 = t * BK;
-    const size_t base = ((static_cast<size_t>(b) * T_len + k0) * K + kvh) * hd;
-    __syncthreads();  // every thread is done with the previous K/V and P
-    load_tile_f32<HD, TKV>(k_s, KS, BK, k + base, kv_ld, T_len - k0, hd, ks);
-    load_tile_f32<HD, TKV>(v_s, KS, BK, v + base, kv_ld, T_len - k0, hd, vs);
-    __syncthreads();
-    tile_update<HD, BK, float>(st, q_s, k_s, v_s, p_s, mask_b_ptr, q0, k0, S, T_len,
-                               hd, sm_scale);
+
+  const T* q_src = q + ((static_cast<size_t>(b) * S + q0) * H + h) * hd;
+  if constexpr (std::is_same<T, TS>::value)
+    copy_rows<NT, HD, L::KS>(q_s, BQ, q_src, static_cast<size_t>(H) * hd, rows, hd,
+                             hd % Vec16<T>::N == 0);
+  else
+    widen_rows<NT, HD, L::KS>(q_s, BQ, q_src, static_cast<size_t>(H) * hd, rows, hd, 1.f);
+  cp_async_commit();
+
+  // fp32 rows start tile 0's copies before the scan, on the guess that the
+  // list begins with it (every causal row's does): the scan's mask reads
+  // then overlap the copies.  Where the list says otherwise the copies are
+  // drained before the fill.  (On the tensor cores the guess measured
+  // slower: PERF.md.)
+  constexpr bool kGuess = !L::kMma && std::is_same<TKV, TS>::value;
+  if constexpr (kGuess) {
+    const size_t base = (static_cast<size_t>(b) * T_len * K + kvh) * hd;
+    const bool vec = hd % Vec16<TKV>::N == 0;
+    copy_rows<NT, HD, L::KS>(k_slot(0), BKT, k + base, kv_ld, T_len, hd, vec);
+    copy_rows<NT, HD, L::KS>(v_slot(0), BKT, v + base, kv_ld, T_len, hd, vec);
+    copy_mask<NT, BKT, L::MS>(m_slot(0), mrow, T_len, rows, T_len, mvec);
+    cp_async_commit();
   }
-  finalize<HD, T>(st, out, b, h, q0, S, H, hd);
+  Tile<HD, L> tile;
+  tile.init();
+  bool need_q = true;  // Q lands with the first live tile's copies
+  for (int w0 = 0; w0 < nt; w0 += kWindow) {
+    if (scan) scan_window<NT, BKT>(ll, mrow, rows, T_len, w0, min(kWindow, nt - w0), mvec);
+    const int n = scan ? ll.n : 1;
+    auto entry = [&](int p) -> int { return scan ? ll.entry[p] : kPartial; };
+    bool guessed = false;  // list position 0's tile is in slot 0 already
+    if (kGuess && w0 == 0) {
+      guessed = n > 0 && (entry(0) & ~kPartial) == 0;
+      if (!guessed) {
+        cp_async_wait<0>();
+        __syncthreads();  // no copy into a slot is still in flight
+      }
+    }
+    // Copy list position p's K/V tile (and a partial tile's mask bytes)
+    // into slot p % DEPTH.
+    auto issue = [&](int p) {
+      const int e = entry(p);
+      const int k0 = (w0 + (e & ~kPartial)) * BKT;
+      const int s = p % DEPTH;
+      const size_t base = ((static_cast<size_t>(b) * T_len + k0) * K + kvh) * hd;
+      if constexpr (std::is_same<TKV, TS>::value) {
+        const bool vec = hd % Vec16<TKV>::N == 0;
+        copy_rows<NT, HD, L::KS>(k_slot(s), BKT, k + base, kv_ld, T_len - k0, hd, vec);
+        copy_rows<NT, HD, L::KS>(v_slot(s), BKT, v + base, kv_ld, T_len - k0, hd, vec);
+      } else {
+        widen_rows<NT, HD, L::KS>(k_slot(s), BKT, k + base, kv_ld, T_len - k0, hd, ks);
+        widen_rows<NT, HD, L::KS>(v_slot(s), BKT, v + base, kv_ld, T_len - k0, hd, vs);
+      }
+      if (e & kPartial)
+        copy_mask<NT, BKT, L::MS>(m_slot(s), mrow + k0, T_len, rows, T_len - k0, mvec);
+    };
+    auto compute = [&](int p) {
+      const int s = p % DEPTH;
+      if (need_q) {
+        tile.load_q(q_s);
+        need_q = false;
+      }
+      tile.step(q_s, k_slot(s), v_slot(s), p_s, (entry(p) & kPartial) ? m_slot(s) : nullptr,
+                hd, sm_scale);
+    };
+    if constexpr (DEPTH == 1) {
+      for (int p = 0; p < n; ++p) {
+        __syncthreads();  // every thread is done with the slot and P
+        if (p > 0 || !guessed) issue(p);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        compute(p);
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < DEPTH - 1; ++p) {
+        if (p < n && (p > 0 || !guessed)) issue(p);
+        cp_async_commit();
+      }
+      for (int p = 0; p < n; ++p) {
+        cp_async_wait<DEPTH - 2>();  // this thread's copies of tile p have landed
+        __syncthreads();             // ... and everyone's; slot (p-1) % DEPTH is free
+        if (p + DEPTH - 1 < n) issue(p + DEPTH - 1);
+        cp_async_commit();
+        compute(p);
+      }
+    }
+    cp_async_wait<0>();
+  }
+  if (live && threadIdx.x == 0) atomicAdd(live, scan ? ll.computed : 1);
+  tile.finalize(out, b, h, q0, S, H, hd);
 }
 
-template <int HD, typename T, typename TKV>
-cudaError_t launch_baseline(const void* q, const void* k, const void* v,
-                            const float* k_scale, const float* v_scale,
-                            const void* mask, void* out, int B, int S, int T_len,
-                            int H, int K, int hd, int mask_b, float sm_scale,
-                            cudaStream_t stream) {
-  const size_t smem = smem_bytes<HD, float>(2);
-  auto kern = hd == HD ? baseline_kernel<HD, true, T, TKV>
-                       : baseline_kernel<HD, false, T, TKV>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <int HD, typename T, typename TKV, int DEPTH>
+auto kernel_for(int hd) {
+  return hd == HD ? flash_kernel<HD, true, T, TKV, DEPTH>
+                  : flash_kernel<HD, false, T, TKV, DEPTH>;
+}
+
+// Launch at the padded width HD: cudaErrorInvalidConfiguration where the
+// block's shared memory passes the 227 KB a block may have.  Where `live`
+// is not null, each block adds to it the K/V tiles it computed.
+template <int HD, typename T, typename TKV, int DEPTH>
+cudaError_t launch(const void* q, const void* k, const void* v, const float* k_scale,
+                   const float* v_scale, const void* mask, void* out, int B, int S, int T_len,
+                   int H, int K, int hd, int mask_b, float sm_scale, int* live,
+                   cudaStream_t stream) {
+  using L = Layout<HD, TKV, DEPTH>;
+  if (L::kBytes > 232448) return cudaErrorInvalidConfiguration;
+  auto kern = kernel_for<HD, T, TKV, DEPTH>(hd);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(L::kBytes));
   if (e != cudaSuccess) return e;
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const TKV*>(k),
-      static_cast<const TKV*>(v), k_scale, v_scale,
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), S, T_len, H, K, hd,
-      mask_b, sm_scale);
+  dim3 grid(B * H, (S + BQ - 1) / BQ);
+  kern<<<grid, L::kThreads, L::kBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
+      k_scale, v_scale, static_cast<const uint8_t*>(mask), static_cast<T*>(out), S, T_len, H, K,
+      hd, mask_b, sm_scale, live);
   return cudaGetLastError();
+}
+
+// Blocks of the width-HD kernel that are resident on one SM at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -error.
+template <int HD, typename T, typename TKV, int DEPTH>
+int occupancy(int hd) {
+  using L = Layout<HD, TKV, DEPTH>;
+  if (L::kBytes > 232448) return -static_cast<int>(cudaErrorInvalidConfiguration);
+  auto kern = kernel_for<HD, T, TKV, DEPTH>(hd);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(L::kBytes));
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, L::kThreads, L::kBytes);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 // The instantiated width for a head dim: the least of 16, 32, 64, 128, 256
@@ -368,22 +894,81 @@ __host__ inline int padded_head_dim(int hd) {
   return 0;
 }
 
-// Launch the baseline kernel with q/out of T and K/V of TKV for a head dim
-// 1 <= hd <= 256; cudaErrorInvalidValue for another.
+// Call F<HD>() for the padded width of a head dim 1 <= hd <= 256, else
+// return `bad`.
+#define FLASH_DISPATCH_HD(hd, bad, CALL)                                       \
+  do {                                                                         \
+    switch ((hd) < 1 ? 0 : flash::padded_head_dim(hd)) {                       \
+      case 16: { constexpr int W = 16; return CALL; }                          \
+      case 32: { constexpr int W = 32; return CALL; }                          \
+      case 64: { constexpr int W = 64; return CALL; }                          \
+      case 128: { constexpr int W = 128; return CALL; }                        \
+      case 256: { constexpr int W = 256; return CALL; }                        \
+      default: return bad;                                                     \
+    }                                                                          \
+  } while (0)
+
+// Launch K2 (TKV = T) or K6 (TKV = int8_t): a single K/V stage.
 template <typename T, typename TKV>
 cudaError_t dispatch_baseline(int hd, const void* q, const void* k, const void* v,
-                              const float* k_scale, const float* v_scale,
-                              const void* mask, void* out, int B, int S, int T_len,
-                              int H, int K, int mask_b, float sm_scale,
-                              cudaStream_t stream) {
-  if (hd < 1) return cudaErrorInvalidValue;
-  switch (padded_head_dim(hd)) {
-#define REPRO_HD(W) \
-    case W: return launch_baseline<W, T, TKV>(q, k, v, k_scale, v_scale, mask, out, B, S, T_len, H, K, hd, mask_b, sm_scale, stream);
-    REPRO_HD(16) REPRO_HD(32) REPRO_HD(64) REPRO_HD(128) REPRO_HD(256)
-#undef REPRO_HD
+                              const float* k_scale, const float* v_scale, const void* mask,
+                              void* out, int B, int S, int T_len, int H, int K, int mask_b,
+                              float sm_scale, int* live, cudaStream_t stream) {
+  FLASH_DISPATCH_HD(hd, cudaErrorInvalidValue,
+                    (launch<W, T, TKV, 1>(q, k, v, k_scale, v_scale, mask, out, B, S, T_len, H,
+                                          K, hd, mask_b, sm_scale, live, stream)));
+}
+
+// K3: a `depth`-stage ring (2 <= depth <= 4) at the padded width HD.
+template <int HD, typename T>
+cudaError_t dispatch_depth(int depth, const void* q, const void* k, const void* v,
+                           const void* mask, void* out, int B, int S, int T_len, int H, int K,
+                           int hd, int mask_b, float sm_scale, int* live,
+                           cudaStream_t stream) {
+  switch (depth) {
+#define REPRO_DEPTH(D) \
+    case D: return launch<HD, T, T, D>(q, k, v, nullptr, nullptr, mask, out, B, S, T_len, H, K, hd, mask_b, sm_scale, live, stream);
+    REPRO_DEPTH(2) REPRO_DEPTH(3) REPRO_DEPTH(4)
+#undef REPRO_DEPTH
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <int HD, typename T>
+int occupancy_depth(int depth, int hd) {
+  switch (depth) {
+    case 2: return occupancy<HD, T, T, 2>(hd);
+    case 3: return occupancy<HD, T, T, 3>(hd);
+    case 4: return occupancy<HD, T, T, 4>(hd);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Launch K3 with q, K/V and out of T.  Not inline: a source may leave a
+// dtype's instantiation to another (FLASH_RING_INSTANCE), so that the
+// library's dtypes compile in parallel.
+template <typename T>
+cudaError_t dispatch_ring(int hd, int depth, const void* q, const void* k, const void* v,
+                          const void* mask, void* out, int B, int S, int T_len, int H, int K,
+                          int mask_b, float sm_scale, int* live, cudaStream_t stream) {
+  FLASH_DISPATCH_HD(hd, cudaErrorInvalidValue,
+                    (dispatch_depth<W, T>(depth, q, k, v, mask, out, B, S, T_len, H, K, hd,
+                                          mask_b, sm_scale, live, stream)));
+}
+
+// Blocks of K3 resident on one SM at head dim hd and ring depth, or -error.
+template <typename T>
+int occupancy_ring(int hd, int depth) {
+  FLASH_DISPATCH_HD(hd, -static_cast<int>(cudaErrorInvalidValue),
+                    (occupancy_depth<W, T>(depth, hd)));
+}
+
 }  // namespace flash
+
+// K3's instantiations for one dtype: `KW` is `template` in the source that
+// compiles them and `extern template` in the one that calls them.
+#define FLASH_RING_INSTANCE(KW, T)                                                      \
+  KW cudaError_t flash::dispatch_ring<T>(int, int, const void*, const void*, const void*, \
+                                         const void*, void*, int, int, int, int, int, int, \
+                                         float, int*, cudaStream_t);                     \
+  KW int flash::occupancy_ring<T>(int, int)

@@ -21,8 +21,9 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import int8_matmul as _i8
-from repro_torch.kernels.flash_attention import (BLOCK_K, BLOCK_Q, DTYPE_CODES,
-                                                 check_flash_args,
+from repro_torch.kernels.flash_attention import (BLOCK_Q, DTYPE_CODES,
+                                                 block_k, check_flash_args,
+                                                 live_count_ptr,
                                                  padded_head_dim)
 from repro_torch.kernels.ssd_scan import DTYPE_CODES as SSD_DTYPE_CODES
 from repro_torch.kernels.ssd_scan import (check_ssd_args, chunk_floats,
@@ -36,8 +37,8 @@ FLASH_ATTENTION_PIPELINED = _build.CudaKernel(
     "flash_attention_pipelined", lib="flash_attention_pipelined",
     symbol="flash_attention_pipelined_launch",
     argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-       ctypes.c_void_p],
+    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+       ctypes.c_int, ctypes.c_void_p],
     replaces="src/repro/kernels/pipeline.py:163")
 
 
@@ -49,23 +50,33 @@ def use_pipeline(n_steps: int, override: bool | None = None) -> bool:
     return True if override is None else bool(override)
 
 
-#: K3's keys a tile at the padded width 256, where a 64-key fp32 stage
-#: alone would take 133 KB (csrc/flash_tile.cuh BK_WIDE).
-BLOCK_K_WIDE = 32
-
-
-def ring_block_k(hd: int) -> int:
-    """Keys a K/V tile of K3 at head dim ``hd``."""
-    return BLOCK_K_WIDE if padded_head_dim(hd) > 128 else BLOCK_K
+#: Shared memory of one SM on sm_90, and what the SM keeps back for each
+#: resident block (bytes).
+SM_SMEM = 233_472
+BLOCK_RESERVED_SMEM = 1024
+#: The live list of a K2/K3/K6 block (csrc/flash_tile.cuh LiveList).
+LIST_BYTES = 528
 
 
 def ring_smem_bytes(hd: int, itemsize: int, depth: int) -> int:
-    """Shared memory of one K3 block at the padded head width: fp32 Q and
-    P tiles plus ``depth`` K and V tiles, each row padded by 16 bytes
-    (csrc/flash_tile.cuh)."""
-    w, bk = padded_head_dim(hd), ring_block_k(hd)
-    q_and_p = 4 * (BLOCK_Q * (w + 4) + BLOCK_Q * (bk + 4))
-    return q_and_p + 2 * depth * bk * (w * itemsize + 16)
+    """Shared memory of one K3 block at the padded head width, as
+    csrc/flash_tile.cuh ``Layout`` lays it out: the Q tile, fp32 rows' P
+    tile (64 x keys), ``depth`` stages of a K, a V and a mask tile, and the
+    live list.  fp32 rows hold Q, K and V as fp32; bf16/fp16 rows keep
+    their type and pad each mask row by 16 bytes.  Q/K/V rows are padded
+    by 16 bytes."""
+    w, bk = padded_head_dim(hd), block_k(hd)
+    mma = itemsize == 2
+    row = w * itemsize + 16
+    p_tile = 0 if mma else BLOCK_Q * (bk + 4) * 4
+    mask_tile = BLOCK_Q * (bk + 16 if mma else bk)
+    return (BLOCK_Q * row + p_tile + depth * (2 * bk * row + mask_tile)
+            + LIST_BYTES)
+
+
+def blocks_fit(smem: int) -> int:
+    """Blocks of ``smem`` bytes of shared memory that one SM holds."""
+    return SM_SMEM // (smem + BLOCK_RESERVED_SMEM)
 
 
 def deepest_ring(ring_bytes, n_steps: int, cap: int = 4) -> int | None:
@@ -78,17 +89,30 @@ def deepest_ring(ring_bytes, n_steps: int, cap: int = 4) -> int | None:
 
 
 def choose_depth(hd: int, itemsize: int, n_steps: int, cap: int = 4) -> int:
-    """Deepest K3 ring that fits (see ``deepest_ring``)."""
-    depth = deepest_ring(lambda d: ring_smem_bytes(hd, itemsize, d), n_steps,
-                         cap)
-    if depth is None:
+    """K3's ring depth: of the depths 2..cap (and no deeper than the
+    sweep) whose block fits, the one whose shared memory leaves room for
+    the most blocks on an SM (``blocks_fit``), the deepest of those.  The
+    count is by shared memory only: the register caps of the kernel's
+    ``__launch_bounds__`` can hold fewer (bf16 at hd 64: 4 blocks by
+    shared memory at depth 2, 3 on the card), which
+    ``flash_attention.blocks_per_sm`` reports.  Resident blocks hide one
+    another's waits and barriers better than a deeper ring hides its
+    copies: at (i1)'s shape (B = 8, S = T = 512, hd 64) depth 2 beat
+    depths 3 and 4 in fp32 (two blocks an SM against one) and in bf16
+    (three against two; the depth sweep in PERF.md).  At every width
+    and dtype the kernels are built for this comes to depth 2."""
+    def key(depth):
+        return blocks_fit(ring_smem_bytes(hd, itemsize, depth)), depth
+    depth = max(range(2, min(cap, max(n_steps, 2)) + 1), key=key)
+    if key(depth)[0] < 1:
         raise ValueError(f"no ring depth fits head dim {hd}")
     return depth
 
 
 def flash_attention_pipelined(q, k, v, mask, *, sm_scale: float,
-                              depth: int = 2):
+                              depth: int = 2, live_count=None):
     """K3 on CUDA tensors, the plain version on CPU tensors."""
+    live = live_count_ptr("flash_attention_pipelined", live_count, q)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, mask, sm_scale=sm_scale)
     check_flash_args("flash_attention_pipelined", q, k, v, mask)
@@ -103,7 +127,8 @@ def flash_attention_pipelined(q, k, v, mask, *, sm_scale: float,
     FLASH_ATTENTION_PIPELINED.launch(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask),
         _build.ptr(out), B, S, T, H, K, hd, mask.shape[0], float(sm_scale),
-        depth, DTYPE_CODES[q.dtype], q.device.index, _build.stream_of(q))
+        live, depth, DTYPE_CODES[q.dtype], q.device.index,
+        _build.stream_of(q))
     return out
 
 

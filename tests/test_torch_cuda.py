@@ -100,50 +100,114 @@ FLASH = [  # B, S, T, H, K, hd
     # head dims between and above the old widths: 80 and 96 run at 128,
     # 256 with one KV head (paligemma-3b), 20 and 6 not whole vectors
     (1, 64, 64, 12, 12, 80), (2, 40, 100, 4, 2, 96), (1, 70, 130, 8, 1, 256),
-    (1, 33, 50, 2, 1, 20), (1, 17, 17, 2, 2, 6)]
+    (1, 33, 50, 2, 1, 20), (1, 17, 17, 2, 2, 6),
+    # sweeps of many tiles: S = T = 512 (36 of 64 tile pairs live when
+    # causal), a long T past the end of the q rows, a ragged T
+    (2, 512, 512, 4, 4, 64), (1, 64, 4096, 4, 2, 64), (2, 150, 333, 4, 4, 96),
+    # sweeps past one live list of 128 K/V tiles (129 tiles of 64 keys,
+    # 130 of 32 at width 256): walked window by window
+    (1, 64, 8256, 2, 1, 64), (1, 64, 4160, 2, 1, 256)]
+#: Masks: causal (T >= S: the diagonal ending at the last key); a random
+#: (B,S,T) mask whose first third of the rows is fully masked; block
+#: sparse (whole 64-key tiles dead in the middle of a row, others differ
+#: per batch); each live tile valid at its last key only.
+MASKS = ["causal", "random", "block_sparse", "last_entry"]
 
 
 def _dead_rows(S: int) -> int:
     return max(1, S // 3)
 
 
-def _flash_inputs(gen, B, S, T, H, K, hd, dtype, per_batch_mask):
+def _mask(gen, kind, B, S, T, hd):
+    from repro_torch.kernels.flash_attention import block_k
+    if kind == "causal":
+        return torch.tril(torch.ones((S, T), dtype=torch.bool, device="cuda"),
+                          diagonal=T - S)[None]
+    if kind == "random":
+        mask = torch.rand((B, S, T), generator=gen, device="cuda") < 0.6
+        mask[:, :_dead_rows(S), :] = False    # fully-masked rows
+        return mask
+    bk = block_k(hd)
+    tile = torch.arange(T, device="cuda") // bk
+    if kind == "block_sparse":
+        mask = torch.rand((B, S, T), generator=gen, device="cuda") < 0.8
+        for b in range(B):                    # tiles 1, 3, 5 ... or 2, 4 ...
+            mask[b, :, (tile % 2 == 1 - b % 2) & (tile > 0)] = False
+        return mask
+    if kind == "last_entry":                  # tiles 0, 2, 4 ... and the end
+        last = ((torch.arange(T, device="cuda") % bk == bk - 1) & (tile % 2 == 0))
+        last[T - 1] = True
+        return last.expand(1, S, T).contiguous()
+    raise ValueError(kind)
+
+
+def _flash_inputs(gen, B, S, T, H, K, hd, dtype, mask_kind="causal"):
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, T, K, hd), generator=gen, device="cuda").to(dtype)
     v = torch.randn((B, T, K, hd), generator=gen, device="cuda").to(dtype)
-    if per_batch_mask:
-        mask = torch.rand((B, S, T), generator=gen, device="cuda") < 0.6
-        mask[:, :_dead_rows(S), :] = False    # fully-masked rows
-    else:
-        mask = torch.tril(torch.ones((S, T), dtype=torch.bool, device="cuda"),
-                          diagonal=T - S)[None]
-    return q, k, v, mask
+    return q, k, v, _mask(gen, mask_kind, B, S, T, hd)
 
 
-@pytest.mark.parametrize("per_batch_mask", [False, True])
+def _zero_where_no_key(out, mask):
+    """Rows with no valid key are exactly 0."""
+    B, S = out.shape[:2]
+    dead = ~mask.expand(B, S, mask.shape[2]).any(-1)
+    if dead.any():
+        assert float(out[dead].abs().max()) == 0.0
+
+
+def _live_counted(name, fn, mask, B, H, hd):
+    """Launch ``fn(live_count)`` once: the K/V tiles the kernel reports
+    computing must be those ``live_tiles`` reads from the mask, for every
+    (batch, head)."""
+    from repro_torch.kernels.flash_attention import live_tiles
+    count = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = _launched(name, lambda: fn(count))
+    assert int(count) == B // mask.shape[0] * H * live_tiles(mask, hd)[0]
+    return out
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
 @pytest.mark.parametrize("dtype", FLOATS)
 @pytest.mark.parametrize("B,S,T,H,K,hd", FLASH)
-def test_flash_kernels(gen, B, S, T, H, K, hd, dtype, per_batch_mask):
-    q, k, v, mask = _flash_inputs(gen, B, S, T, H, K, hd, dtype,
-                                  per_batch_mask)
+def test_flash_kernels(gen, B, S, T, H, K, hd, dtype, mask_kind):
+    q, k, v, mask = _flash_inputs(gen, B, S, T, H, K, hd, dtype, mask_kind)
     want = ref.flash_attention_ref(q, k, v, mask, sm_scale=hd ** -0.5)
-    outs = [flash_attention(q, k, v, mask, sm_scale=hd ** -0.5)]
+    outs = [_live_counted("flash_attention", lambda n: flash_attention(
+        q, k, v, mask, sm_scale=hd ** -0.5, live_count=n), mask, B, H, hd)]
     for depth in (2, 3, 4):
         if (pipeline.ring_smem_bytes(hd, q.element_size(), depth)
                 <= pipeline.MAX_SMEM):
-            outs.append(flash_attention_pipelined(
-                q, k, v, mask, sm_scale=hd ** -0.5, depth=depth))
-    torch.cuda.synchronize()
+            outs.append(_live_counted(
+                "flash_attention_pipelined",
+                lambda n: flash_attention_pipelined(
+                    q, k, v, mask, sm_scale=hd ** -0.5, depth=depth,
+                    live_count=n), mask, B, H, hd))
+    outs.append(_launched("flash_attention", lambda: flash_attention(
+        q, k, v, mask, sm_scale=hd ** -0.5)))   # and with no counter
     for got in outs:
         torch.testing.assert_close(got, want, **_tol(dtype))
-    if per_batch_mask:
-        for got in outs:
-            assert float(got[:, :_dead_rows(S)].abs().max()) == 0.0
+        _zero_where_no_key(got, mask)
+
+
+@pytest.mark.parametrize("dtype", FLOATS)
+@pytest.mark.parametrize("hd", [16, 64, 80, 256])
+def test_flash_occupancy_matches_the_ring_rule(gen, hd, dtype):
+    """The blocks an SM the card reports: at the served width 64, K3 at
+    ``choose_depth``'s ring keeps two (fp32 blocks are held to 128
+    registers for it) and K2 as many; every kernel at least one."""
+    from repro_torch.kernels.flash_attention import blocks_per_sm
+    item = torch.empty((), dtype=dtype).element_size()
+    depth = pipeline.choose_depth(hd, item, 8)
+    k3 = blocks_per_sm("flash_attention_pipelined", dtype, hd, depth)
+    k2 = blocks_per_sm("flash_attention", dtype, hd)
+    assert min(k3, k2, blocks_per_sm("flash_attention_int8kv", dtype, hd)) >= 1
+    if hd == 64:
+        assert min(k3, k2) >= 2
 
 
 def test_flash_wrappers_raise_on_what_the_kernel_does_not_take(gen):
-    q, k, v, mask = _flash_inputs(gen, 1, 64, 64, 4, 4, 64, torch.float32,
-                                  False)
+    q, k, v, mask = _flash_inputs(gen, 1, 64, 64, 4, 4, 64, torch.float32)
     with pytest.raises(ValueError):
         flash_attention(q.transpose(1, 2), k, v, mask, sm_scale=0.125)
     with pytest.raises(ValueError):
@@ -162,8 +226,7 @@ def test_flash_wrappers_raise_on_what_the_kernel_does_not_take(gen):
 def test_ops_route_k2_for_one_tile_and_k3_for_more(gen):
     counts = {n: _build.KERNELS[n].launches for n in _build.KERNELS}
     for S in (16, 64, 65, 512):
-        q, k, v, mask = _flash_inputs(gen, 1, S, S, 4, 4, 64, torch.float32,
-                                      False)
+        q, k, v, mask = _flash_inputs(gen, 1, S, S, 4, 4, 64, torch.float32)
         got = ops.flash_attention_gqa(q, k, v, mask, sm_scale=0.125)
         torch.testing.assert_close(
             got, ref.flash_attention_ref(q, k, v, mask, sm_scale=0.125),
@@ -587,22 +650,23 @@ def _int8kv_cuda(gen, B, S, H, K, T, hd, dtype):
     return q, kf, vf, k8.to(torch.int8), v8.to(torch.int8), ks, vs
 
 
-@pytest.mark.parametrize("per_batch_mask", [False, True])
+@pytest.mark.parametrize("mask_kind", MASKS)
 @pytest.mark.parametrize("dtype", FLOATS)
 @pytest.mark.parametrize("B,S,T,H,K,hd", FLASH)
-def test_flash_int8kv_kernel(gen, B, S, T, H, K, hd, dtype, per_batch_mask):
+def test_flash_int8kv_kernel(gen, B, S, T, H, K, hd, dtype, mask_kind):
     q, kf, vf, k8, v8, ks, vs = _int8kv_cuda(gen, B, S, H, K, T, hd, dtype)
-    mask = _flash_inputs(gen, B, S, T, H, K, hd, dtype, per_batch_mask)[3]
+    mask = _mask(gen, mask_kind, B, S, T, hd)
     scale = hd ** -0.5
     want = ref.flash_attention_int8kv_ref(q, k8, v8, ks, vs, mask,
                                           sm_scale=scale)
-    got = _launched("flash_attention_int8kv", lambda: flash_attention_int8kv(
-        q, k8, v8, ks, vs, mask, sm_scale=scale))
+    got = _live_counted(
+        "flash_attention_int8kv", lambda n: flash_attention_int8kv(
+            q, k8, v8, ks, vs, mask, sm_scale=scale, live_count=n),
+        mask, B, H, hd)
     tol = (dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32
            else _tol(dtype))
     torch.testing.assert_close(got, want, **tol)
-    if per_batch_mask:
-        assert float(got[:, :_dead_rows(S)].abs().max()) == 0.0
+    _zero_where_no_key(got, mask)
     if dtype == torch.float32:
         fp = ref.flash_attention_ref(q, kf, vf, mask, sm_scale=scale)
         assert float((got - fp).abs().max()) < 0.1

@@ -52,6 +52,12 @@ def _mask(kind: str, B: int, S: int, T: int, rng) -> np.ndarray:
         m = rng.random((B, S, T)) < 0.7
         m[:, :, 0] = True
         return m
+    if kind == "block_sparse":   # dead key blocks mid-row, per example
+        m = rng.random((B, S, T)) < 0.8
+        for b in range(B):
+            for c in range(16 * (1 + b % 2), T, 32):
+                m[b, :, c:c + 16] = False
+        return m
     if kind == "fully_masked_rows":   # tests/test_kernels.py:45
         m = np.zeros((1, S, T), bool)
         m[:, :, :8] = True
@@ -89,6 +95,8 @@ FLASH_CASES = [
     (2, 64, 4, 2, 64, 16, "batch"),              # GQA 2:1, (B,S,T) mask
     (1, 32, 4, 2, 64, 32, "causal"),             # GQA, (1,S,T) mask, S < T
     (1, 64, 2, 1, 64, 16, "fully_masked_rows"),
+    (2, 64, 2, 1, 96, 16, "block_sparse"),       # dead tiles differ per example
+    (2, 32, 4, 4, 64, 32, "batch"),
 ]
 # Head dims that run at a wider instantiation (80 and 96 at 128, 256 with
 # one KV head as paligemma-3b's), and one not a multiple of 8.
@@ -133,7 +141,8 @@ def test_flash_attention_matches_pallas(B, S, H, K, T, hd, kind, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("depth", [2, 3])
 @pytest.mark.parametrize("B,S,H,K,T,hd,kind", [FLASH_CASES[0], FLASH_CASES[1],
-                                               FLASH_CASES[3], WIDE_CASES[2]])
+                                               FLASH_CASES[3], FLASH_CASES[4],
+                                               WIDE_CASES[2]])
 def test_flash_attention_pipelined_matches_pallas(B, S, H, K, T, hd, kind,
                                                   depth, dtype):
     (qj, kj, vj, mj), (qt, kt, vt, mt) = _flash_inputs(
@@ -182,13 +191,106 @@ def test_use_pipeline_never_pipelines_one_tile(n_steps, override, want):
 
 
 @pytest.mark.parametrize("hd,itemsize,n_steps,want", [
-    (64, 4, 8, 4), (64, 4, 2, 2), (64, 4, 3, 3), (128, 4, 8, 2),
-    (128, 2, 8, 4), (80, 4, 8, 2), (96, 2, 8, 4), (256, 4, 8, 2),
-    (256, 2, 8, 4)])
+    (64, 4, 8, 2), (64, 4, 2, 2), (64, 4, 3, 2), (128, 4, 8, 2),
+    (128, 2, 8, 2), (80, 4, 8, 2), (96, 2, 8, 2), (256, 4, 8, 2),
+    (256, 2, 8, 2), (64, 2, 8, 2), (32, 4, 8, 2), (16, 2, 2, 2)])
 def test_choose_depth_fits_shared_memory(hd, itemsize, n_steps, want):
     depth = pipeline.choose_depth(hd, itemsize, n_steps)
     assert depth == want
     assert pipeline.ring_smem_bytes(hd, itemsize, depth) <= pipeline.MAX_SMEM
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("hd", [16, 20, 32, 64, 80, 96, 128, 200, 256])
+def test_choose_depth_keeps_the_most_blocks_an_sm(hd, itemsize):
+    """The depth whose block leaves room for the most blocks on the SM,
+    the deepest of those; never a ring that does not fit."""
+    fit = {d: pipeline.blocks_fit(pipeline.ring_smem_bytes(hd, itemsize, d))
+           for d in pipeline.DEPTHS}
+    depth = pipeline.choose_depth(hd, itemsize, 8)
+    assert fit[depth] == max(fit.values()) >= 1
+    assert all(fit[d] < fit[depth] for d in pipeline.DEPTHS if d > depth)
+    assert pipeline.ring_smem_bytes(hd, itemsize, depth) <= pipeline.MAX_SMEM
+
+
+@pytest.mark.parametrize("fits,want", [
+    ({2: 3, 3: 3, 4: 2}, 3), ({2: 1, 3: 1, 4: 1}, 4), ({2: 1, 3: 0, 4: 0}, 2),
+    ({2: 2, 3: 1, 4: 1}, 2)])
+def test_choose_depth_takes_the_deepest_of_equal_occupancy(monkeypatch, fits,
+                                                           want):
+    monkeypatch.setattr(pipeline, "ring_smem_bytes", lambda hd, it, d: d)
+    monkeypatch.setattr(pipeline, "blocks_fit", lambda smem: fits[smem])
+    assert pipeline.choose_depth(64, 4, 8) == want
+    assert pipeline.choose_depth(64, 4, 2) == 2
+
+
+def test_choose_depth_raises_where_no_ring_fits(monkeypatch):
+    monkeypatch.setattr(pipeline, "blocks_fit", lambda smem: 0)
+    with pytest.raises(ValueError):
+        pipeline.choose_depth(64, 4, 8)
+
+
+def test_ring_smem_bytes_gives_two_fp32_blocks_at_hd_64():
+    """At the served shape (hd 64, fp32) a depth-2 block and the SM's 1 KB
+    reserve fit twice in the SM's 228 KB; depth 3 fits once."""
+    two = pipeline.ring_smem_bytes(64, 4, 2)
+    assert 2 * (two + pipeline.BLOCK_RESERVED_SMEM) <= pipeline.SM_SMEM
+    assert pipeline.blocks_fit(pipeline.ring_smem_bytes(64, 4, 3)) == 1
+    # bf16 keeps K/V 16-bit: a depth-4 ring still leaves two blocks, a
+    # depth-2 ring four
+    assert pipeline.blocks_fit(pipeline.ring_smem_bytes(64, 2, 4)) == 2
+    assert pipeline.blocks_fit(pipeline.ring_smem_bytes(64, 2, 2)) == 4
+
+
+@pytest.mark.parametrize("S,T,hd,kind", [
+    (512, 512, 64, "causal"), (130, 70, 64, "batch"), (64, 96, 256, "batch"),
+    (100, 300, 64, "block_sparse"), (33, 50, 20, "fully_masked_rows"),
+    (70, 40, 64, "dead_one_tile")])
+def test_live_tiles_counts_tiles_with_a_valid_entry(S, T, hd, kind):
+    """``live_tiles`` is the count of (64-row q tile, K/V tile) pairs with
+    one valid entry, the tiles the kernels compute, against a loop; a
+    sweep of one K/V tile is not scanned, so its tiles all count."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(S + T)
+    if kind == "dead_one_tile":       # the first q tile wholly masked
+        m = np.ones((1, S, T), bool)
+        m[:, :64] = False
+    else:
+        m = _mask(kind, 2, S, T, rng)
+    if kind == "batch":
+        m[:, :, 64:] &= rng.random((2, S, T - 64)) < 0.002
+    bk = fa.block_k(hd)
+    one_tile = T <= bk
+    want = sum(one_tile or bool(m[b, i:i + 64, j:j + bk].any())
+               for b in range(m.shape[0]) for i in range(0, S, 64)
+               for j in range(0, T, bk))
+    total = m.shape[0] * -(-S // 64) * -(-T // bk)
+    assert fa.live_tiles(torch.from_numpy(m), hd) == (want, total)
+    if kind == "causal":
+        assert (want, total) == (36, 64)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "pipelined",
+                                    "int8kv"])
+def test_flash_wrappers_take_no_live_count_on_the_cpu(kernel):
+    """Only a kernel counts the tiles it computes: a CPU call (the plain
+    version) refuses a counter rather than leave it unwritten."""
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros((1, 8, 2, 16))
+    kv = torch.zeros((1, 8, 2, 16))
+    m = torch.ones((1, 8, 8), dtype=torch.bool)
+    count = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="live_count"):
+        if kernel == "flash_attention":
+            fa.flash_attention(q, kv, kv, m, sm_scale=0.25, live_count=count)
+        elif kernel == "pipelined":
+            pipeline.flash_attention_pipelined(q, kv, kv, m, sm_scale=0.25,
+                                               live_count=count)
+        else:
+            s = torch.ones(2)
+            fa.flash_attention_int8kv(q, kv.to(torch.int8), kv.to(torch.int8),
+                                      s, s, m, sm_scale=0.25,
+                                      live_count=count)
 
 
 @pytest.mark.parametrize("stage_bytes,n_steps,cap,want", [
