@@ -81,13 +81,17 @@ Phases (any failure exits non-zero; nothing is caught):
    K7 at the 40-token prefill of run (s3) (BT=4, H=80, S=40, P=64, N=128:
    the one shape the path gives it), both kernels at the 512-token serving
    shape (BT=4, H=80, S=512: four prompts through mamba2-2.7b, each batch
-   row with its own B and C), S=1, S below and around each kernel's chunk
-   (K7 64, K8 32), a ragged S=300, and a strong decay (dt·A ≈ -7 a step,
-   where exp(acum_q - acum_k) for k > q overflows fp32); bound = max(bytes
-   / 3.35 TB/s, ops / 67 TFLOP/s), one bound for both kernels, see
+   row with its own B and C), K8 at every depth that fits; S=1, S below
+   and around the 16-position chunk and past 64, a ragged S=300, and a
+   strong decay (dt·A ≈ -7 a step, where exp(acum_q - acum_k) for k > q
+   overflows fp32); bound = max(bytes / 3.35 TB/s, ops / 165 TFLOP/s: the
+   TF32 tensor cores' 495 taken three times, as 3xTF32, the least that
+   keeps the scan's fp32 accuracy), one bound for both kernels, see
    SSD_FORMULA.  Then bf16 and fp16 I/O (tolerance 2e-2) at the model's
    widths, P = 6 and N = 256, in fp32 and bf16, K8 at every depth that
-   fits.  No single PyTorch call computes the scan: library null.
+   fits.  Every SSD row carries its design: chunk, heads a block, blocks
+   an SM (occupancy query), registers and spill bytes (the build log).
+   No single PyTorch call computes the scan: library null.
 7. ssm serve: mamba2-2.7b (64 layers, d 2560, 80 heads of 64, state 128,
    vocab 50280; random weights from seed 0), each run with launch counts
    zeroed just before and read just after and required exact: every
@@ -152,6 +156,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,      # fp32 on the CUDA cores
+              "tfloat32": 495e12,    # TF32 dense on the tensor cores
               "bfloat16": 989e12,    # bf16 dense on the tensor cores
               "float16": 989e12}     # fp16 dense on the tensor cores
 # fp16 keeps 3 more mantissa bits than bf16 and is held to bf16's bound
@@ -886,12 +891,17 @@ def pointcloud_path_phase() -> dict:
 
 # -- SSM phase -----------------------------------------------------------------
 
+#: fp32-accurate products on the TF32 tensor cores take three passes
+#: (3xTF32): the least that keeps the scan's fp32 accuracy
+SSD_FLOPS = PEAK_FLOPS["tfloat32"] / 3
 SSD_FORMULA = ("bytes = itemsize*(2*BT*H*S*P + BT*H*S + 2*BT*S*N) + 4*H "
-               "(x, y, dt, B, C; A fp32); ops = 4*BT*H*S*N*P: the least any form of the scan "
-               "needs, one FMA a state element a position for the update "
-               "and one for the output (the chunked form does both and its "
-               "causal Q x Q products on top); one bound for K7 and K8, "
-               "whatever their chunk")
+               "(x, y, dt, B, C; A fp32) at 3.35 TB/s; ops = 4*BT*H*S*N*P "
+               "at 495/3 TFLOP/s (3xTF32 on the tensor cores, the least "
+               "that keeps fp32 accuracy; the math is fp32 in every I/O "
+               "dtype): the least any form of the scan needs, one FMA a "
+               "state element a position for the update and one for the "
+               "output (the chunked form does both and its causal Q x Q "
+               "products on top); one bound for K7 and K8")
 SSD_MAIN = (4, 80, 512, 64, 128)     # BT, H, S, P, N of the serving prefill
 SSD_SHORT = (4, 80, 40, 64, 128)     # the 40-token prefill of run (s3): K7
 
@@ -914,20 +924,66 @@ def ssd_inputs(BT, H, S, P, N, seed, strong=False, dtype="float32"):
         torch.float32 if i == 2 else dt) for i, a in enumerate(arrays)]
 
 
+_PTXAS: dict = {}
+
+
+def ptxas_report(lib: str) -> dict:
+    """Registers and spill-store bytes of every kernel of library ``lib``,
+    by mangled name, from its build log (nvcc -Xptxas -v)."""
+    if lib not in _PTXAS:
+        from repro_torch.kernels import _build
+        log = _build._lib_path(lib).with_suffix(".log").read_text()
+        out, name, spill = {}, None, 0
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out[name] = (int(m.group(1)), spill)
+                name, spill = None, 0
+        _PTXAS[lib] = out
+    return _PTXAS[lib]
+
+
+_MANGLED_T = {"float32": "f", "bfloat16": "13__nv_bfloat16",
+              "float16": "6__half"}
+
+
+def ssd_design(kernel: str, dtype: str, P: int, N: int,
+               depth: int | None) -> dict:
+    """The design fields of an SSD row: chunk, heads a block, blocks an SM
+    (the occupancy query), and the instantiation's registers and spills
+    (its build log)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import CHUNK, blocks_per_sm
+    tag = f"{kernel}_kernelI{_MANGLED_T[dtype]}E"
+    hits = [v for k, v in ptxas_report(kernel).items() if tag in k]
+    if len(hits) != 1:
+        raise AssertionError(f"{tag}: {len(hits)} kernels in the build log")
+    return {"chunk": CHUNK, "heads_per_block": 1,
+            "blocks_per_sm": blocks_per_sm(kernel, getattr(torch, dtype), P,
+                                           N, depth),
+            "registers": hits[0][0], "spill_store_bytes": hits[0][1]}
+
+
 def ssd_case(kernel: str, shape, depth: int = 0, strong: bool = False,
              plain: bool = True, dtype: str = "float32") -> dict:
+    """One K7/K8 row: the kernel against ``ssd_scan_ref``."""
     import torch
     from repro_torch.kernels import pipeline, ref
-    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
     BT, H, S, P, N = shape
     args = ssd_inputs(BT, H, S, P, N, seed=S + BT, strong=strong, dtype=dtype)
     itemsize = args[0].element_size()
     if kernel == "ssd_scan":
         call = ssd_scan
-        Q = ssd_chunk(P, N)
     else:
-        call = lambda *a: pipeline.ssd_scan_pipelined(*a, depth=depth)  # noqa: E731
-        Q = pipeline.ssd_pipe_chunk(P, N, depth, itemsize)
+        call = lambda *a: pipeline.ssd_scan_pipelined(  # noqa: E731
+            *a, depth=depth)
     run = lambda: call(*args)  # noqa: E731
     got = run()
     torch.cuda.synchronize()
@@ -945,16 +1001,19 @@ def ssd_case(kernel: str, shape, depth: int = 0, strong: bool = False,
               + 4 * H)
     ops = 4 * BT * H * S * N * P
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS["float32"] * 1e3
+    t_ops = ops / SSD_FLOPS * 1e3
     plain_ms = device_ms(lambda: ref.ssd_scan_ref(*args), 2) if plain \
         else None
     row = {"kernel": kernel, "case": case, "max_abs_err": float(err.max()),
-           "ms": device_ms(run, 20), "cold_ms": cold_ms(call, args),
+           "ms": device_ms(run, 20),
+           "cold_ms": cold_ms(call, args),
            "plain_ms": plain_ms, "library_ms": None,
            "library_note": "no single PyTorch call",
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bound_formula": SSD_FORMULA, "chunk": Q, "dtype": dtype}
+           "bound_formula": SSD_FORMULA, "dtype": dtype,
+           **ssd_design(kernel, dtype, P, N,
+                        depth if kernel != "ssd_scan" else None)}
     print(json.dumps(row))
     return row
 
@@ -962,6 +1021,7 @@ def ssd_case(kernel: str, shape, depth: int = 0, strong: bool = False,
 def ssm_kernel_phase() -> list[dict]:
     import torch
     from repro_torch.kernels import pipeline
+    from repro_torch.kernels.ssd_scan import block_fits
     # K1 at the SSM path's widths (norm 2560, gate_norm 5120) and rows (a
     # 4 x 512 prefill, a decode step of 4), in fp32 (s1) and bf16 (s2, s3)
     gen = torch.Generator(device="cuda")
@@ -976,22 +1036,24 @@ def ssm_kernel_phase() -> list[dict]:
     # K7 at the one shape the path gives it, and at the 512-token shape
     # (which the router sends to K8) beside K8
     rows += [ssd_case("ssd_scan", SSD_SHORT), ssd_case("ssd_scan", SSD_MAIN)]
-    depths = [d for d in pipeline.DEPTHS if pipeline.ssd_pipe_chunk(P, N, d)]
+    depths = [d for d in pipeline.DEPTHS
+              if block_fits(P, N, pipeline.ssd_ring_bytes(P, N, d))]
     for d in depths:
         rows.append(ssd_case("ssd_scan_pipelined", SSD_MAIN, depth=d))
-    # S=1, below/around K7's 64 and K8's 32, ragged, strong decay; 8 heads
+    # S=1, below/around the chunks, ragged, strong decay; 8 heads
     # at the model's widths keep the plain recurrence quick
-    for S_, strong in ((1, False), (31, False), (33, False), (40, False),
-                       (63, False), (65, False), (300, False), (256, True)):
+    for S_, strong in ((1, False), (15, False), (17, False), (31, False),
+                       (33, False), (40, False), (63, False), (65, False),
+                       (300, False), (256, True)):
         shape = (2, 8, S_, P, N)
         rows.append(ssd_case("ssd_scan", shape, strong=strong, plain=False))
         for d in depths:
             rows.append(ssd_case("ssd_scan_pipelined", shape, depth=d,
                                  strong=strong, plain=False))
     # the inputs the reference's lowering reaches beyond the path: bf16 and
-    # fp16 at the model's widths, P = 6 (element loads, padded to 8 in the
-    # block), N = 256 (K7 at a 32-position chunk, K8 at 16 in fp32); K8 at
-    # every depth that fits
+    # fp16 at the model's widths, P = 6 (element loads, padded to 16 in the
+    # block), N = 256 (two warps across the state); K8 at every depth that
+    # fits
     for shape, dtype in (((2, 8, 300, P, N), "bfloat16"),
                          ((2, 8, 300, P, N), "float16"),
                          ((2, 8, 100, 6, N), "float32"),
@@ -1001,7 +1063,8 @@ def ssm_kernel_phase() -> list[dict]:
         rows.append(ssd_case("ssd_scan", shape, plain=False, dtype=dtype))
         it = 4 if dtype == "float32" else 2
         for d in pipeline.DEPTHS:
-            if pipeline.ssd_pipe_chunk(shape[3], shape[4], d, it):
+            if block_fits(shape[3], shape[4],
+                          pipeline.ssd_ring_bytes(shape[3], shape[4], d, it)):
                 rows.append(ssd_case("ssd_scan_pipelined", shape, depth=d,
                                      plain=False, dtype=dtype))
     return rows
@@ -1500,7 +1563,7 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
     largest shape the main path gives it) and the largest fp32 error over
     all its cases."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.pipeline import choose_depth
+    from repro_torch.kernels.pipeline import choose_depth, ssd_depth
     i1_depth = choose_depth(64, 4, 512 // 64)
     main_case = {"rmsnorm": "R=2048 d=5120 bfloat16",   # (s2)'s gate_norm
                  "flash_attention": "S=64 T=64 H=12 K=12 hd=64 float32 causal",
@@ -1515,7 +1578,8 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                  "group_aggregate": "a float32",
                  "group_aggregate_pipelined": "b float32 depth=2",
                  "ssd_scan": "BT=4 H=80 S=40 P=64 N=128",
-                 "ssd_scan_pipelined": "BT=4 H=80 S=512 P=64 N=128 depth=4",
+                 "ssd_scan_pipelined": "BT=4 H=80 S=512 P=64 N=128 "
+                                       f"depth={ssd_depth(64, 128, 512)}",
                  # (i2)'s largest GEMM: the unembedding at each row count
                  "int8_matmul": "M=512 K=768 N=32000 float32",
                  "int8_matmul_pipelined": "M=8 K=768 N=32000 float32",
@@ -1536,7 +1600,8 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                     "library_ms": row["library_ms"],
                     "library_note": row.get("library_note"),
                     "case": row["case"]})
-        for key in ("blocks_per_sm", "live_tiles"):
+        for key in ("blocks_per_sm", "live_tiles", "chunk", "heads_per_block",
+                    "registers", "spill_store_bytes"):
             if key in row:
                 out[-1][key] = row[key]
     return out

@@ -1,8 +1,7 @@
-// The chunk step shared by K7 (ssd_scan.cu) and K8 (ssd_scan_pipelined.cu):
-// one thread block walks the chunks of one (batch, head) in order and keeps
-// the (N, P) fp32 state in shared memory from chunk to chunk.  Per chunk of
-// Q positions (positions past the sequence carry dt = 0: zero input, unit
-// decay, so they add nothing):
+// The chunk step shared by K7 (ssd_scan.cu) and K8 (ssd_scan_pipelined.cu),
+// on the tensor cores.  One block walks the chunks of one head of one batch
+// row in order.  Per chunk of Q = 16 positions (positions past the sequence
+// carry dt = 0: zero input, unit decay, so they add nothing):
 //
 //   acum  = cumsum(dt * A)
 //   M     = [k <= q] (C_q . B_k) exp(acum_q - acum_k) dt_k        (Q x Q)
@@ -11,320 +10,488 @@
 //
 // The mask is a select: exp(acum_q - acum_k) for k > q has a positive
 // exponent and may be inf, so it is never computed (inf * 0 would be NaN).
-// All arithmetic is fp32 on the CUDA cores, whatever the I/O dtype (fp32,
-// bf16 or fp16: inputs are widened as they land in shared memory and y is
-// rounded once to x's dtype, as the reference's .astype(f32) ... .astype(
-// y.dtype) does).  Each of the four products is a 4 x 4 register tile a
-// thread over shared-memory operands read as float4 (`tile_mma`); a tile's
-// rows are interleaved (r, r + R/4, ...) and its columns contiguous, so a
-// warp's reads of the column operand are consecutive and those of the row
-// operand are broadcasts.
 //
-// P and N need not be multiples of 4: shared memory holds them padded to
-// PP = round_up(P, 4) and NP = round_up(N, 4) with the padding zero-filled,
-// which adds nothing to any product, and only the first P columns of y are
-// stored.  Rows that are whole 4-element groups load and store 4 at a time;
-// other rows element by element (the kernels' ALIGNED instantiation fixes
-// the first case at compile time).  x of the chunk always has row stride
-// PP in shared memory.
+// Arithmetic.  The four products run on mma.sync.m16n8k8 with TF32
+// operands and fp32 accumulators, in 3xTF32: each fp32 operand a is split
+// as its fragment is loaded into hi = tf32(a) (rounded to nearest) and
+// lo = a - hi
+// (whose bits past TF32's the tensor core drops), and a.b is taken as
+// lo_a.hi_b + hi_a.lo_b + hi_a.hi_b.  That keeps the scan's fp32 accuracy
+// (one TF32 pass is ~1000x worse at the serving shape); operands that are
+// raw bf16/fp16 inputs (x, B, C) are exact in TF32 and have no lo term.
+// Shared memory holds fp32 only.  Everything else (the scan, exp, the
+// mask) is fp32 on the CUDA cores.
+//
+// Work.  Warp (pb, r) of the block owns the head's head-dim rows
+// 16 pb .. 16 pb + 15 and state columns 128 r .. 128 r + 127: it keeps h
+// transposed (hT, P x N) for them in the update's accumulator registers
+// from chunk to chunk, 16 m16n8 fragments.  Per chunk:
+//   1. every warp runs the cumsum itself (warp scan, into its own
+//      scratch), so no warp waits on another;
+//   2. scores: every warp computes S0 = C B^T on the chunk's two m16n8
+//      tiles over its share of the N columns, so the work and the
+//      dependency chains are even, into a partial sum of its own;
+//   3. after one block barrier, yT = hT C^T (hT's accumulator fragments
+//      are the A operand as they stand, with the k order permuted to
+//      match), scaled by exp(acum_q), plus xT M^T over live tiles only
+//      (key tile <= query tile), M's fragments summed from the partials
+//      and masked and scaled as they are loaded; then
+//      hT <- exp(acum_last) hT + (w x)T B.
+// A state wider than 128 columns is split over warps r (yT's C.h part is
+// summed through shared memory); a head dim wider than the block's warps
+// cover is split over blocks (grid z), each recomputing the scores.
+//
+// The chunk is 16: a sweep at the serving shape against chunks of 32 and 64
+// and two heads a block (sharing B, C and the scores) found it fastest, as
+// it leaves the most blocks an SM (PERF.md).
+//
+// Shared memory strides are chosen so that every fragment load is free of
+// bank conflicts: B and C rows of 128 nr + 8 floats (float2 loads along N,
+// and the update's reads down the positions), x rows of 16 pbw + 8 (reads
+// down the positions), score rows of Q + 4.  Columns past N or P are zero,
+// so a warp's state tiles past N read zeros and stay 0 without a branch;
+// rows past the sequence are zero (K7) or finite (K8) and carry dt = 0.
 #pragma once
 
 #include "common.cuh"
 
 namespace ssd {
 
-constexpr int kThreads = 256;
+constexpr int Q = 16;         // positions a chunk
+constexpr int kMaxWarps = 8;
+constexpr int kWarpP = 16;    // head-dim rows of hT a warp holds: one m16 block
+constexpr int kWarpNT = 16;   // n8 tiles of state columns a warp holds: 128
 
-__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
+__host__ __device__ constexpr int cdiv(int n, int m) { return (n + m - 1) / m; }
 
-// Real and padded widths of one scan.
-struct Dims {
-  int P, N;    // head dim, state size
-  int PP, NP;  // padded to multiples of 4
-};
-__host__ __device__ inline Dims dims(int P, int N) { return Dims{P, N, pad4(P), pad4(N)}; }
-
-// Fixed part of the shared memory (floats): the state h (NP x PP), B of the
-// chunk transposed (NP x Q+4), the masked scores M (Q x Q+4), and acum, dt,
-// exp(acum) and the state weights w (Q each).
-__host__ __device__ constexpr int fixed_floats(int Q, int PP, int NP) {
-  return NP * PP + NP * (Q + 4) + Q * (Q + 4) + 4 * Q;
-}
-// One chunk's x (Q x PP) and C (Q x NP+4) in fp32.
-__host__ __device__ constexpr int chunk_floats(int Q, int PP, int NP) {
-  return Q * PP + Q * (NP + 4);
-}
-
-struct Smem {
-  float* h;
-  float* bt;
-  float* m;
-  float* acum;
-  float* dts;
-  float* eq;
-  float* w;
+// How one scan is laid out over warps and blocks, and its shared-memory
+// strides (floats).  kernels/ssd_scan.py mirrors it.
+struct Geom {
+  int P, N;
+  int npad;    // N rounded up to whole n8 tiles
+  int nr;      // warps across the state columns (128 each)
+  int pbw;     // p-blocks (16 head-dim rows) of the head in one block; 0: none fits
+  int psplit;  // blocks across the head dim
+  int warps;   // pbw * nr
+  int xs, bs;  // row strides of x and of B/C
 };
 
-__device__ __forceinline__ Smem carve(float* base, int Q, const Dims& dm) {
-  Smem s;
-  s.h = base;
-  s.bt = s.h + dm.NP * dm.PP;
-  s.m = s.bt + dm.NP * (Q + 4);
-  s.acum = s.m + Q * (Q + 4);
-  s.dts = s.acum + Q;
-  s.eq = s.dts + Q;
-  s.w = s.eq + Q;
+__host__ __device__ inline Geom geom(int P, int N) {
+  Geom g;
+  g.P = P;
+  g.N = N;
+  g.npad = round_up(N, 8);
+  g.nr = cdiv(g.npad, 8 * kWarpNT);
+  const int pb = cdiv(P, kWarpP);
+  const int cap = kMaxWarps / g.nr;
+  g.pbw = cap < pb ? cap : pb;
+  g.psplit = g.pbw > 0 ? cdiv(pb, g.pbw) : 0;
+  g.warps = g.pbw * g.nr;
+  g.xs = kWarpP * g.pbw + 8;
+  g.bs = 8 * kWarpNT * g.nr + 8;  // every warp's 128 columns; zero past N
+  return g;
+}
+
+// One chunk's x, B and C.
+__host__ __device__ inline int stage_floats(const Geom& g) { return Q * g.xs + 2 * Q * g.bs; }
+// Each warp's partial scores (Q x Q+4), each warp's cumsum scratch (acum
+// and dt) and, for a state split over warps, their partial yT.
+__host__ __device__ inline int fixed_floats(const Geom& g) {
+  return g.warps * Q * (Q + 4) + g.warps * 2 * Q + g.pbw * (g.nr - 1) * kWarpP * Q;
+}
+
+struct Stage {
+  float* x;  // Q x xs
+  float* b;  // Q x bs
+  float* c;  // Q x bs
+};
+__device__ __forceinline__ Stage stage_at(float* base, const Geom& g) {
+  Stage s;
+  s.x = base;
+  s.b = base + Q * g.xs;
+  s.c = s.b + Q * g.bs;
   return s;
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+struct Fixed {
+  float* part;  // warps x (Q x Q+4): each warp's partial C B^T
+  float* scan;  // this warp's: acum (Q), then dt (Q)
+  float* red;   // partial yT of the warps with r > 0
+};
+__device__ __forceinline__ Fixed fixed_at(float* base, const Geom& g) {
+  Fixed f;
+  f.part = base;
+  const int warp = threadIdx.x / 32;
+  f.scan = f.part + g.warps * Q * (Q + 4) + warp * 2 * Q;
+  f.red = f.part + g.warps * Q * (Q + 4) + g.warps * 2 * Q;
+  return f;
 }
 
-// acc[i][j] += sum_{k < K} a[r[i] * lda + k] * b[k * ldb + c + j]; K % 4 == 0.
-__device__ __forceinline__ void tile_mma(float (&acc)[4][4], const float* a, int lda,
-                                         const int (&r)[4], const float* b, int ldb,
-                                         int c, int K) {
-  for (int k = 0; k < K; k += 4) {
-    float4 av[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = ld4(a + r[i] * lda + k);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 bv = ld4(b + (k + kk) * ldb + c);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ai = comp(av[i], kk);
-        acc[i][0] = fmaf(ai, bv.x, acc[i][0]);
-        acc[i][1] = fmaf(ai, bv.y, acc[i][1]);
-        acc[i][2] = fmaf(ai, bv.z, acc[i][2]);
-        acc[i][3] = fmaf(ai, bv.w, acc[i][3]);
-      }
-    }
+// --------------------------------------------------------------------------
+// TF32 tensor-core helpers
+// --------------------------------------------------------------------------
+
+// a as hi = tf32(a), rounded to nearest (ties away from zero, as
+// cvt.rna.tf32.f32 rounds, by bit masking: two integer instructions,
+// without the finite check the cvt compiles to; inf and nan stay inf and
+// nan) and lo = a - hi, exact in fp32; EXACT (a raw bf16/fp16 input,
+// exact in TF32): hi = a and no lo.
+template <bool EXACT>
+__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
+  if constexpr (EXACT) {
+    hi = __float_as_uint(a);
+    lo = 0u;
+  } else {
+    hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(a - __uint_as_float(hi));
   }
 }
 
-__device__ __forceinline__ void zero(float (&acc)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+// d += a (16x8, row) * b (8x8, col).  Lane (g, t) = (lane / 4, lane % 4)
+// holds a at (g, t), (g+8, t), (g, t+4), (g+8, t+4); b at (t, g), (t+4, g);
+// d at (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Tile t of an R x C output: rows rt, rt + R/4, ... and columns 4ct .. 4ct+3.
-__device__ __forceinline__ int tile_rows(int t, int R, int C, int (&r)[4]) {
-  const int ct_n = C / 4;
-  const int rt = t / ct_n;
+// An operand fragment split for 3xTF32.
+template <int K>
+struct Frag {
+  uint32_t hi[K], lo[K];
+};
+template <bool EXACT, int K>
+__device__ __forceinline__ Frag<K> frag(const float (&v)[K]) {
+  Frag<K> f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) r[i] = rt + (R / 4) * i;
-  return 4 * (t % ct_n);
+  for (int i = 0; i < K; ++i) split<EXACT>(v[i], f.hi[i], f.lo[i]);
+  return f;
 }
+
+// d += a.b in 3xTF32, small terms first; an EXACT operand has no lo term.
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
+  if constexpr (!A_EXACT) mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
+  if constexpr (!B_EXACT) mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// --------------------------------------------------------------------------
+// Loads
+// --------------------------------------------------------------------------
 
 // Four elements (col .. col+3) of a row of `cols` valid elements as fp32:
-// one 4-element load where the row is whole groups of 4 (`vec`), else one
-// element at a time with columns at or past `cols` read as 0.
+// one 4-element load where `vec` (the row is whole, aligned groups of 4),
+// else one element at a time with columns at or past `cols` read as 0.
 template <typename T>
 __device__ __forceinline__ float4 row4(const T* row, int col, int cols, bool vec) {
-  if (vec) return load4(row + col);
+  if (vec && col + 4 <= cols) return load4(row + col);
   float v[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) v[j] = col + j < cols ? to_f32(row[col + j]) : 0.f;
   return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// Q rows of `cols` elements of T (row stride `ld`, rows >= `valid` read as
-// 0) into fp32 shared memory `dst` (row stride `lds`, padded columns up to
-// pad4(cols) zero-filled).  `vec`: cols % 4 == 0 and rows 4-element aligned.
-template <int Q, typename T>
-__device__ __forceinline__ void load_rows(float* dst, int lds, const T* src, size_t ld,
-                                          int cols, int valid, bool vec) {
-  const int groups = pad4(cols) / 4;
-  for (int idx = threadIdx.x; idx < Q * groups; idx += kThreads) {
-    const int row = idx / groups;
-    const int col = (idx % groups) * 4;
-    st4(dst + row * lds + col, row < valid ? row4(src + row * ld, col, cols, vec)
-                                           : make_float4(0.f, 0.f, 0.f, 0.f));
+// A thread's walk over the (row, group) cells of a rows x per-row grid,
+// `step` cells at a time, without a division a cell.
+struct Cells {
+  int row, col, drow, dcol, per;
+  __device__ __forceinline__ Cells(int idx, int step, int per_row)
+      : row(idx / per_row), col(idx % per_row), drow(step / per_row), dcol(step % per_row),
+        per(per_row) {}
+  __device__ __forceinline__ void next() {
+    row += drow;
+    col += dcol;
+    if (col >= per) {
+      col -= per;
+      ++row;
+    }
   }
-}
+};
 
-// Q rows of B (N elements of T, row stride `ld`, rows >= `valid` read as 0)
-// into bt (NP x Q+4), transposed.  Lanes walk rows, so the transposed
-// stores are conflict-free.
-template <int Q, typename T>
-__device__ __forceinline__ void transpose_b(float* bt, const T* src, size_t ld, int valid,
-                                            const Dims& dm, bool vec) {
-  for (int idx = threadIdx.x; idx < Q * (dm.NP / 4); idx += kThreads) {
-    const int row = idx % Q;
-    const int n = (idx / Q) * 4;
-    const float4 v = row < valid ? row4(src + row * ld, n, dm.N, vec)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-    bt[(n + 0) * (Q + 4) + row] = v.x;
-    bt[(n + 1) * (Q + 4) + row] = v.y;
-    bt[(n + 2) * (Q + 4) + row] = v.z;
-    bt[(n + 3) * (Q + 4) + row] = v.w;
-  }
-}
-
-// Warp 0: dt of the chunk (0 past `valid`), acum = cumsum(dt * A) by a warp
-// scan, eq = exp(acum) and w = exp(acum_last - acum) * dt.  A chunk of 16
-// leaves lanes 16..31 on zeros past its end.
-template <int Q, typename T>
-__device__ __forceinline__ void scan_chunk(const Smem& s, const T* __restrict__ dt,
-                                           float A, int valid) {
-  static_assert(Q % 32 == 0 || Q == 16, "chunk: a multiple of the warp, or 16");
-  constexpr int E = Q >= 32 ? Q / 32 : 1;
-  const int lane = threadIdx.x;
-  if (lane >= 32) return;
-  float v[E], d[E];
-  float run = 0.f;
+// `rows` rows of T (row stride `ld`, `cols` valid columns, rows >= `valid`
+// read as 0) into fp32 shared memory `dst` (row stride `lds`), `width`
+// columns (a multiple of 4) zero past `cols`, by all the block's threads,
+// with kBatch loads in flight a thread.
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, int lds, int width, const T* src,
+                                          size_t ld, int cols, int rows, int valid,
+                                          bool vec) {
+  constexpr int kBatch = 4;
+  Cells c(threadIdx.x, blockDim.x, width / 4);
+  while (c.row < rows) {
+    float4 v[kBatch];
+    int at[kBatch];
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int idx = lane * E + e;
-    d[e] = idx < valid && idx < Q ? to_f32(dt[idx]) : 0.f;
-    run = __fadd_rn(run, __fmul_rn(d[e], A));
-    v[e] = run;
+    for (int j = 0; j < kBatch; ++j) {
+      const int col = 4 * c.col;
+      at[j] = c.row < rows ? c.row * lds + col : -1;
+      v[j] = c.row < valid && col < cols ? row4(src + c.row * ld, col, cols, vec)
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+      c.next();
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (at[j] >= 0) *reinterpret_cast<float4*>(dst + at[j]) = v[j];
   }
-  float inc = run;
+}
+
+// --------------------------------------------------------------------------
+// The chunk step
+// --------------------------------------------------------------------------
+
+// dt of the chunk for head h of batch row b, one position a lane (0 past
+// `valid`, and for lanes 16..31).
+template <typename T>
+__device__ __forceinline__ float load_dt(const T* __restrict__ dt, int b, int h, int H, int S,
+                                         int c0, int valid) {
+  const int lane = threadIdx.x % 32;
+  return lane < valid ? to_f32(dt[(static_cast<size_t>(b) * H + h) * S + c0 + lane]) : 0.f;
+}
+
+// Every warp: acum = cumsum(dt * A) by a warp scan, into its own scratch
+// (acum, then dt).
+__device__ __forceinline__ void scan_chunk(float* scan, float d, float a) {
+  const int lane = threadIdx.x % 32;
+  const float v = __fmul_rn(d, a);
+  float inc = v;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const float y = __shfl_up_sync(0xffffffffu, inc, off);
-    if (lane >= off) inc = __fadd_rn(inc, y);
+    const float up = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc = __fadd_rn(inc, up);
   }
   float excl = __shfl_up_sync(0xffffffffu, inc, 1);
   if (lane == 0) excl = 0.f;
-  float acum[E];
+  if (lane < Q) {
+    scan[lane] = __fadd_rn(excl, v);
+    scan[Q + lane] = d;
+  }
+  __syncwarp();
+}
+
+// S0 = C B^T on the chunk's two m16n8 tiles (keys 0..7 and 8..15, both
+// live at a chunk of 16): each warp takes both over its share of the N
+// columns (k steps), so the work and the dependency chains are even across
+// warps, and writes its partial sums to its own Q x Q+4 slice; the output
+// step adds the slices, masks and scales them.  Fragments run along N with
+// the k order permuted (lane t holds n0 + 2t and n0 + 2t + 1), so each
+// operand is one float2 load.
+template <bool EXACT>
+__device__ __forceinline__ void scores(const Stage& st, const Fixed& fx, const Geom& gm) {
+  constexpr int MS = Q + 4;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int ksteps = gm.npad / 8;
+  const int lo = warp * ksteps / gm.warps, hi = (warp + 1) * ksteps / gm.warps;
+  float d[2][4] = {};
+#pragma unroll 2
+  for (int ks = lo; ks < hi; ++ks) {
+    const float* ca = st.c + g * gm.bs + 8 * ks + 2 * t;
+    const float2 a0 = ld2(ca), a1 = ld2(ca + 8 * gm.bs);
+    const float av[4] = {a0.x, a1.x, a0.y, a1.y};
+    const Frag<4> a = frag<EXACT>(av);
 #pragma unroll
-  for (int e = 0; e < E; ++e) acum[e] = __fadd_rn(excl, v[e]);
-  const float last = __shfl_sync(0xffffffffu, acum[(Q - 1) % E], (Q - 1) / E);
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int idx = lane * E + e;
-    if (idx < Q) {
-      s.acum[idx] = acum[e];
-      s.dts[idx] = d[e];
-      s.eq[idx] = expf(acum[e]);
-      s.w[idx] = expf(last - acum[e]) * d[e];
+    for (int j = 0; j < 2; ++j) {
+      const float2 bv = ld2(st.b + (8 * j + g) * gm.bs + 8 * ks + 2 * t);
+      const float bw[2] = {bv.x, bv.y};
+      mma3<EXACT, EXACT>(d[j], a, frag<EXACT>(bw));
     }
+  }
+  float* part = fx.part + warp * Q * MS;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float* pr = part + g * MS + 8 * j + 2 * t;
+    *reinterpret_cast<float2*>(pr) = make_float2(d[j][0], d[j][1]);
+    *reinterpret_cast<float2*>(pr + 8 * MS) = make_float2(d[j][2], d[j][3]);
   }
 }
 
-// M = [k <= q] (C_q . B_k) exp(acum_q - acum_k) dt_k, from C (Q x NP+4) and bt.
-template <int Q>
-__device__ __forceinline__ void scores(const Smem& s, const float* c_s, int NP) {
-  for (int t = threadIdx.x; t < (Q / 4) * (Q / 4); t += kThreads) {
-    int r[4];
-    const int c = tile_rows(t, Q, Q, r);
-    float acc[4][4];
-    zero(acc);
-    tile_mma(acc, c_s, NP + 4, r, s.bt, Q + 4, c, NP);
+// Per warp: the chunk's output rows for its head-dim rows, and (unless
+// `last`) the state update.  `part` holds the warps' partial scores, `y`
+// the output at the chunk's first position (row stride P), `p0` the
+// block's first head-dim row; the warp owns rows p0 + 16 pb .. and state
+// columns 128 r ...  `first`: h = 0 (no C.h term).
+template <bool EXACT, typename T>
+__device__ __forceinline__ void out_update(float (&h)[kWarpNT][4], const Stage& st,
+                                           const float* part, const float* acum,
+                                           const float* dts, float* red, const Geom& gm, int pb,
+                                           int r, bool first, bool last, T* __restrict__ y,
+                                           int valid, int p0) {
+  constexpr int QT = Q / 8;
+  constexpr int MS = Q + 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // C.h's sum over the state columns is split over KS accumulators (n8
+  // tiles nt % KS): eight dependency chains at every chunk
+  constexpr int KS = QT >= 8 ? 1 : 8 / QT;
+  float yacc[QT][4], ysp[KS > 1 ? KS - 1 : 1][QT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = r[i];
-      float out[4];
+  for (int qt = 0; qt < QT; ++qt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = c + j;
-        out[j] = k <= q ? acc[i][j] * expf(s.acum[q] - s.acum[k]) * s.dts[k] : 0.f;
+    for (int e = 0; e < 4; ++e) {
+      yacc[qt][e] = 0.f;
+#pragma unroll
+      for (int v = 0; v + 1 < KS; ++v) ysp[v][qt][e] = 0.f;
+    }
+
+  // yT = hT C^T: hT's fragment of tile nt is the A operand of k step nt
+  // with lane t's k = (2t, 2t+1), which matches C read as float2
+  if (!first) {
+#pragma unroll
+    for (int nt = 0; nt < kWarpNT; ++nt) {
+      const float hv[4] = {h[nt][0], h[nt][2], h[nt][1], h[nt][3]};
+      const Frag<4> a = frag<false>(hv);
+      const float* cr = st.c + g * gm.bs + 8 * (kWarpNT * r + nt) + 2 * t;
+#pragma unroll
+      for (int qt = 0; qt < QT; ++qt) {
+        const float2 cv = ld2(cr + 8 * qt * gm.bs);
+        const float bw[2] = {cv.x, cv.y};
+        if (nt % KS == 0) {
+          mma3<false, EXACT>(yacc[qt], a, frag<EXACT>(bw));
+        } else {
+          mma3<false, EXACT>(ysp[nt % KS - 1][qt], a, frag<EXACT>(bw));
+        }
       }
-      st4(s.m + q * (Q + 4) + c, make_float4(out[0], out[1], out[2], out[3]));
+    }
+#pragma unroll
+    for (int qt = 0; qt < QT; ++qt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int v = 0; v + 1 < KS; ++v) yacc[qt][e] += ysp[v][qt][e];
+    if (gm.nr > 1) {  // the warps of one head-dim block sum their columns' parts
+      float* mine = red + (pb * (gm.nr - 1) + (r > 0 ? r - 1 : 0)) * (kWarpP * Q);
+      if (r > 0) {
+#pragma unroll
+        for (int qt = 0; qt < QT; ++qt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mine[(qt * 4 + e) * 32 + lane] = yacc[qt][e];
+      }
+      __syncthreads();
+      if (r == 0) {
+        for (int o = 0; o < gm.nr - 1; ++o) {
+#pragma unroll
+          for (int qt = 0; qt < QT; ++qt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              yacc[qt][e] += mine[o * (kWarpP * Q) + (qt * 4 + e) * 32 + lane];
+        }
+      }
+    }
+#pragma unroll
+    for (int qt = 0; qt < QT; ++qt) {
+      const float e0 = expf(acum[8 * qt + 2 * t]), e1 = expf(acum[8 * qt + 2 * t + 1]);
+      yacc[qt][0] *= e0;
+      yacc[qt][1] *= e1;
+      yacc[qt][2] *= e0;
+      yacc[qt][3] *= e1;
     }
   }
-}
+  const float a_last = acum[Q - 1];
+  if (!last) {
+    const float e_last = expf(a_last);
+#pragma unroll
+    for (int nt = 0; nt < kWarpNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[nt][e] *= e_last;
+  }
 
-// y = exp(acum_q) (C_q . h) + M x for the chunk's first `valid` rows and
-// first P columns, written to `y` (row stride P) in T, 4 at a time where
-// `vec` (P % 4 == 0).  `has_state` is false on the first chunk (h = 0).
-template <int Q, typename T>
-__device__ __forceinline__ void chunk_out(const Smem& s, const float* x_s,
-                                          const float* c_s, const Dims& dm,
-                                          bool has_state, T* __restrict__ y, int valid,
-                                          bool vec) {
-  for (int t = threadIdx.x; t < (Q / 4) * (dm.PP / 4); t += kThreads) {
-    int r[4];
-    const int c = tile_rows(t, Q, dm.PP, r);
-    float acc[4][4];
-    zero(acc);
-    if (has_state) {
-      tile_mma(acc, c_s, dm.NP + 4, r, s.h, dm.PP, c, dm.NP);
+  // xT M^T over key tiles kt <= query tile qt, and (unless the last
+  // chunk) hT += (w x)T B; both take xT's fragment of k step kt (positions
+  // 8kt + t, 8kt + t + 4).  Warps r > 0 compute xT M^T too (no branch) and
+  // drop it.
+  const float* xc = st.x + kWarpP * pb + g;
+  auto xfrag = [&](int k, float (&xv)[4]) {
+    xv[0] = xc[k * gm.xs];
+    xv[1] = xc[k * gm.xs + 8];
+    xv[2] = xc[(k + 4) * gm.xs];
+    xv[3] = xc[(k + 4) * gm.xs + 8];
+  };
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int kt = 0; kt < QT; ++kt) {
+    float xv[4];
+    xfrag(8 * kt + t, xv);
+    const Frag<4> a = frag<EXACT>(xv);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] *= s.eq[r[i]];
+    for (int qt = kt; qt < QT; ++qt) {
+      // M[q][k] = [k <= q] S0[q][k] exp(acum_q - acum_k) dt_k, k = 8kt + t, +4
+      const int q = 8 * qt + g, k = 8 * kt + t;
+      const float* pr = part + q * MS + k;
+      float s0 = 0.f, s1 = 0.f;
+      for (int w = 0; w < gm.warps; ++w) {
+        s0 += pr[w * Q * MS];
+        s1 += pr[w * Q * MS + 4];
+      }
+      const float bw[2] = {k <= q ? s0 * expf(acum[q] - acum[k]) * dts[k] : 0.f,
+                           k + 4 <= q ? s1 * expf(acum[q] - acum[k + 4]) * dts[k + 4] : 0.f};
+      mma3<EXACT, false>(yacc[qt], a, frag<false>(bw));
     }
-    tile_mma(acc, s.m, Q + 4, r, x_s, dm.PP, c, Q);
+  }
+  if (!last) {
+#pragma unroll 1
+    for (int kt = 0; kt < QT; ++kt) {
+      const int k = 8 * kt + t;
+      float xv[4];
+      xfrag(k, xv);
+      const float w0 = expf(a_last - acum[k]) * dts[k];
+      const float w1 = expf(a_last - acum[k + 4]) * dts[k + 4];
+      const float xw[4] = {xv[0] * w0, xv[1] * w0, xv[2] * w1, xv[3] * w1};
+      const Frag<4> aw = frag<false>(xw);
+      const float* br = st.b + k * gm.bs + 8 * kWarpNT * r + g;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (r[i] >= valid) continue;
-      T* yr = y + static_cast<size_t>(r[i]) * dm.P;
-      if (vec) {
-        store4(yr + c, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c + j < dm.P) yr[c + j] = from_f32<T>(acc[i][j]);
+      for (int nt = 0; nt < kWarpNT; ++nt) {
+        const float bw[2] = {br[8 * nt], br[8 * nt + 4 * gm.bs]};
+        mma3<false, EXACT>(h[nt], aw, frag<EXACT>(bw));
       }
     }
   }
-}
 
-// x_k <- w_k x_k in place (the state update's weights).
-template <int Q>
-__device__ __forceinline__ void scale_x(const Smem& s, float* x_s, int PP) {
-  for (int idx = threadIdx.x; idx < Q * PP; idx += kThreads) x_s[idx] *= s.w[idx / PP];
-}
-
-// h <- exp(acum_last) h + bt x', with x' the weighted x of `scale_x`.
-template <int Q>
-__device__ __forceinline__ void state_update(const Smem& s, const float* x_s,
-                                             const Dims& dm) {
-  const float e_last = s.eq[Q - 1];
-  for (int t = threadIdx.x; t < (dm.NP / 4) * (dm.PP / 4); t += kThreads) {
-    int r[4];
-    const int c = tile_rows(t, dm.NP, dm.PP, r);
-    float acc[4][4];
+  if (r != 0) return;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 hv = ld4(s.h + r[i] * dm.PP + c);
-      acc[i][0] = e_last * hv.x;
-      acc[i][1] = e_last * hv.y;
-      acc[i][2] = e_last * hv.z;
-      acc[i][3] = e_last * hv.w;
+  for (int qt = 0; qt < QT; ++qt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + kWarpP * pb + g + 8 * (e / 2);
+      const int q = 8 * qt + 2 * t + e % 2;
+      if (p < gm.P && q < valid) y[static_cast<size_t>(q) * gm.P + p] = from_f32<T>(yacc[qt][e]);
     }
-    tile_mma(acc, s.bt, Q + 4, r, x_s, dm.PP, c, Q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      st4(s.h + r[i] * dm.PP + c, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-  }
 }
 
-__device__ __forceinline__ void zero_state(const Smem& s, const Dims& dm) {
-  for (int idx = threadIdx.x; idx < dm.NP * dm.PP; idx += kThreads) s.h[idx] = 0.f;
+// The warp's place in the block: head-dim block pb, column range r.
+struct Role {
+  int pb, r;
+};
+__device__ __forceinline__ Role role(const Geom& gm) {
+  const int warp = threadIdx.x / 32;
+  return Role{warp / gm.nr, warp % gm.nr};
 }
 
-// The steps of one chunk after its x (x_s), C (c_s) and bt, acum, dts,
-// eq, w are in shared memory and the block has synced: scores, output
-// (`vec` as chunk_out's), and (unless it is the last chunk) the state
-// update.
-template <int Q, typename T>
-__device__ __forceinline__ void chunk_step(const Smem& s, float* x_s, const float* c_s,
-                                           const Dims& dm, bool first, bool last,
-                                           T* __restrict__ y, int valid, bool vec) {
-  scores<Q>(s, c_s, dm.NP);
+// The steps of one chunk after its x, B and C are in shared memory (`st`)
+// and the block has synced: the cumsum (from the lane's dt `d`), the
+// scores, a block barrier, then output and state update.  The caller
+// syncs before the stage or the scores are written again.
+template <bool EXACT, typename T>
+__device__ __forceinline__ void chunk_step(float (&h)[kWarpNT][4], const Stage& st,
+                                           const Fixed& fx, const Geom& gm, const Role& ro,
+                                           float d, float a, bool first, bool last,
+                                           T* __restrict__ y, int valid, int p0) {
+  scan_chunk(fx.scan, d, a);
+  scores<EXACT>(st, fx, gm);
   __syncthreads();
-  chunk_out<Q, T>(s, x_s, c_s, dm, !first, y, valid, vec);
-  if (!last) {  // the last chunk's state is not needed
-    __syncthreads();
-    scale_x<Q>(s, x_s, dm.PP);
-    __syncthreads();
-    state_update<Q>(s, x_s, dm);
-  }
+  out_update<EXACT, T>(h, st, fx.part, fx.scan, fx.scan + Q, fx.red, gm, ro.pb, ro.r, first,
+                       last, y, valid, p0);
 }
+
+// Registers: two blocks of up to 8 warps an SM (128 a thread).
+constexpr int kMinBlocks = 2;
 
 // Shapes the kernels take (the block's shared memory is checked apart).
 __host__ inline bool shape_ok(int BT, int H, int S, int P, int N) {

@@ -85,15 +85,15 @@ def ssd_scan(x, dt, A, B, C, *, pipelined: bool | None = None):
     """SSD chunked scan: x (BT,H,S,P), dt (BT,H,S), A (H,), B/C (BT,S,N)
     → y (BT,H,S,P) of x's dtype, computed in fp32.
 
-    K8 (``pipelined``) when the sweep has two of K7's 64-position chunks
-    or more and a K8 ring fits the state (``ssd_plan``), else K7;
+    K8 (``pipelined``) when the sweep has two 64-position chunks
+    (``SSD_CHUNK``) or more and a K8 ring fits (``ssd_plan``), else K7;
     ``pipelined`` forces the choice where the sweep and the ring allow it.
     x, dt, B and C share one dtype; A is taken in fp32, as the reference
     widens it.
     """
     x, dt, A, B, C = (t.contiguous() for t in (x, dt, A.float(), B, C))
     S, P, N = x.shape[2], x.shape[3], B.shape[-1]
-    plan = ssd_plan(P, N, S, x.element_size())
-    if plan is not None and use_pipeline(-(-S // SSD_CHUNK), pipelined):
-        return ssd_scan_pipelined(x, dt, A, B, C, depth=plan[1])
+    depth = ssd_plan(P, N, S, x.element_size())
+    if depth is not None and use_pipeline(-(-S // SSD_CHUNK), pipelined):
+        return ssd_scan_pipelined(x, dt, A, B, C, depth=depth)
     return _ssd_scan(x, dt, A, B, C)

@@ -25,9 +25,10 @@ from repro_torch.kernels.flash_attention import (BLOCK_Q, DTYPE_CODES,
                                                  block_k, check_flash_args,
                                                  live_count_ptr,
                                                  padded_head_dim)
+from repro_torch.kernels.ssd_scan import CHUNK
 from repro_torch.kernels.ssd_scan import DTYPE_CODES as SSD_DTYPE_CODES
-from repro_torch.kernels.ssd_scan import (check_ssd_args, chunk_floats,
-                                          fixed_floats)
+from repro_torch.kernels.ssd_scan import (block_fits, check_ssd_args,
+                                          fixed_floats, stage_floats)
 
 #: Ring depths the kernel is instantiated for.
 DEPTHS = (2, 3, 4)
@@ -201,59 +202,49 @@ def int8_matmul_pipelined(x, wq, scale, *, depth: int = 2):
 # K8: the SSD scan with x/B/C chunks streamed
 # ---------------------------------------------------------------------------
 
-#: Positions per chunk of K8 (csrc/ssd_scan_pipelined.cu): smaller than
-#: K7's 64 so that a depth-4 ring fits at N=128, P=64; 16 where not even a
-#: depth-2 ring of 32-position chunks fits (fp32 at N=256, P=64).
-SSD_PIPE_CHUNK = 32
-SSD_PIPE_CHUNKS = (SSD_PIPE_CHUNK, 16)
-
 SSD_SCAN_PIPELINED = _build.CudaKernel(
     "ssd_scan_pipelined", lib="ssd_scan_pipelined",
     symbol="ssd_scan_pipelined_launch",
-    argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     replaces="src/repro/kernels/pipeline.py:334")
 
 
-def ssd_ring_bytes(P: int, N: int, depth: int, itemsize: int = 4,
-                   chunk: int = SSD_PIPE_CHUNK) -> int:
-    """Shared memory of one K8 block: the fixed part of K7's layout, for
-    bf16/fp16 an fp32 x and C of the chunk, and ``depth`` stages of raw x,
-    B and C (x rows of P, B and C rows of N plus one 16-byte vector, each
-    rounded up to whole vectors)."""
-    Q, V = chunk, 16 // itemsize
-    xs = -(-P // V) * V
-    bs = -(-N // V) * V + V
-    work = 0 if itemsize == 4 else chunk_floats(Q, P, N)
-    return (4 * (fixed_floats(Q, P, N) + work)
-            + depth * Q * (xs + 2 * bs) * itemsize)
+#: Shared bytes before K8's ring: one mbarrier a stage, padded.
+SSD_BARRIER_BYTES = 64
+
+
+def ssd_ring_bytes(P: int, N: int, depth: int, itemsize: int = 4) -> int:
+    """Shared memory of one K8 block: the stages' mbarriers, ``depth``
+    stages of raw x, B and C with K7's strides (csrc/ssd_tile.cuh), for
+    bf16/fp16 one fp32 stage they are widened into, and K7's fixed part."""
+    stage = stage_floats(P, N)
+    work = 0 if itemsize == 4 else 4 * stage
+    return (SSD_BARRIER_BYTES + depth * stage * itemsize + work
+            + 4 * fixed_floats(P, N))
 
 
 def ssd_plan(P: int, N: int, S: int, itemsize: int = 4,
-             cap: int = 4) -> tuple[int, int] | None:
-    """K8's (chunk, depth): the largest chunk of ``SSD_PIPE_CHUNKS`` with a
-    ring of depth 2 or more that fits, at its deepest ring no deeper than
-    the sweep (``deepest_ring``); None if no ring fits."""
-    for Q in SSD_PIPE_CHUNKS:
-        depth = deepest_ring(lambda d: ssd_ring_bytes(P, N, d, itemsize, Q),
-                             -(-S // Q), cap)
-        if depth is not None:
-            return Q, depth
-    return None
+             cap: int = 4) -> int | None:
+    """K8's ring depth for a sweep of S positions: of the depths from 2 to
+    ``cap`` (and no deeper than the sweep's chunks) whose ring fits, the
+    one whose block leaves room for the most blocks on an SM by shared
+    memory (``blocks_fit``), the deepest of equals; None if no ring
+    fits."""
+    fits = [d for d in range(2, min(cap, max(-(-S // CHUNK), 2)) + 1)
+            if block_fits(P, N, ssd_ring_bytes(P, N, d, itemsize))]
+    if not fits:
+        return None
+    return max(fits, key=lambda d: (blocks_fit(
+        ssd_ring_bytes(P, N, d, itemsize)), d))
 
 
 def ssd_depth(P: int, N: int, S: int, cap: int = 4, itemsize: int = 4) -> int:
-    """Deepest K8 ring that fits for a sweep of S positions."""
-    plan = ssd_plan(P, N, S, itemsize, cap)
-    if plan is None:
+    """K8's ring depth for a sweep of S positions (``ssd_plan``); raises
+    if no ring fits."""
+    depth = ssd_plan(P, N, S, itemsize, cap)
+    if depth is None:
         raise ValueError(f"no SSD ring fits P={P}, N={N}")
-    return plan[1]
-
-
-def ssd_pipe_chunk(P: int, N: int, depth: int, itemsize: int = 4) -> int | None:
-    """K8's chunk at a given ring depth: the largest whose ring fits."""
-    return next((Q for Q in SSD_PIPE_CHUNKS
-                 if ssd_ring_bytes(P, N, depth, itemsize, Q) <= MAX_SMEM),
-                None)
+    return depth
 
 
 def ssd_scan_pipelined(x, dt, A, B, C, *, depth: int = 2):
@@ -268,13 +259,12 @@ def ssd_scan_pipelined(x, dt, A, B, C, *, depth: int = 2):
     N = B.shape[-1]
     if depth not in DEPTHS:
         raise ValueError(f"depth {depth} not in {DEPTHS}")
-    chunk = ssd_pipe_chunk(P, N, depth, x.element_size())
-    if chunk is None:
+    if not block_fits(P, N, ssd_ring_bytes(P, N, depth, x.element_size())):
         raise ValueError(f"a depth-{depth} SSD ring at P={P}, N={N} does not "
                          f"fit in {MAX_SMEM} bytes of shared memory")
     y = torch.empty_like(x)
     SSD_SCAN_PIPELINED.launch(
         _build.ptr(x), _build.ptr(dt), _build.ptr(A), _build.ptr(B),
-        _build.ptr(C), _build.ptr(y), BT, H, S, P, N, chunk, depth,
+        _build.ptr(C), _build.ptr(y), BT, H, S, P, N, depth,
         SSD_DTYPE_CODES[x.dtype], x.device.index, _build.stream_of(x))
     return y

@@ -29,6 +29,7 @@ from repro_torch.kernels.int8_matmul import int8_matmul
 from repro_torch.kernels import pipeline
 from repro_torch.kernels.pipeline import flash_attention_pipelined
 from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import block_fits as ssd_block_fits
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models.registry import get_model
 from repro_torch.pointcloud import kernels as pck
@@ -425,12 +426,22 @@ def test_pointcloud_stage_cuda_backend_matches_torch_backend(gen, pipelined):
 # SSD scan kernels K7, K8
 # ---------------------------------------------------------------------------
 
-SSD = [  # BT, H, S, P, N: small, ragged, S=1, around the chunks, the model's
+SSD = [  # BT, H, S, P, N: small, ragged, S=1, around the 16-position chunk
+    # (Q-1, Q, Q+1, 2Q+1) and around 32 and K7's first 64, BT*H well below
+    # the SM count, the model's; the state split over two warps (N = 256)
+    # and the head dim over two blocks (P = 128, N = 256); P = 6, N = 20
     (1, 1, 128, 8, 16), (2, 3, 100, 16, 32), (2, 2, 1, 8, 16),
     (3, 2, 40, 16, 8), (2, 8, 31, 64, 128), (2, 8, 33, 64, 128),
     (2, 8, 63, 64, 128), (2, 8, 65, 64, 128), (1, 4, 300, 64, 128),
-    (4, 80, 512, 64, 128)]
+    (4, 80, 512, 64, 128), (2, 8, 32, 64, 128), (2, 8, 64, 64, 128),
+    (2, 8, 129, 64, 128), (2, 5, 200, 64, 128), (2, 8, 15, 64, 128),
+    (2, 8, 16, 64, 128), (2, 8, 17, 64, 128), (1, 3, 97, 64, 128),
+    (1, 3, 70, 64, 256), (1, 1, 70, 128, 256), (1, 1, 33, 6, 20)]
 SSD_TOL = dict(atol=5e-4, rtol=1e-3)
+
+
+def _ring_fits(P, N, depth, itemsize=4):
+    return ssd_block_fits(P, N, pipeline.ssd_ring_bytes(P, N, depth, itemsize))
 
 
 def _ssd_inputs(gen, BT, H, S, P, N, strong=False):
@@ -452,7 +463,7 @@ def test_ssd_kernels(gen, BT, H, S, P, N, strong):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, **SSD_TOL)
     for depth in pipeline.DEPTHS:
-        if not pipeline.ssd_pipe_chunk(P, N, depth):
+        if not _ring_fits(P, N, depth):
             continue
         got = _launched("ssd_scan_pipelined", lambda: (
             pipeline.ssd_scan_pipelined(*args, depth=depth)))
@@ -461,8 +472,8 @@ def test_ssd_kernels(gen, BT, H, S, P, N, strong):
 
 
 # BT, H, S, P, N, dtype: bf16/fp16 I/O at the model's widths; P or N not a
-# multiple of 4 (element loads, padded in the block); N = 256 (K7 at a
-# 32-position chunk, K8 at 16 in fp32)
+# multiple of 4 (element loads, padded in the block); N = 256 (two warps
+# across the state)
 SSD_WIDE = [
     (2, 4, 300, 64, 128, torch.bfloat16), (2, 4, 300, 64, 128, torch.float16),
     (2, 3, 100, 6, 128, torch.float32), (2, 3, 100, 6, 128, torch.bfloat16),
@@ -480,7 +491,7 @@ def test_ssd_kernels_in_every_dtype_and_state(gen, BT, H, S, P, N, dtype):
     assert got.dtype == dtype
     torch.testing.assert_close(got, want, **tol)
     for depth in pipeline.DEPTHS:
-        if not pipeline.ssd_pipe_chunk(P, N, depth, args[0].element_size()):
+        if not _ring_fits(P, N, depth, args[0].element_size()):
             continue
         got = _launched("ssd_scan_pipelined", lambda: (
             pipeline.ssd_scan_pipelined(*args, depth=depth)))
@@ -501,8 +512,8 @@ def test_ssd_wrappers_raise_on_what_the_kernels_do_not_take(gen):
             fn(x, dt, A, B[:1].contiguous(), C[:1].contiguous())
         with pytest.raises(ValueError):        # a state too large to hold
             fn(*_ssd_inputs(gen, 1, 1, 8, 256, 256))
-    with pytest.raises(ValueError):            # no ring fits the state
-        pipeline.ssd_scan_pipelined(*_ssd_inputs(gen, 1, 1, 64, 128, 256),
+    with pytest.raises(ValueError):            # no ring fits the B/C rows
+        pipeline.ssd_scan_pipelined(*_ssd_inputs(gen, 1, 1, 64, 4, 780),
                                     depth=2)
 
 

@@ -356,24 +356,28 @@ def test_ops_route_k7_for_one_chunk_and_k8_for_more(monkeypatch, S,
 
 
 def test_ssd_ring_depth_rule():
-    """K8's ring: the deepest of 2-4 that fits 227 KB, no deeper than the
-    sweep of 32-position chunks, or of 16-position chunks where no ring of
-    32 fits (fp32 at N = 256); K7 takes a 32-position chunk where its
-    64-position block does not fit.  Only a state too large for one block
-    is refused."""
-    assert pipeline.ssd_depth(64, 128, 512) == 4
+    """K8's ring of 16-position chunks: of the depths 2-4 that fit 227 KB
+    (no deeper than the sweep), the one that leaves room for the most
+    blocks an SM, the deepest of equals.  With the state in registers only
+    B and C rows of N bound the ring (fp32 at N = 780 fits none) and K7's
+    block; the lowering's envelope still refuses P = N = 256."""
+    assert pipeline.ssd_depth(64, 128, 512) == 2
     assert pipeline.ssd_ring_bytes(64, 128, 4) <= pipeline.MAX_SMEM
-    assert pipeline.ssd_depth(64, 128, 65) == 3
+    assert pipeline.blocks_fit(pipeline.ssd_ring_bytes(64, 128, 2)) == 4
+    assert pipeline.blocks_fit(pipeline.ssd_ring_bytes(64, 128, 3)) == 3
+    assert pipeline.ssd_depth(64, 128, 65) == 2
     assert pipeline.ssd_depth(8, 16, 20) == 2
     assert pipeline.ssd_depth(128, 128, 512) == 2
-    assert pipeline.ssd_plan(64, 256, 512) == (16, 3)
-    assert pipeline.ssd_plan(64, 256, 512, itemsize=2) == (32, 2)
-    assert pipeline.ssd_plan(128, 256, 512) is None
+    assert pipeline.ssd_plan(64, 256, 512) == 2
+    assert pipeline.ssd_plan(64, 256, 512, itemsize=2) == 3
+    assert pipeline.ssd_plan(128, 256, 512) == 2
+    assert pipeline.ssd_plan(4, 780, 512) is None
     with pytest.raises(ValueError):
-        pipeline.ssd_depth(128, 256, 512)
-    assert [k7.ssd_chunk(P, N) for P, N in ((64, 128), (6, 128), (64, 256),
-                                             (256, 256))] == [64, 64, 32, None]
+        pipeline.ssd_depth(4, 780, 512)
+    assert all(k7.block_fits(P, N, k7.smem_bytes(P, N))
+               for P, N in ((64, 128), (6, 128), (64, 256), (4, 780)))
     assert k7.ssd_tileable(6, 128) and k7.ssd_tileable(64, 256)
+    assert k7.ssd_tileable(4, 780)
     assert not k7.ssd_tileable(256, 256)
 
 
