@@ -72,7 +72,17 @@ Phases (any failure exits non-zero; nothing is caught):
    512 centers, r=0.2, 32 samples) at batch 16, C=64, points uniform in
    the unit ball; (c) run (a) with ``pipelined=False``.  Across the three,
    every one of K9-K13 must have launched.  The kernel rows include fp16
-   at (a)'s shape (distances in fp32, exact as bf16's).
+   at (a)'s shape (distances in fp32, exact as bf16's).  Each K9 row
+   carries its µs a step (ms·1e3 / (S - 1)), its plan (``fps_plan``:
+   cluster, threads, points a thread), the SMs it runs on and its
+   registers and spills; the SMs are those the kernel's blocks wrote
+   (``sm_ids``) in the timed calls.
+5b. fps sweep (before the stage runs): K9 at every plan it is built for
+   at (a), (b), a large cloud (1, 65536, 128) alone and at B = 8 and 16, one
+   block's largest cloud and twice it, the largest cloud in registers
+   (1, 131072, 64) and a cloud on the scratch path, each plan held
+   exactly to ``fps_ref``; the rule's pick beside the fastest, timed in
+   turns for their spread.
 6. ssm kernels: K1 at the SSM path's widths (d 2560 and 5120, 2048 rows of
    a 4 x 512 prefill and 4 of a decode step, fp32 and bf16; tolerances of
    phase 3), then K7 ssd_scan and K8 ssd_scan_pipelined (every ring depth
@@ -710,7 +720,7 @@ def pc_inputs(shape: str, dtype: str = "float32"):
 
 
 def _pc_row(kernel, case, got, want, ms, plain_ms, nbytes, ops, dtype,
-            library_ms=None, cold=None):
+            library_ms=None, cold=None, design=None):
     import torch
     if got.shape != want.shape or not torch.equal(got, want):
         bad = int((got != want).sum()) if got.shape == want.shape else -1
@@ -728,9 +738,41 @@ def _pc_row(kernel, case, got, want, ms, plain_ms, nbytes, ops, dtype,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bound_formula": PC_FORMULA[kernel.replace("_pipelined", "")],
-           "dtype": dtype}
+           "dtype": dtype, **(design or {})}
     print(json.dumps(row))
     return row
+
+
+def fps_timed(xyz, S: int, iters: int, plan=None) -> tuple[float, int]:
+    """Warm device ms of K9 on ``xyz`` (``plan`` forced if given) and the
+    SMs its blocks ran on in the timed calls, counted by the kernel
+    (``sm_ids``: each block writes its ``%smid``)."""
+    import torch
+    from repro_torch.kernels.pipeline import fps_plan
+    from repro_torch.pointcloud import kernels as pck
+    B, N, _ = xyz.shape
+    cluster = (plan or fps_plan(B, N))[0]
+    ids = torch.full((B * cluster,), -1, dtype=torch.int32, device="cuda")
+    ms = device_ms(lambda: pck.fps(xyz, S, sm_ids=ids, _plan=plan), iters)
+    if bool((ids < 0).any()):
+        raise AssertionError(f"fps: a block wrote no SM id ({ids.tolist()})")
+    return ms, int(ids.unique().numel())
+
+
+def fps_design(B: int, N: int, dtype: str, sms: int, plan=None) -> dict:
+    """The design fields of a K9 row: its plan (``fps_plan`` unless given),
+    the SMs its blocks ran on (``fps_timed``) and the instantiation's
+    registers and spills (its build log)."""
+    from repro_torch.kernels.pipeline import fps_plan
+    cluster, threads, ppt = plan or fps_plan(B, N)
+    tag = (f"fps_kernelI{_MANGLED_T[dtype]}Li{threads}ELi{ppt}"
+           f"ELb{int(cluster > 1)}EE")
+    hits = [v for k, v in ptxas_report("fps").items() if tag in k]
+    if len(hits) != 1:
+        raise AssertionError(f"{tag}: {len(hits)} kernels in the build log")
+    return {"cluster": cluster, "threads": threads, "ppt": ppt,
+            "sms_used": sms, "registers": hits[0][0],
+            "spill_store_bytes": hits[0][1]}
 
 
 def pointcloud_kernel_phase() -> list[dict]:
@@ -764,12 +806,14 @@ def pointcloud_kernel_phase() -> list[dict]:
         dtype = str(xyz.dtype).replace("torch.", "")
         if centers is None:      # the path's own centers: the FPS samples
             sel = pcref.fps_ref(xyz, M)
+            ms, sms = fps_timed(xyz, M, 10)
             rows.append(_pc_row(
-                "fps", case, pck.fps(xyz, M), sel,
-                device_ms(lambda: pck.fps(xyz, M), 10),
+                "fps", case, pck.fps(xyz, M), sel, ms,
                 device_ms(lambda: pcref.fps_ref(xyz, M), 2),
                 B * N * 3 * it + B * M * 4, 10 * B * N * (M - 1), dtype,
-                cold=(lambda p: pck.fps(p, M), (xyz,), 10)))
+                cold=(lambda p: pck.fps(p, M), (xyz,), 10),
+                design={"us_per_step": ms * 1e3 / (M - 1),
+                        **fps_design(B, N, dtype, sms)}))
             centers = torch.gather(xyz, 1, sel.long()[..., None].expand(-1, -1, 3))
         if "empty" in case:
             n_hit = (pcref.sqdist(centers[:, :, None], xyz[:, None])
@@ -822,6 +866,64 @@ def pointcloud_kernel_phase() -> list[dict]:
                 want, device_ms(run, 50), plain, nbytes, B * M * k * C, dtype,
                 lib_ms, cold=(call, (f, idx))))
     return rows
+
+
+#: K9's sweep: B, N, S.  (a) and (b) as the path runs them; a large cloud
+#: on a cluster, alone, 8 and 16 of them (the rule halves the cluster where
+#: the B clusters would not run at once: to 8 blocks in registers at B = 8,
+#: to 4 on the scratch path at B = 16); one block's largest cloud and
+#: twice it, either side of the rule's switch to clusters; the largest
+#: cloud in registers (16 blocks of 1024 threads at 8 points); a cloud on
+#: the scratch path.
+FPS_SWEEP = {"a": (2, 4096, 512), "b": (16, 1024, 512),
+             "large": (1, 65536, 128), "large-x8": (8, 65536, 128),
+             "large-x16": (16, 65536, 128),
+             "block": (1, 8192, 512), "two-blocks": (1, 16384, 256),
+             "capacity": (1, 131072, 64), "scratch": (1, 200000, 32)}
+
+
+def fps_sweep_phase() -> None:
+    """K9 at every plan csrc/fps.cu is built for, at the shapes of
+    FPS_SWEEP: each plan's indices held exactly to ``fps_ref``, its warm
+    time, µs a step, SMs used, registers and spills, and the plan rule's
+    pick beside the fastest, both timed again in turns (pick, fastest,
+    fastest, pick, ...) for their spread."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import pipeline as pl
+    from repro_torch.pointcloud import kernels as pck
+    from repro_torch.pointcloud import ref as pcref
+    for name, (B, N, S) in FPS_SWEEP.items():
+        if name in PC_SHAPES:
+            xyz = pc_inputs(name)[0]
+        else:
+            xyz = torch.from_numpy(np.random.default_rng(0).normal(
+                size=(B, N, 3)).astype(np.float32)).cuda()
+        want = pcref.fps_ref(xyz, S)
+        times = {}
+        for c in pl.FPS_CLUSTERS:
+            for t in pl.FPS_THREADS:
+                plan = (c, t, pl.fps_ppt(-(-N // c), t))
+                if not torch.equal(pck.fps(xyz, S, _plan=plan), want):
+                    raise AssertionError(f"fps sweep {name} plan {plan}: "
+                                         f"differs from fps_ref")
+                times[plan], sms = fps_timed(xyz, S, 10, plan)
+                print(json.dumps({"phase": "fps_sweep", "shape": name,
+                                  "B": B, "N": N, "S": S, "plan": plan,
+                                  "us": times[plan] * 1e3,
+                                  "us_per_step": times[plan] * 1e3 / (S - 1),
+                                  **fps_design(B, N, "float32", sms, plan)}))
+        pick, best = pl.fps_plan(B, N), min(times, key=times.get)
+        turns = {pick: [], best: []}
+        for plan in (pick, best, best, pick) * 3:
+            turns[plan].append(device_ms(
+                lambda plan=plan: pck.fps(xyz, S, _plan=plan), 10) * 1e3)
+        spread = {str(p): [min(v), float(np.median(v)), max(v)]
+                  for p, v in turns.items()}
+        print(json.dumps({"phase": "fps_sweep", "shape": name, "pick": pick,
+                          "fastest": best, "us_min_median_max": spread,
+                          "pick_within_spread": min(turns[pick])
+                          <= max(turns[best])}))
 
 
 def pointcloud_path_phase() -> dict:
@@ -1601,6 +1703,7 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                     "library_note": row.get("library_note"),
                     "case": row["case"]})
         for key in ("blocks_per_sm", "live_tiles", "chunk", "heads_per_block",
+                    "cluster", "threads", "ppt", "us_per_step", "sms_used",
                     "registers", "spill_store_bytes"):
             if key in row:
                 out[-1][key] = row[key]
@@ -1638,6 +1741,7 @@ def main() -> int:
     launches = timed("serve", serve_phase)
     timed("sync_check", sync_check_phase)
     rows += timed("pointcloud_kernels", pointcloud_kernel_phase)
+    timed("fps_sweep", fps_sweep_phase)
     pc_launches = timed("pointcloud", pointcloud_path_phase)
     rows += timed("ssm_kernels", ssm_kernel_phase)
     ssm_launches = timed("ssm", ssm_serve_phase)

@@ -268,3 +268,72 @@ def ssd_scan_pipelined(x, dt, A, B, C, *, depth: int = 2):
         _build.ptr(C), _build.ptr(y), BT, H, S, P, N, depth,
         SSD_DTYPE_CODES[x.dtype], x.device.index, _build.stream_of(x))
     return y
+
+
+# ---------------------------------------------------------------------------
+# K9's plan: farthest-point sampling on a cluster of blocks
+# ---------------------------------------------------------------------------
+
+#: What csrc/fps.cu is instantiated for: blocks a cloud (a thread-block
+#: cluster), threads a block, points a thread in registers (0: the scratch
+#: path, distances in global memory).
+FPS_CLUSTERS = (1, 2, 4, 8, 16)
+FPS_THREADS = (256, 512, 1024)
+FPS_PPTS = (1, 2, 4, 8)
+#: Clusters of each size an H100 SXM runs at once, one block an SM
+#: (``cudaOccupancyMaxActiveClusters``, tools/fps_barrier_probe.py): a
+#: cluster's blocks share one GPC, so 8- and 16-block clusters leave SMs
+#: idle and B clouds beyond this count queue behind the first wave.
+FPS_CLUSTERS_AT_ONCE = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+#: Most points of a cloud whose distances K9 keeps in registers.
+FPS_CAPACITY = max(FPS_CLUSTERS) * max(FPS_THREADS) * max(FPS_PPTS)
+#: Most points one block holds in registers.
+FPS_BLOCK_POINTS = max(FPS_THREADS) * max(FPS_PPTS)
+#: Most points a block of a cluster is given (256 threads at 8 points): a
+#: cluster barrier costs 0.4-0.8 µs against 0.02-0.05 for a block's, and
+#: least at 256 threads (the barrier probe, PERF.md), so clusters pay only
+#: where the update they split is large, and then fastest on 256-thread
+#: blocks (the sweep, PERF.md).
+FPS_CLUSTER_SPAN = 2048
+
+
+def fps_ppt(span: int, threads: int) -> int:
+    """Least points a thread (of ``FPS_PPTS``) for ``threads`` threads to
+    hold ``span`` points in registers, or 0 where none does."""
+    return next((p for p in FPS_PPTS if threads * p >= span), 0)
+
+
+def fps_plan(B: int, N: int) -> tuple[int, int, int]:
+    """K9's plan for B clouds of N points: (cluster, threads, ppt).
+
+    One block a cloud while one block holds it in registers (up to 8192
+    points): one block barrier a step beats a cluster barrier at every
+    size the sweep reached.  Above that, the smallest cluster that gives
+    each block at most ``FPS_CLUSTER_SPAN`` points (at most 16 blocks),
+    halved while the B clusters would not all run at once
+    (``FPS_CLUSTERS_AT_ONCE``): a second wave costs a whole first one.
+    Registers where the cluster holds the cloud at 8 points a thread, at
+    the fewest threads that do (fewer warps, a shorter reduction); else
+    the scratch path (ppt 0; clouds above ``FPS_CAPACITY`` points and
+    clusters halved below holding theirs), 512 threads a block on 8 or 16
+    blocks, 1024 on fewer."""
+    if N <= FPS_BLOCK_POINTS:
+        cluster = 1
+    else:
+        cluster = next((c for c in FPS_CLUSTERS
+                        if c * FPS_CLUSTER_SPAN >= N), max(FPS_CLUSTERS))
+        while cluster > 1 and B > FPS_CLUSTERS_AT_ONCE[cluster]:
+            cluster //= 2
+    span = -(-N // cluster)
+    if span > FPS_BLOCK_POINTS:
+        return cluster, 512 if cluster >= 8 else 1024, 0
+    threads = next(t for t in FPS_THREADS if t * max(FPS_PPTS) >= span)
+    return cluster, threads, fps_ppt(span, threads)
+
+
+def fps_plan_legal(plan, N: int) -> bool:
+    """True iff csrc/fps.cu takes ``plan`` for clouds of N points."""
+    cluster, threads, ppt = plan
+    return (cluster in FPS_CLUSTERS and threads in FPS_THREADS
+            and (ppt == 0 or (ppt in FPS_PPTS
+                              and cluster * threads * ppt >= N)))

@@ -2,7 +2,8 @@
 
 The port of ``repro/pointcloud/kernels.py``:
 
-* K9 ``fps`` (``csrc/fps.cu``): one block per cloud, sequential argmax;
+* K9 ``fps`` (``csrc/fps.cu``): one cloud per thread-block cluster, one
+  barrier an argmax step, the plan from ``kernels.pipeline.fps_plan``;
 * K10 ``ball_query`` (``csrc/ball_query.cu``) and K11
   ``ball_query_pipelined`` (``csrc/ball_query_pipelined.cu``, X tiles
   through a ``cp.async`` ring): one warp per center;
@@ -24,12 +25,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPE_CODES
-from repro_torch.kernels.pipeline import DEPTHS, MAX_SMEM
+from repro_torch.kernels.pipeline import (DEPTHS, FPS_CAPACITY, MAX_SMEM,
+                                          fps_plan, fps_plan_legal)
 from repro_torch.pointcloud import ref
 
-#: Largest cloud whose points K9 keeps in registers (csrc/fps.cu); above
-#: it the running distances live in a global scratch array.
-FPS_REGISTER_POINTS = 8 * 1024
+#: Largest cloud whose points K9 keeps in registers (csrc/fps.cu: 16 blocks
+#: of 1024 threads, 8 points a thread); above it the running distances live
+#: in a global scratch array.
+FPS_REGISTER_POINTS = FPS_CAPACITY
 #: Points per X tile of K10/K11 (csrc/ball_tile.cuh).
 BALL_TILE = 256
 #: K13's block: centers, neighbours per ring stage, most channels
@@ -43,7 +46,7 @@ _PC = "src/repro/pointcloud/kernels.py"
 
 FPS = _build.CudaKernel(
     "fps", lib="fps", symbol="fps_launch",
-    argtypes=[_P, _P, _P, _I, _I, _I, _I, _I, _P], replaces=f"{_PC}:61")
+    argtypes=[_P] * 4 + [_I] * 8 + [_P], replaces=f"{_PC}:61")
 BALL_QUERY = _build.CudaKernel(
     "ball_query", lib="ball_query", symbol="ball_query_launch",
     argtypes=[_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
@@ -93,9 +96,23 @@ def _check_depth(name: str, depth: int) -> None:
         raise ValueError(f"{name}: depth {depth} not in {DEPTHS}")
 
 
-def fps(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
-    """K9: xyz (B, N, 3) → sampled indices (B, n_samples) i32."""
+def fps_scratch_floats(B: int, N: int, plan) -> int:
+    """Floats of global scratch K9 needs under ``plan``: B·N running
+    distances on the scratch path (ppt 0), else none."""
+    return B * N if plan[2] == 0 else 0
+
+
+def fps(xyz: torch.Tensor, n_samples: int, *, sm_ids=None,
+        _plan=None) -> torch.Tensor:
+    """K9: xyz (B, N, 3) → sampled indices (B, n_samples) i32.
+
+    The plan is ``fps_plan(B, N)``; ``_plan`` forces another (cluster,
+    threads, ppt), for tests only.  Given ``sm_ids`` (int32 on xyz's CUDA
+    device, at least B·cluster of them), the kernel writes there the SM
+    each of its blocks ran on (cloud b's block rank r at b·cluster + r)."""
     if xyz.device.type == "cpu":
+        if sm_ids is not None:
+            raise ValueError("fps: sm_ids is written only by the kernel")
         return ref.fps_ref(xyz, n_samples)
     _check("fps", xyz)
     _check_points("fps", xyz)
@@ -105,10 +122,22 @@ def fps(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
     out = torch.empty((B, n_samples), dtype=torch.int32, device=xyz.device)
     if B == 0 or n_samples == 0:
         return out
-    scratch = (torch.empty((B, N), dtype=torch.float32, device=xyz.device)
-               if N > FPS_REGISTER_POINTS else out)
-    FPS.launch(_build.ptr(xyz), _build.ptr(out), _build.ptr(scratch), B, N,
-               n_samples, DTYPE_CODES[xyz.dtype], xyz.device.index,
+    plan = fps_plan(B, N) if _plan is None else tuple(_plan)
+    if not fps_plan_legal(plan, N):
+        raise ValueError(f"fps: no kernel for plan {plan} at N={N}")
+    if sm_ids is not None and (sm_ids.dtype != torch.int32
+                               or sm_ids.device != xyz.device
+                               or not sm_ids.is_contiguous()
+                               or sm_ids.numel() < B * plan[0]):
+        raise ValueError(f"fps: sm_ids must be {B * plan[0]} contiguous "
+                         f"int32 on xyz's device")
+    n = fps_scratch_floats(B, N, plan)
+    scratch = (torch.empty((n,), dtype=torch.float32, device=xyz.device)
+               if n else None)
+    FPS.launch(_build.ptr(xyz), _build.ptr(out),
+               None if scratch is None else _build.ptr(scratch),
+               None if sm_ids is None else _build.ptr(sm_ids), B, N,
+               n_samples, *plan, DTYPE_CODES[xyz.dtype], xyz.device.index,
                _build.stream_of(xyz))
     return out
 

@@ -274,11 +274,104 @@ def _launched(name, fn):
 @pytest.mark.parametrize("dtype", FLOATS)
 @pytest.mark.parametrize("B,N,S", [(2, 256, 64), (1, 1000, 1000), (2, 1025, 17),
                                    (2, 4096, 512), (1, 9000, 40),
-                                   (1, 1, 1)])
+                                   (1, 1, 1), (16, 1024, 512),
+                                   (1, 65536, 64), (1, 100000, 64),
+                                   (1, 131072, 16), (1, 140000, 40),
+                                   (8, 65536, 32), (16, 65536, 32)])
 def test_fps_kernel(gen, B, N, S, dtype, kind):
+    """K9 under its plan rule; (1, 100000, 64) and (1, 131072, 16) take the
+    largest register plan, 16 blocks of 1024 threads at 8 points,
+    (1, 140000, 40) is above the register capacity: the scratch path;
+    8 and 16 clouds of 65536 points halve the cluster to 8 (registers)
+    and 4 (scratch)."""
     xyz = _points(gen, B, N, dtype, kind)
     got = _launched("fps", lambda: pck.fps(xyz, S))
     assert torch.equal(got, pc_ref.fps_ref(xyz, S))
+
+
+FPS_FORCED = [  # B, N, S
+    (2, 4096, 512),      # shape (a)
+    (2, 1031, 1),        # S = 1; N not a multiple of cluster x threads
+    (3, 1000, 1000),     # S = N: the lattice's later steps tie at 0
+    (40, 1030, 64),      # B x cluster above 132 SMs from cluster 4 up
+]
+
+
+@pytest.mark.parametrize("kind", ["normal", "lattice"])
+@pytest.mark.parametrize("B,N,S", FPS_FORCED)
+@pytest.mark.parametrize("threads", pipeline.FPS_THREADS)
+@pytest.mark.parametrize("cluster", pipeline.FPS_CLUSTERS)
+def test_fps_kernel_at_every_plan(gen, cluster, threads, B, N, S, kind):
+    """Every cluster size the rule can pick, at every block width, with
+    the fewest points a thread that hold the block's span in registers
+    (or the scratch path where 8 do not), forced through ``_plan``."""
+    plan = (cluster, threads, pipeline.fps_ppt(-(-N // cluster), threads))
+    xyz = _points(gen, B, N, torch.float32, kind)
+    got = _launched("fps", lambda: pck.fps(xyz, S, _plan=plan))
+    assert torch.equal(got, pc_ref.fps_ref(xyz, S))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("cluster", pipeline.FPS_CLUSTERS)
+def test_fps_kernel_ties_in_16_bit_at_every_cluster_size(gen, cluster, dtype):
+    B, N, S = 2, 4096, 512
+    plan = (cluster, 512, pipeline.fps_ppt(-(-N // cluster), 512))
+    xyz = _points(gen, B, N, dtype, "lattice")
+    got = _launched("fps", lambda: pck.fps(xyz, S, _plan=plan))
+    assert torch.equal(got, pc_ref.fps_ref(xyz, S))
+
+
+def test_fps_refuses_plans_the_kernel_does_not_take(gen):
+    """No fallback: a plan the kernel does not take raises in the wrapper,
+    and one that reaches the C entry point is refused there and raises,
+    launching nothing."""
+    xyz = _points(gen, 2, 4096, torch.float32)
+    for plan in ((3, 256, 8), (1, 128, 8), (1, 256, 16), (1, 256, 1)):
+        with pytest.raises(ValueError):
+            pck.fps(xyz, 8, _plan=plan)
+    out = torch.empty((2, 8), dtype=torch.int32, device="cuda")
+    before = pck.FPS.launches
+    for plan in ((32, 256, 8), (1, 256, 1), (1, 256, 0)):
+        with pytest.raises(RuntimeError):
+            pck.FPS.launch(_build.ptr(xyz), _build.ptr(out), None, None, 2,
+                           4096, 8, *plan, 0, xyz.device.index,
+                           _build.stream_of(xyz))
+    assert pck.FPS.launches == before
+
+
+@pytest.mark.parametrize("B,N,plan", [(2, 4096, None), (16, 1024, None),
+                                      (3, 1000, (16, 256, 1)),
+                                      (1, 140000, None)])
+def test_fps_kernel_writes_the_sm_of_every_block(gen, B, N, plan):
+    """``sm_ids`` gets one SM id a block, each below the card's SM count;
+    the indices are those of a call without it."""
+    xyz = _points(gen, B, N, torch.float32)
+    cluster = (plan or pipeline.fps_plan(B, N))[0]
+    ids = torch.full((B * cluster,), -1, dtype=torch.int32, device="cuda")
+    got = _launched("fps", lambda: pck.fps(xyz, 8, sm_ids=ids, _plan=plan))
+    assert torch.equal(got, pc_ref.fps_ref(xyz, 8))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert bool((ids >= 0).all()) and bool((ids < sms).all())
+    with pytest.raises(ValueError):
+        pck.fps(xyz, 8, sm_ids=ids[:-1], _plan=plan)
+
+
+def test_fps_never_takes_the_plain_version_on_the_card(gen, monkeypatch):
+    """Every FPS route sends a CUDA cloud the kernel takes to the kernel,
+    on the register and the scratch path alike."""
+    plain = pc_ref.fps_ref
+    want = {}
+    for B, N, S in ((2, 4096, 512), (1, 140000, 16)):
+        xyz = _points(gen, B, N, torch.float32)
+        want[(B, N, S)] = (xyz, plain(xyz, S))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("fps_ref reached on the card")
+    monkeypatch.setattr(pc_ref, "fps_ref", refuse)
+    lw = LoweringConfig("cuda")
+    for (B, N, S), (xyz, w) in want.items():
+        for call in (pck.fps, pc_ops.farthest_point_sample, lw.fps):
+            assert torch.equal(_launched("fps", lambda: call(xyz, S)), w)
 
 
 BALL = [  # B, N, M, k, radius

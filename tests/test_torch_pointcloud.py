@@ -25,6 +25,7 @@ from repro.pointcloud import kernels as jax_pck
 from repro.pointcloud import ops as jax_pcops
 from repro.pointcloud import ref as jax_ref
 from repro_torch.compile.config import LoweringConfig
+from repro_torch.kernels import pipeline
 from repro_torch.launch.pointcloud import set_abstraction
 from repro_torch.pointcloud import kernels as pck
 from repro_torch.pointcloud import ops as pc_ops
@@ -374,6 +375,81 @@ def test_group_depth_fits_shared_memory():
     assert pc_ops.group_depth(300, 4, 64) is None
 
 
+FPS_SHAPES_N = [1, 31, 256, 1024, 1031, 4096, 8192, 8193, 9000, 16384,
+                65536, 100000, 131072, 131073, 300000]
+
+
+@pytest.mark.parametrize("N", FPS_SHAPES_N)
+@pytest.mark.parametrize("Bc", [1, 2, 8, 16, 64, 200])
+def test_fps_plan_is_legal(Bc, N):
+    """``fps_plan`` returns a plan csrc/fps.cu takes: one block a cloud up
+    to one block's capacity, else a cluster whose B copies the card runs
+    at once (or one block a cloud); registers where the cluster holds the
+    cloud (the fewest points a thread, at most 8), the scratch path where
+    it does not, always above ``FPS_REGISTER_POINTS``."""
+    cluster, threads, ppt = plan = pipeline.fps_plan(Bc, N)
+    assert pipeline.fps_plan_legal(plan, N)
+    assert (cluster == 1) == (N <= pipeline.FPS_BLOCK_POINTS
+                              or Bc > pipeline.FPS_CLUSTERS_AT_ONCE[2])
+    assert cluster == 1 or Bc <= pipeline.FPS_CLUSTERS_AT_ONCE[cluster]
+    span = -(-N // cluster)
+    assert (ppt == 0) == (span > pipeline.FPS_BLOCK_POINTS)
+    if N > pck.FPS_REGISTER_POINTS:
+        assert ppt == 0
+    if ppt == 0:
+        assert threads == (512 if cluster >= 8 else 1024)
+        return
+    assert threads * ppt >= span and (ppt == 1 or threads * ppt // 2 < span)
+    assert threads == 256 or threads * 4 < span
+
+
+def test_fps_register_points_is_the_plan_capacity():
+    """The wrapper's capacity is the largest plan csrc/fps.cu is built
+    for: 16 blocks of 1024 threads at 8 points a thread."""
+    cap = max(c * t * p for c in pipeline.FPS_CLUSTERS
+              for t in pipeline.FPS_THREADS for p in pipeline.FPS_PPTS)
+    assert pck.FPS_REGISTER_POINTS == pipeline.FPS_CAPACITY == cap == 131072
+    assert pipeline.fps_plan(1, cap)[2] > 0
+    assert pipeline.fps_plan(1, cap + 1)[2] == 0
+
+
+@pytest.mark.parametrize("N", [4096, 65536, pck.FPS_REGISTER_POINTS,
+                               pck.FPS_REGISTER_POINTS + 1, 300000])
+@pytest.mark.parametrize("Bc", [1, 3, 16])
+def test_fps_scratch_follows_the_plan(Bc, N):
+    """Global scratch (B·N floats) exactly where the plan takes the
+    scratch path: above the register capacity, and where the cluster
+    that lets all B clouds run at once cannot hold a cloud (16 clouds
+    from 65536 points)."""
+    want = Bc * N if (N > pck.FPS_REGISTER_POINTS
+                      or (Bc == 16 and N >= 65536)) else 0
+    assert pck.fps_scratch_floats(Bc, N, pipeline.fps_plan(Bc, N)) == want
+
+
+@pytest.mark.parametrize("plan,N,legal", [
+    ((1, 512, 8), 4096, True), ((16, 1024, 8), 131072, True),
+    ((16, 512, 0), 10, True), ((3, 256, 8), 100, False),
+    ((1, 128, 8), 100, False), ((1, 256, 16), 100, False),
+    ((1, 256, 1), 4096, False), ((32, 256, 8), 100, False)])
+def test_fps_plan_legal_is_what_the_kernel_takes(plan, N, legal):
+    assert pipeline.fps_plan_legal(plan, N) is legal
+
+
+@pytest.mark.parametrize("Bc,N,want", [
+    (2, 4096, (1, 512, 8)),        # (a): the sweep's fastest
+    (16, 1024, (1, 256, 4)),       # (b)
+    (1, 65536, (16, 512, 8)),      # the large cloud
+    (1, 8192, (1, 1024, 8)),       # one block's largest cloud
+    (1, 16384, (8, 256, 8)),       # twice it: 256-thread blocks
+    (1, 200000, (16, 512, 0)),     # the scratch path
+    (1, 131072, (16, 1024, 8)),    # the largest cloud in registers
+    (8, 65536, (8, 1024, 8)),      # 8 clusters of 16 would not run at once
+    (16, 65536, (4, 1024, 0)),     # nor 16 of 8: scratch on 4 blocks
+])
+def test_fps_plan_picks_what_the_sweep_measured(Bc, N, want):
+    assert pipeline.fps_plan(Bc, N) == want
+
+
 def test_wrappers_take_the_plain_version_only_on_cpu_tensors():
     xyz, centers, feats, radius = _cloud("normal", "float32")
     idx = ref.ball_query_ref(xyz, centers, radius, K)
@@ -395,6 +471,14 @@ def test_wrappers_take_the_plain_version_only_on_cpu_tensors():
                  lambda: pck.group_aggregate_pipelined(mf, mi)):
         with pytest.raises(ValueError):
             call()
+
+
+def test_fps_sm_ids_are_written_only_by_the_kernel():
+    """A CPU cloud takes the plain version, which runs on no SM: asking it
+    for the SMs raises rather than leaving the ids unwritten."""
+    xyz = _cloud("normal", "float32")[0]
+    with pytest.raises(ValueError):
+        pck.fps(xyz, M, sm_ids=torch.zeros(8, dtype=torch.int32))
 
 
 def test_kernels_name_the_tpu_kernels_they_replace():
