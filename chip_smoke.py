@@ -1328,7 +1328,11 @@ def ssm_serve_phase() -> dict:
 # -- int8 phases ---------------------------------------------------------------
 
 INT8_FORMULA = ("bytes = M*K*itemsize + N*K + 4*N + M*N*itemsize (x, wq, "
-                "scale, y); ops = 2*M*N*K")
+                "scale, y); ops = 2*M*N*K*passes at 989 TFLOP/s (the bf16/"
+                "fp16 tensor cores), passes = 3 for fp32 x (its three exact "
+                "bf16 terms), 1 for bf16 and fp16; bound_ms = max(bytes / "
+                "3.35 TB/s, ops / 989e12); bound_cuda_core_ms (fp32 rows) = "
+                "max(bytes / 3.35 TB/s, 2*M*N*K / 67e12)")
 _LIBRARY_INT8: dict = {}
 
 
@@ -1370,6 +1374,44 @@ def int8_tol(x, wq, scale) -> dict:
     return {dtype: (x.shape[1] * big * 2.0 ** -23, 0.0)}
 
 
+def int8_bounds(M: int, N: int, K: int, itemsize: int) -> dict:
+    """INT8_FORMULA's bounds (ms) for one int8 GEMM: at the rate of the
+    tensor-core arithmetic the kernels run, and for fp32 x at the CUDA
+    cores' 67 TFLOP/s beside it."""
+    nbytes = M * K * itemsize + N * K + 4 * N + M * N * itemsize
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    passes = 3 if itemsize == 4 else 1
+    t_ops = 2 * M * N * K * passes / PEAK_FLOPS["bfloat16"] * 1e3
+    out = {"bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if itemsize == 4:
+        out["bound_cuda_core_ms"] = max(
+            t_bytes, 2 * M * N * K / PEAK_FLOPS["float32"] * 1e3)
+    return out
+
+
+#: The instantiation of each int8 kernel, by plan, in its build log.
+_INT8_TEMPLATE = {"int8_matmul": ("int8_mm_kernelI{t}Li{tile_n}ELi{c}E",
+                                  lambda tm, tn: {"tile_n": tn, "c": tm // 64}),
+                  "int8_matmul_pipelined": (
+                      "int8_mm_pipelined_kernelI{t}Li{mt}ELi{w}E",
+                      lambda tm, tn: {"mt": tm // 8, "w": tn // 16})}
+
+
+def int8_design(kernel: str, dtype: str, plan) -> dict:
+    """The plan fields of an int8 row and its instantiation's registers and
+    spill bytes (the build log)."""
+    fmt, fields = _INT8_TEMPLATE[kernel]
+    tile_m, tile_n, split, depth = plan
+    tag = fmt.format(t=_MANGLED_T[dtype], **fields(tile_m, tile_n))
+    hits = [v for k, v in ptxas_report(kernel).items() if tag in k]
+    if len(hits) != 1:
+        raise AssertionError(f"{tag}: {len(hits)} kernels in the build log")
+    return {"tile_m": tile_m, "tile_n": tile_n, "split": split,
+            "depth": depth, "registers": hits[0][0],
+            "spill_store_bytes": hits[0][1]}
+
+
 def int8_case(kernel: str, M: int, N: int, K: int, dtype: str, gen) -> dict:
     import torch
     from repro_torch.kernels import pipeline, ref
@@ -1379,12 +1421,13 @@ def int8_case(kernel: str, M: int, N: int, K: int, dtype: str, gen) -> dict:
     wq = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
                        dtype=torch.int8)
     scale = 0.001 + 0.019 * torch.rand((N,), generator=gen, device="cuda")
-    if kernel == "int8_matmul":
-        call = lambda x, wq: int8_matmul(x, wq, scale)  # noqa: E731
-    else:
-        depth = pipeline.int8_depth(K, x.element_size())
+    pipelined = kernel == "int8_matmul_pipelined"
+    plan = pipeline.int8_plan(M, N, K, x.element_size(), pipelined=pipelined)
+    if pipelined:
         call = lambda x, wq: pipeline.int8_matmul_pipelined(  # noqa: E731
-            x, wq, scale, depth=depth)
+            x, wq, scale)
+    else:
+        call = lambda x, wq: int8_matmul(x, wq, scale)  # noqa: E731
     run = lambda: call(x, wq)  # noqa: E731
     plain = lambda: ref.int8_matmul_ref(x, wq, scale)  # noqa: E731
     got = run()
@@ -1397,15 +1440,79 @@ def int8_case(kernel: str, M: int, N: int, K: int, dtype: str, gen) -> dict:
     iters = 20 if M * N * K >= 1 << 28 else 50
     spin = 40_000_000   # ~20 ms: enough to queue 50 of these calls
     nbytes = M * K * x.element_size() + N * K + 4 * N + M * N * x.element_size()
+    # what int8 serving runs today: weights dequantized once, in x's dtype
+    w_deq_t = (wq.float() * scale[:, None]).to(dt).t()
     row = _row(kernel, case, err, device_ms(run, iters, spin),
                device_ms(plain, iters, spin),
                device_ms(lib, max(3, iters // 4), spin) if lib else None,
                nbytes, 2 * M * N * K, dtype)
+    row.update(int8_bounds(M, N, K, x.element_size()))
     row.update(library_note=note, bound_formula=INT8_FORMULA,
                atol=tol[dtype][0], rtol=tol[dtype][1],
-               cold_ms=cold_ms(call, (x, wq)))
+               cold_ms=cold_ms(call, (x, wq)),
+               dequant_mm_ms=device_ms(lambda: torch.mm(x, w_deq_t), iters,
+                                       spin),
+               **int8_design(kernel, dtype, plan))
     print(json.dumps(row))
     return row
+
+
+def int8_sweep_phase() -> None:
+    """K4 at M = 512 and K5 at M = 8 at every plan they are built for
+    (``pipeline.int8_plans``), at the (i2) shapes in fp32 and bf16: each
+    plan held to the plain version at phase 8's tolerance and timed warm;
+    the plan rule's pick beside the fastest, both timed again in turns
+    (pick, fastest, fastest, pick, ...) for their spread."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import pipeline as pl
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.int8_matmul import int8_matmul
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for M, kernel in ((512, "int8_matmul"), (8, "int8_matmul_pipelined")):
+        pipelined = kernel == "int8_matmul_pipelined"
+        fn = pl.int8_matmul_pipelined if pipelined else int8_matmul
+        for K, N in LLAMA_PROJ:
+            for dtype in ("float32", "bfloat16"):
+                x = torch.randn((M, K), generator=gen,
+                                device="cuda").to(getattr(torch, dtype))
+                wq = torch.randint(-127, 128, (N, K), generator=gen,
+                                   device="cuda", dtype=torch.int8)
+                scale = 0.001 + 0.019 * torch.rand((N,), generator=gen,
+                                                   device="cuda")
+                want = ref.int8_matmul_ref(x, wq, scale)
+                tol = int8_tol(x, wq, scale)
+                itemsize = x.element_size()
+                pick = pl.int8_plan(M, N, K, itemsize, pipelined=pipelined)
+                times = {}
+                # K5: rows of x a block past M's are idle, so only the pick's
+                for plan in pl.int8_plans(M, N, K, itemsize,
+                                          pipelined=pipelined):
+                    if pipelined and plan[0] != pick[0]:
+                        continue
+                    _check(f"int8 sweep {kernel} M={M} K={K} N={N} {dtype} "
+                           f"{plan}", fn(x, wq, scale, _plan=plan), want,
+                           dtype, tol)
+                    times[plan] = device_ms(
+                        lambda plan=plan: fn(x, wq, scale, _plan=plan), 10,
+                        spin=4_000_000) * 1e3
+                best = min(times, key=times.get)
+                turns = {pick: [], best: []}
+                for plan in (pick, best, best, pick) * 3:
+                    turns[plan].append(device_ms(
+                        lambda plan=plan: fn(x, wq, scale, _plan=plan), 10,
+                        spin=4_000_000) * 1e3)
+                print(json.dumps({
+                    "phase": "int8_sweep", "kernel": kernel, "M": M, "K": K,
+                    "N": N, "dtype": dtype,
+                    "us": {str(p): t for p, t in times.items()},
+                    "pick": pick, "fastest": best,
+                    "us_min_median_max": {
+                        str(p): [min(v), float(np.median(v)), max(v)]
+                        for p, v in turns.items()},
+                    "pick_within_spread": min(turns[pick])
+                    <= max(turns[best])}))
 
 
 def int8kv_case(S: int, H: int, K: int, dtype: str, gen,
@@ -1629,13 +1736,27 @@ def int8_gemm_phase(qtree) -> dict:
         for name, wq, scale in projections:       # warm: first-call set-up
             lw.int8_matmul(xs[wq.shape[1]], wq, scale)
         torch.cuda.synchronize()
+        # the 85 calls queued behind a GPU spin: the host's time to issue
+        # them (µs a call) and the card's time to run them back to back
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         _build.reset_launch_counts()
+        torch.cuda._sleep(40_000_000)
+        start.record()
         t0 = time.perf_counter()
         outs = [lw.int8_matmul(xs[wq.shape[1]], wq, scale)
                 for _, wq, scale in projections]
+        host_us = (time.perf_counter() - t0) * 1e6 / len(projections)
+        end.record()
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        device_us = start.elapsed_time(end) * 1e3
+        # and their wall time with nothing queued before them
+        t0 = time.perf_counter()
+        for _, wq, scale in projections:
+            lw.int8_matmul(xs[wq.shape[1]], wq, scale)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        launches = _build.launch_counts()
         want = {n: 0 for n in launches}
         want[kernel] = len(projections)
         if launches != want:
@@ -1654,6 +1775,8 @@ def int8_gemm_phase(qtree) -> dict:
         print(json.dumps({"phase": "int8_gemm", "run": "i2", "M": M,
                           "gemms": len(projections), "launches": launches,
                           "wall_ms_85_gemms": wall_ms,
+                          "device_us_85_gemms": device_us,
+                          "host_us_a_call": host_us,
                           "max_abs_err_vs_plain": worst}))
     print(f"int8 gemm (i2): 85 projections at M=512 through K4 and at M=8 "
           f"through K5 match the plain version; launches {total}")
@@ -1704,6 +1827,8 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                     "case": row["case"]})
         for key in ("blocks_per_sm", "live_tiles", "chunk", "heads_per_block",
                     "cluster", "threads", "ppt", "us_per_step", "sms_used",
+                    "tile_m", "tile_n", "split", "depth",
+                    "bound_cuda_core_ms", "dequant_mm_ms",
                     "registers", "spill_store_bytes"):
             if key in row:
                 out[-1][key] = row[key]
@@ -1746,6 +1871,7 @@ def main() -> int:
     rows += timed("ssm_kernels", ssm_kernel_phase)
     ssm_launches = timed("ssm", ssm_serve_phase)
     rows += timed("int8_kernels", int8_kernel_phase)
+    timed("int8_sweep", int8_sweep_phase)
     i1_launches, qtree = timed("int8_serve", int8_serve_phase)
     i2_launches = timed("int8_gemm", int8_gemm_phase, qtree)
     runs = (launches, pc_launches, ssm_launches, i1_launches, i2_launches)

@@ -1,5 +1,5 @@
-// K5: int8-weight GEMM with the x and wq tiles streamed through a
-// `depth`-stage cp.async ring in shared memory (depth 2-4).
+// K5: int8-weight GEMM for few rows of x, y[M,N] = (x[M,K] @ f32(wq[N,K])^T)
+// * scale[N], with the weight stream in a `depth`-stage TMA ring (depth 2-4).
 //
 // Replaces: src/repro/kernels/pipeline.py::int8_matmul_pipelined
 // (_int8_mm_pipelined_kernel driven by BurstPipeline.stream_step), the
@@ -12,140 +12,333 @@
 // int8 weight stream at 3.35 TB/s sets the pace (N*K bytes, 7.3 us for the
 // 768 x 32000 unembedding).
 //
-// Design: the math is K4's (i8mm::tile_fma, fp32 FMAs); the tile is shaped
-// for few rows and many columns: 8 rows x 32 columns a block (each warp one
-// row, each lane one column), so M = 8 wastes no row and the 32 weight rows
-// of a stage are read by all 8 warps from shared memory.  What differs from
-// K4 is how tiles arrive: each thread issues 16-byte cp.async copies of the
-// raw x and int8 tiles into ring slot t % depth, rows past M and N and k
-// past K zero-filled by the copy itself; the schedule is K3's
-// (flash_attention_pipelined.cu): fill depth-1 tiles, then at step t wait
-// for tile t (cp.async.wait_group depth-2), sync the block, start the copy
-// of tile t+depth-1 into the slot step t-1 finished with, and compute on
-// tile t while the later copies fly; one commit group per tile (empty past
-// the end) keeps the wait count uniform.  cp.async needs 16-byte aligned
-// rows: K % 16 == 0 and 16-byte aligned bases (the wrapper checks; other
-// shapes go to K4).  A stage is 4.7 KB in fp32, so depth 4 takes 19 KB.
+// Design: the roles are swapped, y^T = wq . x^T, so that N fills the
+// 16-row side of the tensor cores' mma.sync.m16n8k16 and the few rows of x
+// its 8-wide side.  A block owns tile_n = 16 * warps rows of wq and tile_m
+// = 8 * MT rows of x (MT = 1, 2 or 4; more rows of x take more blocks),
+// and a range of K: K is split over a thread-block cluster (gridDim.z =
+// split) where the N / tile_n blocks would leave SMs idle.  x is read once
+// a block: its rows are cut into bf16 terms (fp32: hi, mid and lo by
+// masking bits, i8mm::split3; bf16 and fp16 as they are) and kept in shared
+// memory for the block's whole K range (a panel; a range too long for
+// kPanelBudget bytes goes in several).  Thread 0 streams wq with TMA, 64 k
+// of the block's rows a stage, into a ring with one mbarrier a stage (the
+// schedule is K8's: fill depth-1 stages; at stage i wait for it, sync the
+// block, which frees stage i-1's slot, start stage i+depth-1 there, compute
+// on stage i), so ~depth * tile_n * 64 bytes a block are in flight.  Each
+// warp widens its 16 rows x 64 k of int8 in registers (i8mm::widen4) as the
+// A operand; a thread's 16 consecutive bytes of a row feed four k16 steps
+// with their k permuted, and it reads x's terms under the same permutation,
+// so the dot products are unchanged.  Each term has its own accumulators
+// (the three column groups of the fp32 product), summed into fp32 registers
+// on the CUDA cores after every stage (as K4 promotes) and added lo + mid +
+// hi in the epilogue.  A split's blocks then write their fp32 partial
+// tiles to shared memory and each sums its share of rows over the cluster
+// in rank order (deterministic).  TMA needs 16-byte rows: K % 16 == 0 and
+// 16-byte aligned bases (the wrapper checks; other shapes go to K4).
 #include "int8_tile.cuh"
 
 namespace {
 
 using namespace i8mm;
-using S5 = Shape<8, 32, 1, 1>;  // 8 x 32 output tile
 
-// Start the copy of rows [r0, r0 + rows) x k-values [k0, k0 + BK) of a
-// row-major (R, K) matrix of E (K * sizeof(E) a multiple of 16).
-template <typename E>
-__device__ __forceinline__ void issue_rows(E* dst, int stride, int rows,
-                                           const E* __restrict__ src, int R, int K,
-                                           int r0, int k0) {
-  constexpr int V = 16 / static_cast<int>(sizeof(E));
-  constexpr int kChunks = BK / V;
-  for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int kk = (c % kChunks) * V;
-    const int gr = r0 + r;
-    const int gk = k0 + kk;
-    const bool ok = gr < R && gk < K;  // a 16-byte chunk is all in or all out
-    cp_async16(dst + r * stride + kk,
-               ok ? src + static_cast<size_t>(gr) * K + gk : src, ok ? 16 : 0);
+constexpr int kBK = 64;                // k-values a stage
+constexpr int kBarBytes = 64;          // one mbarrier a stage (depth <= 4), padded
+constexpr int kAlign = 128;            // TMA destinations
+constexpr int kPanelBudget = 110592;   // bytes of x's terms a panel holds at most
+constexpr int kMaxSmem = 232448;
+
+template <typename T, int MT, int W>
+struct Cfg {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr bool kF16 = std::is_same<T, __half>::value;
+  static constexpr int kTerms = kF32 ? 3 : 1;
+  static constexpr int TM = 8 * MT;   // rows of x a block
+  static constexpr int TN = 16 * W;   // rows of wq a block
+  static constexpr int kThreads = 32 * W;
+  static constexpr int kStage = TN * kBK;
+  static constexpr int kPartStride = TM + 4;  // floats a row (n) of the partial
+};
+
+// Stages of the block's K range a panel holds, and its bytes: kTerms * TM
+// rows of 16-bit values, each ps * 64 long plus 8 of padding.
+__host__ __device__ inline int panel_stages(int terms, int tm, int tiles_per_split) {
+  const int ps = (kPanelBudget / (terms * tm) - 16) / (2 * kBK);
+  const int fit = ps < tiles_per_split ? ps : tiles_per_split;
+  return fit > 1 ? fit : 1;
+}
+__host__ __device__ inline int panel_bytes(int terms, int tm, int ps) {
+  return terms * tm * (ps * kBK + 8) * 2;
+}
+
+template <typename T, int MT, int W>
+size_t smem_bytes(int depth, int split, int ps) {
+  using G = Cfg<T, MT, W>;
+  const size_t main = static_cast<size_t>(depth) * G::kStage + panel_bytes(G::kTerms, G::TM, ps);
+  const size_t part = split > 1 ? static_cast<size_t>(G::TN) * G::kPartStride * 4 : 0;
+  return kAlign + kBarBytes + (main > part ? main : part);
+}
+
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1,
+                                         bool f16) {
+  if (f16) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
 }
 
-template <typename T>
-constexpr size_t stage_bytes() {
-  return sizeof(T) * S5::x_elems<T>() + S5::kWBytes;
-}
+template <typename T, int MT, int W>
+__global__ void __launch_bounds__(32 * W)
+int8_mm_pipelined_kernel(const __grid_constant__ CUtensorMap wmap, const T* __restrict__ x,
+                         const float* __restrict__ scale, T* __restrict__ out, int M, int N,
+                         int K, int depth, int tiles_per_split, int ps) {
+  using G = Cfg<T, MT, W>;
+  constexpr int TM = G::TM, TN = G::TN, NT = G::kTerms;
+  extern __shared__ uint8_t smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw + kBarBytes) + kAlign - 1) &
+      ~static_cast<uintptr_t>(kAlign - 1));
+  uint16_t* panel = reinterpret_cast<uint16_t*>(ring + depth * G::kStage);
+  const int prow = ps * kBK + 8;  // 16-bit values a panel row
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * TN, m0 = blockIdx.y * TM;
+  const int split = gridDim.z, rank = blockIdx.z;
+  const int nk = cdiv(K, kBK);
+  const int t0 = rank * tiles_per_split;
+  const int nt = max(0, min(nk, t0 + tiles_per_split) - t0);
 
-template <typename T, int DEPTH>
-__global__ void __launch_bounds__(kThreads)
-int8_mm_pipelined_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
-                         const float* __restrict__ scale, T* __restrict__ out,
-                         int M, int N, int K) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kX = S5::x_elems<T>();
-  T* x_ring = reinterpret_cast<T*>(smem_raw);
-  int8_t* w_ring = reinterpret_cast<int8_t*>(smem_raw + DEPTH * sizeof(T) * kX);
-  const int m0 = blockIdx.y * S5::BM;
-  const int n0 = blockIdx.x * S5::BN;
-  const int nk = (K + BK - 1) / BK;
-
-  auto issue = [&](int t) {
-    const int slot = t % DEPTH;
-    issue_rows<T>(x_ring + slot * kX, XLayout<T>::kStride, S5::BM, x, M, K, m0,
-                  t * BK);
-    issue_rows<int8_t>(w_ring + slot * S5::kWBytes, kWStride, S5::BN, wq, N, K, n0,
-                       t * BK);
+  if (tid == 0) {
+    for (int s = 0; s < depth; ++s) tma::mbar_init(full + s, 1);
+    tma::fence_barrier_init();
+  }
+  __syncthreads();
+  auto issue = [&](int i) {
+    const int s = i % depth;
+    tma::mbar_expect(full + s, G::kStage);
+    tma::load_2d(ring + s * G::kStage, &wmap, (t0 + i) * kBK, n0, full + s);
   };
+  if (tid == 0)
+    for (int i = 0; i < min(depth - 1, nt); ++i) issue(i);
 
-  // Fill: tiles 0 .. DEPTH-2, one commit group each.
+  // acc[term][j]: this thread's 2 x 2 outputs of n-tile j (x rows 8j ..)
+  // for one stage; sum: their running fp32 totals
+  float acc[NT][MT][4], sum[NT][MT][4];
 #pragma unroll
-  for (int t = 0; t < DEPTH - 1; ++t) {
-    if (t < nk) issue(t);
-    cp_async_commit();
+  for (int p = 0; p < NT; ++p)
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[p][j][e] = 0.f;
+
+  for (int p0 = 0; p0 < nt; p0 += ps) {
+    const int pn = min(ps, nt - p0);
+    __syncthreads();  // every warp is done with the previous panel
+    // x rows m0 .. m0+TM, k (t0+p0)*64 .. + pn*64 -> terms; zeros past M and K
+    {
+      constexpr int V = 16 / sizeof(T);
+      const int kb = (t0 + p0) * kBK, cols = pn * kBK / V;
+      for (int idx = tid; idx < TM * cols; idx += G::kThreads) {
+        const int r = idx / cols, c = (idx % cols) * V;
+        const int m = m0 + r, k = kb + c;
+        uint4 raw = make_uint4(0, 0, 0, 0);
+        if (m < M && k < K)  // K % 16 == 0: a 16-byte vector is all in or all out
+          raw = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(m) * K + k);
+        if constexpr (G::kF32) {
+          const float* f = reinterpret_cast<const float*>(&raw);
+          uint32_t h[4], md[4], l[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split3(f[e], h[e], md[e], l[e]);
+          *reinterpret_cast<uint2*>(panel + (0 * TM + r) * prow + c) =
+              make_uint2(pack_hi16(h[0], h[1]), pack_hi16(h[2], h[3]));
+          *reinterpret_cast<uint2*>(panel + (1 * TM + r) * prow + c) =
+              make_uint2(pack_hi16(md[0], md[1]), pack_hi16(md[2], md[3]));
+          *reinterpret_cast<uint2*>(panel + (2 * TM + r) * prow + c) =
+              make_uint2(pack_hi16(l[0], l[1]), pack_hi16(l[2], l[3]));
+        } else {
+          *reinterpret_cast<uint4*>(panel + r * prow + c) = raw;
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = p0; i < p0 + pn; ++i) {
+      const int s = i % depth;
+      tma::mbar_wait(full + s, (i / depth) & 1);
+      __syncthreads();  // every warp is done with stage i-1: its slot is free
+      if (tid == 0 && i + depth - 1 < nt) issue(i + depth - 1);
+      // A: rows 16*warp + g and + 8, bytes 16t .. 16t+15 of the stage's 64
+      const uint8_t* ws = ring + s * G::kStage + (16 * warp + g) * kBK + 16 * t;
+      const uint4 w0 = *reinterpret_cast<const uint4*>(ws);
+      const uint4 w1 = *reinterpret_cast<const uint4*>(ws + 8 * kBK);
+      const uint32_t wr0[4] = {w0.x, w0.y, w0.z, w0.w}, wr1[4] = {w1.x, w1.y, w1.z, w1.w};
+      uint32_t a[4][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        widen4<G::kF16>(wr0[q], a[q][0], a[q][2]);
+        widen4<G::kF16>(wr1[q], a[q][1], a[q][3]);
+      }
+      const int kofs = (i - p0) * kBK + 16 * t;
+#pragma unroll
+      for (int p = 0; p < NT; ++p)
+#pragma unroll
+        for (int j = 0; j < MT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[p][j][e] = 0.f;
+          // B: 16 consecutive k of x row 8j + g, as the A bytes
+          const uint16_t* xp = panel + (p * TM + 8 * j + g) * prow + kofs;
+          const uint4 b0 = *reinterpret_cast<const uint4*>(xp);
+          const uint4 b1 = *reinterpret_cast<const uint4*>(xp + 8);
+          const uint32_t b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) mma16816(acc[p][j], a[q], b[2 * q], b[2 * q + 1], G::kF16);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum[p][j][e] += acc[p][j][e];
+        }
+    }
   }
-  float acc[1][1] = {{0.f}};
-  for (int t = 0; t < nk; ++t) {
-    cp_async_wait<DEPTH - 2>();  // this thread's copies of tile t have landed
-    __syncthreads();             // ... and everyone's; slot (t-1) % DEPTH is free
-    if (t + DEPTH - 1 < nk) issue(t + DEPTH - 1);
-    cp_async_commit();
-    const int slot = t % DEPTH;
-    tile_fma<8, 32, 1, 1, T>(acc, x_ring + slot * kX, w_ring + slot * S5::kWBytes);
+
+  // v[j][e]: output (n = 16*warp + g + 8*(e/2), m = 8j + 2t + e%2) of the
+  // tile, the terms added lo + mid + hi
+  float v[MT][4];
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[j][e] = NT == 3 ? (sum[NT - 1][j][e] + sum[NT > 1 ? 1 : 0][j][e]) + sum[0][j][e]
+                        : sum[0][j][e];
+  if (split == 1) {
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + 16 * warp + g + 8 * (e / 2), m = m0 + 8 * j + 2 * t + e % 2;
+        if (m < M && n < N)
+          out[static_cast<size_t>(m) * N + n] = from_f32<T>(v[j][e] * __ldg(scale + n));
+      }
+    return;
   }
-  cp_async_wait<0>();
-  store_tile<8, 32, 1, 1, T>(acc, scale, out, m0, n0, M, N);
+  __syncthreads();  // every stage and the panel are consumed
+  float* part = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      part[(16 * warp + g + 8 * (e / 2)) * G::kPartStride + 8 * j + 2 * t + e % 2] = v[j][e];
+  cooperative_groups::this_cluster().sync();
+  const int rows = TN / split;  // rows of wq (outputs' columns) this block sums
+  for (int e = tid; e < rows * TM; e += G::kThreads) {
+    const int nl = rank * rows + e % rows, ml = e / rows;
+    const int n = n0 + nl, m = m0 + ml;
+    if (m < M && n < N)
+      out[static_cast<size_t>(m) * N + n] =
+          from_f32<T>(cluster_sum(part, nl * G::kPartStride + ml, split) * __ldg(scale + n));
+  }
+  cooperative_groups::this_cluster().sync();  // no block leaves while read
 }
 
-template <typename T, int DEPTH>
-cudaError_t launch(const void* x, const void* wq, const void* scale, void* out,
-                   int M, int N, int K, cudaStream_t stream) {
-  const size_t smem = DEPTH * stage_bytes<T>();
-  auto kern = int8_mm_pipelined_kernel<T, DEPTH>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <typename T, int MT, int W>
+cudaError_t launch(const void* x, const void* wq, const void* scale, void* out, int M, int N,
+                   int K, int split, int depth, cudaStream_t stream) {
+  using G = Cfg<T, MT, W>;
+  auto kern = int8_mm_pipelined_kernel<T, MT, W>;
+  static bool attr_set = false;  // once per instantiation, not every launch
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kMaxSmem);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const int tiles_per_split = cdiv(cdiv(K, kBK), split);
+  const int ps = panel_stages(G::kTerms, G::TM, tiles_per_split);
+  const size_t smem = smem_bytes<T, MT, W>(depth, split, ps);
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  CUtensorMap wmap;
+  cudaError_t e = tma::make_map_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wq, N, K, kBK, G::TN,
+                                   CU_TENSOR_MAP_SWIZZLE_NONE);
   if (e != cudaSuccess) return e;
-  dim3 grid((N + S5::BN - 1) / S5::BN, (M + S5::BM - 1) / S5::BM);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(wq),
-      static_cast<const float*>(scale), static_cast<T*>(out), M, N, K);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cdiv(N, G::TN), cdiv(M, G::TM), split);
+  cfg.blockDim = dim3(G::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kern, wmap, static_cast<const T*>(x),
+                         static_cast<const float*>(scale), static_cast<T*>(out), M, N, K, depth,
+                         tiles_per_split, ps);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_depth(int depth, const void* x, const void* wq,
-                           const void* scale, void* out, int M, int N, int K,
-                           cudaStream_t stream) {
-  switch (depth) {
-    case 2: return launch<T, 2>(x, wq, scale, out, M, N, K, stream);
-    case 3: return launch<T, 3>(x, wq, scale, out, M, N, K, stream);
-    case 4: return launch<T, 4>(x, wq, scale, out, M, N, K, stream);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch(int tile_m, int tile_n, const void* x, const void* wq, const void* scale,
+                     void* out, int M, int N, int K, int split, int depth, cudaStream_t s) {
+#define K5_CASE(MT, W)                                                     \
+  if (tile_m == 8 * MT && tile_n == 16 * W)                               \
+    return launch<T, MT, W>(x, wq, scale, out, M, N, K, split, depth, s);
+  K5_CASE(1, 4)
+  K5_CASE(2, 4)
+  K5_CASE(4, 4)
+  K5_CASE(1, 8)
+  K5_CASE(2, 8)
+  K5_CASE(4, 8)
+#undef K5_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// As int8_matmul_launch (int8_matmul.cu), plus `depth` in {2, 3, 4}, the
-// number of ring stages; K must be a multiple of 16 and x, wq 16-byte
-// aligned (cudaErrorInvalidValue otherwise, without launching).
+// As int8_matmul_launch (int8_matmul.cu) for the plan tile_m in {8, 16,
+// 32}, tile_n in {64, 128}, split in {1, 2, 4, 8} (at most K's 64-wide
+// stages), depth in {2, 3, 4}; K must be a multiple of 16 and x, wq
+// 16-byte aligned (cudaErrorInvalidValue otherwise, without launching).
 REPRO_EXPORT int int8_matmul_pipelined_launch(const void* x, const void* wq,
-                                              const void* scale, void* out, int M,
-                                              int N, int K, int depth, int dtype,
-                                              int device, void* stream) {
+                                              const void* scale, void* out, int M, int N,
+                                              int K, int tile_m, int tile_n, int split,
+                                              int depth, int dtype, int device, void* stream) {
   cudaError_t e = repro_set_device(device);
   if (e != cudaSuccess) return e;
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(wq) % 16 != 0 ||
-      (M + S5::BM - 1) / S5::BM > 65535)
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(wq) % 16 != 0 ||
+      depth < 2 || depth > 4 || (split != 1 && split != 2 && split != 4 && split != 8) ||
+      split > cdiv(K, kBK) || cdiv(M, tile_m) > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return dispatch_depth<float>(depth, x, wq, scale, out, M, N, K, s);
-  if (dtype == kBFloat16)
-    return dispatch_depth<__nv_bfloat16>(depth, x, wq, scale, out, M, N, K, s);
-  if (dtype == kFloat16)
-    return dispatch_depth<__half>(depth, x, wq, scale, out, M, N, K, s);
-  return cudaErrorInvalidValue;
+  REPRO_DISPATCH_FLOAT(dtype, T,
+                       dispatch<T>(tile_m, tile_n, x, wq, scale, out, M, N, K, split, depth, s));
+}
+
+// Dynamic shared memory of one block of the plan at this K (bytes), 0 for
+// a plan that is not built; kernels/pipeline.py k5_smem_bytes mirrors it.
+REPRO_EXPORT int int8_matmul_pipelined_smem(int tile_m, int tile_n, int split, int depth,
+                                            int dtype, int K) {
+  const int tiles_per_split = cdiv(cdiv(K, kBK), split);
+#define K5_SMEM(T, MT, W)                                                                    \
+  if (tile_m == 8 * MT && tile_n == 16 * W)                                                 \
+    return static_cast<int>(smem_bytes<T, MT, W>(                                           \
+        depth, split, panel_stages(Cfg<T, MT, W>::kTerms, 8 * MT, tiles_per_split)));
+  if (dtype == kFloat32) {
+    K5_SMEM(float, 1, 4) K5_SMEM(float, 2, 4) K5_SMEM(float, 4, 4)
+    K5_SMEM(float, 1, 8) K5_SMEM(float, 2, 8) K5_SMEM(float, 4, 8)
+  } else {
+    K5_SMEM(__half, 1, 4) K5_SMEM(__half, 2, 4) K5_SMEM(__half, 4, 4)
+    K5_SMEM(__half, 1, 8) K5_SMEM(__half, 2, 8) K5_SMEM(__half, 4, 8)
+  }
+#undef K5_SMEM
+  return 0;
 }

@@ -2,10 +2,13 @@
 
 The port of ``repro/kernels/int8_matmul.py::int8_matmul``: x (M, K) fp32,
 bf16 or fp16, wq (N, K) int8, scale (N,) fp32 → (x @ f32(wq)ᵀ) ·
-scale[None] in x's dtype, accumulated in fp32.  The CUDA kernel tiles 64 x 64 outputs with
-64-wide k steps and masks ragged edges itself, so any M, N and K are taken.
-On CPU tensors the wrapper computes the plain version
-(``ref.int8_matmul_ref``); on CUDA tensors it launches K4 or raises.
+scale[None] in x's dtype, accumulated in fp32.  The CUDA kernel runs on
+the tensor cores (``wgmma``): wq widened to bf16 (fp16 for fp16 x), fp32 x
+cut into three exact bf16 terms, so every product is exact.  Its plan
+(tile_m, tile_n, split, depth) is ``pipeline.int8_plan``'s; ragged edges
+are zero-filled by the kernel, so any M, N and K are taken.  On CPU
+tensors the wrapper computes the plain version (``ref.int8_matmul_ref``);
+on CUDA tensors it launches K4 or raises.
 """
 
 from __future__ import annotations
@@ -15,14 +18,16 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import pipeline as _pl
 
-#: k-values a tile step of K4 and K5 (csrc/int8_tile.cuh).
+#: k-values a step of the reference's tiles and of the routing rule
+#: (``ops.int8_matmul``); K4's stage is as wide.
 BLOCK_K = 64
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 INT8_MATMUL = _build.CudaKernel(
     "int8_matmul", lib="int8_matmul", symbol="int8_matmul_launch",
-    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     replaces="src/repro/kernels/int8_matmul.py:46")
 
 
@@ -48,15 +53,27 @@ def check_int8_args(name: str, x, wq, scale) -> None:
             raise ValueError(f"{name}: inputs must be contiguous on one device")
 
 
-def int8_matmul(x, wq, scale):
-    """K4 on CUDA tensors, the plain version on CPU tensors."""
+def int8_matmul(x, wq, scale, *, _plan=None):
+    """K4 on CUDA tensors, the plain version on CPU tensors.
+
+    ``_plan`` (tile_m, tile_n, split, depth) replaces ``int8_plan``'s pick;
+    for the plan sweep and the card's tests only, and a plan the kernel
+    does not take raises."""
     if x.device.type == "cpu":
         return ref.int8_matmul_ref(x, wq, scale)
     check_int8_args("int8_matmul", x, wq, scale)
     M, K = x.shape
     N = wq.shape[0]
+    if _plan is None:
+        plan = _pl.int8_plan(M, N, K, x.element_size(), pipelined=False)
+    elif _pl.int8_plan_legal(_plan, M, N, K, x.element_size(),
+                             pipelined=False):
+        plan = tuple(_plan)
+    else:
+        raise ValueError(f"int8_matmul: plan {_plan} is not built or does "
+                         f"not fit for M={M}, N={N}, K={K}, {x.dtype}")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     INT8_MATMUL.launch(_build.ptr(x), _build.ptr(wq), _build.ptr(scale),
-                       _build.ptr(out), M, N, K, DTYPE_CODES[x.dtype],
+                       _build.ptr(out), M, N, K, *plan, DTYPE_CODES[x.dtype],
                        x.device.index, _build.stream_of(x))
     return out

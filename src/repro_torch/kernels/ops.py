@@ -20,7 +20,7 @@ from repro_torch.kernels.int8_matmul import BLOCK_K as INT8_BLOCK_K
 from repro_torch.kernels.int8_matmul import int8_matmul as _int8_matmul
 from repro_torch.kernels.pipeline import (choose_depth,
                                           flash_attention_pipelined,
-                                          int8_depth, int8_matmul_pipelined,
+                                          int8_matmul_pipelined,
                                           int8_ring_takes, ssd_plan,
                                           ssd_scan_pipelined, use_pipeline)
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
@@ -63,16 +63,15 @@ def int8_matmul(x, wq, scale, *, pipelined: bool | None = None):
 
     K5 (``pipelined``) when the k sweep has two of the kernels' 64-wide
     steps or more (``use_pipeline``), M ≤ ``INT8_PIPELINE_MAX_M`` and K5's
-    ``cp.async`` copies take the operands (``int8_ring_takes``), else K4;
-    ``pipelined`` forces the choice where the sweep and the operands allow
-    it.
+    TMA copies take the operands (``int8_ring_takes``), else K4; each at
+    ``pipeline.int8_plan``'s plan; ``pipelined`` forces the choice where
+    the sweep and the operands allow it.
     """
     x, wq, scale = x.contiguous(), wq.contiguous(), scale.contiguous()
     M, K = x.shape
     want = M <= INT8_PIPELINE_MAX_M if pipelined is None else pipelined
     if use_pipeline(-(-K // INT8_BLOCK_K), want) and int8_ring_takes(x, wq):
-        return int8_matmul_pipelined(x, wq, scale,
-                                     depth=int8_depth(K, x.element_size()))
+        return int8_matmul_pipelined(x, wq, scale)
     return _int8_matmul(x, wq, scale)
 
 

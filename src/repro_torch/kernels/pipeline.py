@@ -16,6 +16,8 @@ the K/V sweep has two tiles or more.
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
 
 import torch
 
@@ -137,65 +139,217 @@ def flash_attention_pipelined(q, k, v, mask, *, sm_scale: float,
 # K5: the int8-weight GEMM with x and wq tiles streamed
 # ---------------------------------------------------------------------------
 
-#: Output tile of K5 (rows x columns): few rows and many column blocks, for
-#: the decode regime (csrc/int8_matmul_pipelined.cu).
-I8_PIPE_BLOCK_M = 8
-I8_PIPE_BLOCK_N = 32
-
 INT8_MATMUL_PIPELINED = _build.CudaKernel(
     "int8_matmul_pipelined", lib="int8_matmul_pipelined",
     symbol="int8_matmul_pipelined_launch",
-    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     replaces="src/repro/kernels/pipeline.py:242")
 
+#: k-values a stage of K5's ring (one 64-byte row of wq a tile row).
+K5_STAGE_K = 64
+#: What csrc/int8_matmul_pipelined.cu is built for: rows of x a block (8
+#: a tensor-core n-tile; more rows take more blocks) and rows of wq (16 a
+#: warp).
+K5_TILE_M = (8, 16, 32)
+K5_TILE_N = (64, 128)
+#: Most bytes of x's bf16 terms a K5 panel holds (csrc kPanelBudget).
+K5_PANEL_BUDGET = 110_592
 
-def int8_ring_bytes(itemsize: int, depth: int) -> int:
-    """Shared memory of one K5 block: ``depth`` stages of an x tile (8 rows
-    of 64 values) and a wq tile (32 rows of 64 bytes), each row padded by
-    16 bytes (csrc/int8_tile.cuh)."""
-    bk = _i8.BLOCK_K
-    stage = (I8_PIPE_BLOCK_M * (bk * itemsize + 16)
-             + I8_PIPE_BLOCK_N * (bk + 16))
-    return depth * stage
+
+def int8_ring_bytes(itemsize: int, depth: int, tile_n: int = 128) -> int:
+    """Shared memory of ``depth`` stages of K5's wq ring: ``tile_n`` rows
+    of 64 int8 a stage.  x's itemsize does not enter: x lies in its own
+    panel (``k5_smem_bytes``)."""
+    del itemsize
+    return depth * tile_n * K5_STAGE_K
 
 
 def int8_depth(K: int, itemsize: int, cap: int = 4) -> int:
-    """Deepest K5 ring that fits for a sweep of K values."""
+    """Deepest K5 ring (2..cap) no deeper than a sweep of K values takes
+    64-wide stages, whose stages fit."""
     depth = deepest_ring(lambda d: int8_ring_bytes(itemsize, d),
-                         -(-K // _i8.BLOCK_K), cap)
+                         -(-K // K5_STAGE_K), cap)
     if depth is None:
         raise ValueError(f"no int8 ring depth fits itemsize {itemsize}")
     return depth
 
 
+def k5_panel_stages(tile_m: int, itemsize: int, stages: int) -> int:
+    """Stages of a block's K range one panel of x's terms holds (3 terms
+    for fp32 x, 1 for bf16 and fp16), at most the block's ``stages``."""
+    terms = 3 if itemsize == 4 else 1
+    fit = (K5_PANEL_BUDGET // (terms * tile_m) - 16) // (2 * K5_STAGE_K)
+    return max(1, min(stages, fit))
+
+
+def k5_smem_bytes(tile_m: int, tile_n: int, split: int, depth: int,
+                  itemsize: int, K: int) -> int:
+    """Dynamic shared memory of one K5 block (csrc/int8_matmul_pipelined.cu
+    ``smem_bytes``): 128 bytes of alignment slack and 64 of mbarriers, the
+    ring, and the panel of x's terms (rows of 16-bit values padded by 8),
+    or where K is split and it is larger, the fp32 partial tile."""
+    stages = -(-(-(-K // K5_STAGE_K)) // split)
+    terms = 3 if itemsize == 4 else 1
+    ps = k5_panel_stages(tile_m, itemsize, stages)
+    main = (int8_ring_bytes(itemsize, depth, tile_n)
+            + terms * tile_m * (ps * K5_STAGE_K + 8) * 2)
+    part = tile_n * (tile_m + 4) * 4 if split > 1 else 0
+    return 128 + 64 + max(main, part)
+
+
 def int8_ring_takes(x, wq) -> bool:
-    """True iff K5's 16-byte ``cp.async`` copies take these operands: wq
-    rows of a multiple of 16 bytes (K % 16 == 0, which also makes x's rows
-    of fp32, bf16 or fp16 whole 16-byte chunks) and 16-byte aligned
-    bases."""
+    """True iff K5's TMA copies take these operands: wq rows of a multiple
+    of 16 bytes (K % 16 == 0, which also makes x's rows of fp32, bf16 or
+    fp16 whole 16-byte vectors) and 16-byte aligned bases."""
     return (x.shape[-1] % 16 == 0 and x.data_ptr() % 16 == 0
             and wq.data_ptr() % 16 == 0)
 
 
-def int8_matmul_pipelined(x, wq, scale, *, depth: int = 2):
-    """K5 on CUDA tensors, the plain version on CPU tensors."""
+def int8_matmul_pipelined(x, wq, scale, *, depth: int | None = None,
+                          _plan=None):
+    """K5 on CUDA tensors, the plain version on CPU tensors.
+
+    The plan is ``int8_plan``'s; ``depth`` replaces its ring depth, and
+    ``_plan`` (tile_m, tile_n, split, depth) the whole plan, for the plan
+    sweep and the card's tests only.  A plan or depth the kernel does not
+    take raises."""
     if x.device.type == "cpu":
         return ref.int8_matmul_ref(x, wq, scale)
     _i8.check_int8_args("int8_matmul_pipelined", x, wq, scale)
     if not int8_ring_takes(x, wq):
         raise ValueError(f"int8_matmul_pipelined: K={x.shape[1]} is not a "
                          f"multiple of 16 or an operand is not 16-byte "
-                         f"aligned (cp.async); K4 takes it")
-    if depth not in DEPTHS:
+                         f"aligned (TMA); K4 takes it")
+    if depth is not None and depth not in DEPTHS:
         raise ValueError(f"depth {depth} not in {DEPTHS}")
     M, K = x.shape
     N = wq.shape[0]
+    plan = _plan or int8_plan(M, N, K, x.element_size(), pipelined=True)
+    if depth is not None:
+        plan = (*plan[:3], depth)
+    if (_plan is not None or depth is not None) and not int8_plan_legal(
+            plan, M, N, K, x.element_size(), pipelined=True):
+        raise ValueError(f"int8_matmul_pipelined: plan {plan} is not built "
+                         f"or does not fit for M={M}, N={N}, K={K}, "
+                         f"{x.dtype}")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     INT8_MATMUL_PIPELINED.launch(
         _build.ptr(x), _build.ptr(wq), _build.ptr(scale), _build.ptr(out),
-        M, N, K, depth, _i8.DTYPE_CODES[x.dtype], x.device.index,
+        M, N, K, *plan, _i8.DTYPE_CODES[x.dtype], x.device.index,
         _build.stream_of(x))
     return out
+
+
+# ---------------------------------------------------------------------------
+# K4's and K5's plan
+# ---------------------------------------------------------------------------
+
+#: SMs of an H100 SXM.
+SMS = 132
+#: What csrc/int8_matmul.cu (K4) is built for: rows of the output tile (64
+#: a consumer warpgroup), its columns by x's itemsize (256 only for bf16
+#: and fp16: fp32 keeps a second set of accumulators), and the blocks of a
+#: cluster that split K.
+K4_TILE_M = (64, 128)
+K4_TILE_N = {4: (64, 128), 2: (64, 128, 256)}
+INT8_SPLITS = (1, 2, 4, 8)
+#: k-values a stage of K4's ring.
+K4_STAGE_K = 64
+
+
+def k4_smem_bytes(tile_m: int, tile_n: int, split: int, depth: int,
+                  itemsize: int) -> int:
+    """Dynamic shared memory of one K4 block (csrc/int8_matmul.cu
+    ``smem_bytes``): 1024 bytes of alignment slack and 128 of mbarriers,
+    then ``depth`` stages of the x tile (x's type), the widened wq tile
+    (2 bytes a value) and the int8 wq tile, or where K is split and it is
+    larger, the fp32 partial tile (rows padded by 8 floats)."""
+    stage = K4_STAGE_K * (tile_m * itemsize + 3 * tile_n)
+    part = tile_m * (tile_n + 8) * 4 if split > 1 else 0
+    return 1024 + 128 + max(depth * stage, part)
+
+
+def int8_plan_legal(plan, M: int, N: int, K: int, itemsize: int, *,
+                    pipelined: bool) -> bool:
+    """True iff the kernel (K5 if ``pipelined``, else K4) is built for
+    ``plan`` = (tile_m, tile_n, split, depth) and its block fits."""
+    tile_m, tile_n, split, depth = plan
+    if pipelined:
+        return (tile_m in K5_TILE_M and tile_n in K5_TILE_N
+                and split in INT8_SPLITS and split <= -(-K // K5_STAGE_K)
+                and depth in DEPTHS and K % 16 == 0
+                and -(-M // tile_m) <= 65535
+                and k5_smem_bytes(tile_m, tile_n, split, depth, itemsize,
+                                  K) <= MAX_SMEM)
+    return (tile_m in K4_TILE_M and tile_n in K4_TILE_N[itemsize]
+            and split in INT8_SPLITS and split <= -(-K // K4_STAGE_K)
+            and depth in DEPTHS and -(-M // tile_m) <= 65535
+            and k4_smem_bytes(tile_m, tile_n, split, depth,
+                              itemsize) <= MAX_SMEM)
+
+
+def int8_plans(M: int, N: int, K: int, itemsize: int, *,
+               pipelined: bool) -> list[tuple[int, int, int, int]]:
+    """Every plan the kernel (K5 if ``pipelined``, else K4) is built for
+    and takes at this shape (``int8_plan_legal``)."""
+    tiles_m, tiles_n = ((K5_TILE_M, K5_TILE_N) if pipelined
+                        else (K4_TILE_M, K4_TILE_N[itemsize]))
+    return [plan for plan in itertools.product(tiles_m, tiles_n, INT8_SPLITS,
+                                               DEPTHS)
+            if int8_plan_legal(plan, M, N, K, itemsize, pipelined=pipelined)]
+
+
+@functools.lru_cache(maxsize=None)
+def int8_plan(M: int, N: int, K: int, itemsize: int, *,
+              pipelined: bool) -> tuple[int, int, int, int]:
+    """The plan (tile_m, tile_n, split, depth) of K5 (``pipelined``) or K4
+    for an (M, K) x (N, K) int8 GEMM with x of ``itemsize`` bytes.
+
+    K4: 128 rows a tile (two consumer warpgroups) above 64 rows, else 64;
+    the widest tile whose grid reaches 7/8 of the SMs, else 128 columns;
+    K split over a cluster of 2, 4 or 8 blocks while the grid stays within
+    one wave and each block keeps two stages or more; a ring of 2 stages
+    for fp32 x, 3 for bf16 and fp16, no deeper than the block's stages.
+    At the (i2) shapes (M = 512; K, N of 768, 2048 and the 768 x 32000
+    unembedding) this takes the fastest plan of the sweep in PERF.md, or
+    one within 4 % of it.
+
+    K5: ``_k5_plan``."""
+    if pipelined:
+        return _k5_plan(M, N, K, itemsize)
+    nk = -(-K // K4_STAGE_K)
+    tile_m = 128 if M > 64 else 64
+    widths = K4_TILE_N[itemsize]
+
+    def tiles(tn):
+        return -(-M // tile_m) * -(-N // tn)
+    tile_n = next((tn for tn in reversed(widths)
+                   if 8 * tiles(tn) >= 7 * SMS), 128)
+    split = 1
+    while (2 * split in INT8_SPLITS and tiles(tile_n) * 2 * split <= SMS
+           and nk >= 4 * split):
+        split *= 2
+    depth = min(2 if itemsize == 4 else 3, max(2, -(-nk // split)))
+    return tile_m, tile_n, split, depth
+
+
+def _k5_plan(M: int, N: int, K: int, itemsize: int):
+    """K5's plan: the fewest rows of x a block (8, 16 or 32) that hold M,
+    else 32 and more blocks; 128 rows of wq a block where the blocks reach
+    the SMs, else 64; K split over a cluster of 2, 4 or 8 blocks while the
+    grid stays within two blocks an SM and no split is past K's 64-wide
+    stages; a ring of 2 stages (deeper rings were no faster at any (i2)
+    shape in the sweep in PERF.md)."""
+    nk = -(-K // K5_STAGE_K)
+    tile_m = next((t for t in K5_TILE_M if t >= M), max(K5_TILE_M))
+    rows = -(-M // tile_m)
+    tile_n = 128 if rows * -(-N // 128) >= SMS else 64
+    blocks = rows * -(-N // tile_n)
+    split = 1
+    while (2 * split in INT8_SPLITS and blocks * 2 * split <= 2 * SMS
+           and 2 * split <= nk):
+        split *= 2
+    return tile_m, tile_n, split, 2
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_int8kv)
-from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.kernels.int8_matmul import INT8_MATMUL, int8_matmul
 from repro_torch.kernels import pipeline
 from repro_torch.kernels.pipeline import flash_attention_pipelined
 from repro_torch.kernels.ssd_scan import ssd_scan
@@ -741,6 +741,101 @@ def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(gen):
                 fn(*args)
     with pytest.raises(ValueError):
         pipeline.int8_matmul_pipelined(x, wq, scale, depth=5)
+
+
+# ragged M, N and K around the plans' tiles and stages (K 100 and 2050 off
+# K5's 16-byte grid)
+INT8_PLAN_M = (1, 7, 100, 513)
+INT8_PLAN_N = (1000, 32000)
+INT8_PLAN_K = (100, 768, 2048, 2050)
+
+
+def _every_plan(gen, kernel, M, N, K, dtype):
+    """Every plan ``kernel`` is built for at (M, N, K) against the plain
+    version at ``_int8_tol``, each launched once, twice with the same bits
+    (the split-K sum is deterministic)."""
+    pipelined = kernel == "int8_matmul_pipelined"
+    fn = pipeline.int8_matmul_pipelined if pipelined else int8_matmul
+    x, wq, scale = _int8_inputs(gen, M, N, K, dtype)
+    want = ref.int8_matmul_ref(x, wq, scale)
+    tol = _int8_tol(x, wq, scale)
+    plans = pipeline.int8_plans(M, N, K, x.element_size(),
+                                pipelined=pipelined)
+    assert pipeline.int8_plan(M, N, K, x.element_size(),
+                              pipelined=pipelined) in plans
+    for plan in plans:
+        got = _launched(kernel, lambda: fn(x, wq, scale, _plan=plan))
+        torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{plan}: {m}")
+        again = _launched(kernel, lambda: fn(x, wq, scale, _plan=plan))
+        assert torch.equal(got, again), plan
+    return plans
+
+
+@pytest.mark.parametrize("dtype", INT8_DTYPES)
+@pytest.mark.parametrize("K", INT8_PLAN_K)
+@pytest.mark.parametrize("N", INT8_PLAN_N)
+@pytest.mark.parametrize("M", INT8_PLAN_M)
+def test_int8_k4_every_plan(gen, M, N, K, dtype):
+    plans = _every_plan(gen, "int8_matmul", M, N, K, dtype)
+    assert {p[2] for p in plans} == {s for s in pipeline.INT8_SPLITS
+                                     if s <= -(-K // 64)}
+
+
+@pytest.mark.parametrize("dtype", INT8_DTYPES)
+@pytest.mark.parametrize("K", [k for k in INT8_PLAN_K if k % 16 == 0])
+@pytest.mark.parametrize("N", INT8_PLAN_N)
+@pytest.mark.parametrize("M", INT8_PLAN_M)
+def test_int8_k5_every_plan(gen, M, N, K, dtype):
+    plans = _every_plan(gen, "int8_matmul_pipelined", M, N, K, dtype)
+    assert {p[2] for p in plans} == set(pipeline.INT8_SPLITS)
+
+
+def test_int8_smem_mirrors_match_the_kernels(gen):
+    """``k4_smem_bytes`` / ``k5_smem_bytes`` are the bytes the libraries
+    ask for, at every plan."""
+    k4, k5 = INT8_MATMUL, pipeline.INT8_MATMUL_PIPELINED
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        itemsize = torch.tensor([], dtype=dtype).element_size()
+        for K in (768, 2048, 4096):
+            for plan in pipeline.int8_plans(512, 32000, K, itemsize,
+                                            pipelined=False):
+                assert k4.query("int8_matmul_smem", *plan, code) == \
+                    pipeline.k4_smem_bytes(*plan, itemsize)
+            for plan in pipeline.int8_plans(8, 32000, K, itemsize,
+                                            pipelined=True):
+                assert k5.query("int8_matmul_pipelined_smem", *plan, code,
+                                K) == pipeline.k5_smem_bytes(*plan, itemsize,
+                                                             K)
+
+
+def test_int8_k5_refuses_what_its_tma_cannot_copy(gen):
+    """K5 raises at K % 16 != 0 and on operands off 16-byte alignment, and
+    on a plan it is not built for; K4 takes all of them."""
+    for K in (100, 2050):
+        x, wq, scale = _int8_inputs(gen, 8, 96, K, torch.float32)
+        with pytest.raises(ValueError):
+            pipeline.int8_matmul_pipelined(x, wq, scale)
+        _launched("int8_matmul", lambda: int8_matmul(x, wq, scale))
+    x, wq, scale = _int8_inputs(gen, 8, 96, 768, torch.float32)
+    buf = torch.empty(x.numel() + 1, device="cuda")
+    xs = buf[1:].view(8, 768)
+    xs.copy_(x)
+    wbuf = torch.empty(wq.numel() + 8, device="cuda", dtype=torch.int8)
+    ws = wbuf[8:].view(96, 768)
+    ws.copy_(wq)
+    for args in ((xs, wq, scale), (x, ws, scale)):
+        with pytest.raises(ValueError):
+            pipeline.int8_matmul_pipelined(*args)
+        got = _launched("int8_matmul", lambda: int8_matmul(*args))
+        torch.testing.assert_close(got, ref.int8_matmul_ref(x, wq, scale),
+                                   **_int8_tol(x, wq, scale))
+    for plan in ((8, 32, 1, 2), (8, 64, 3, 2), (8, 64, 1, 5), (64, 64, 1, 2)):
+        with pytest.raises(ValueError):
+            pipeline.int8_matmul_pipelined(x, wq, scale, _plan=plan)
+    for plan in ((32, 64, 1, 2), (128, 256, 1, 2), (64, 64, 16, 2),
+                 (128, 128, 1, 5)):
+        with pytest.raises(ValueError):
+            int8_matmul(x, wq, scale, _plan=plan)
 
 
 def _int8kv_cuda(gen, B, S, H, K, T, hd, dtype):
