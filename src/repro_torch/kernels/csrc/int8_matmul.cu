@@ -15,9 +15,12 @@
 // consumer warpgroups; tile_n 64, 128 or 256), plus one producer
 // warpgroup.  Thread 0 of the producer streams the x tile (x's type, 64 k
 // a stage, 128-byte swizzle) and the int8 wq tile into a ring of `depth`
-// stages with TMA, one mbarrier a stage; the producer's 128 threads widen
-// each landed wq tile into bf16 (fp16 for fp16 x) in wgmma's K-major
-// 128-byte-swizzled layout (B) and arrive on a second mbarrier.  Each
+// stages with TMA, one mbarrier a stage, refilling each slot as soon as the
+// consumers release it; the producer's other three warps widen each landed
+// wq tile into bf16 (fp16 for fp16 x) in wgmma's K-major 128-byte-swizzled
+// layout (B) and arrive on a second mbarrier (a first design let thread 0
+// widen too and refill only after its share: the stream then waited on
+// the widening, and the two added up).  Each
 // consumer warpgroup reads its 64 rows of x from shared memory into
 // registers (A): fp32 x is cut there into hi, mid and lo bf16 by masking
 // bits (i8mm::split3; no rounding), and the three wgmma passes share one B
@@ -44,6 +47,7 @@ namespace {
 using namespace i8mm;
 
 constexpr int kBK = 64;  // k-values a stage
+constexpr int kConverters = 96;  // producer threads that widen wq (warps 1-3)
 constexpr int kBarBytes = 128;
 constexpr int kAlign = 1024;
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use on sm_90
@@ -134,8 +138,8 @@ int8_mm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
   if (threadIdx.x == 0) {
     for (int s = 0; s < depth; ++s) {
       tma::mbar_init(full_tma + s, 1);
-      tma::mbar_init(full_b + s, 128);
-      tma::mbar_init(empty + s, 128 * C);
+      tma::mbar_init(full_b + s, kConverters / 32);
+      tma::mbar_init(empty + s, 4 * C);
     }
     tma::fence_barrier_init();
   }
@@ -148,72 +152,76 @@ int8_mm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
   if (grp == 0) {
     // ---------------- producer ----------------
     if constexpr (C == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
-    const int pt = threadIdx.x;
-    auto issue = [&](int i) {  // thread 0: TMA of stage tile i
-      const int s = i % depth, k0 = (t0 + i) * kBK;
-      tma::mbar_expect(full_tma + s, G::kXBytes + G::kWBytes);
-      if constexpr (G::kF32) {
-        tma::load_2d(stage_x(s), &xmap, k0, m0, full_tma + s);
-        tma::load_2d(stage_x(s) + BM * 128, &xmap, k0 + 32, m0, full_tma + s);
-      } else {
-        tma::load_2d(stage_x(s), &xmap, k0, m0, full_tma + s);
+    if (threadIdx.x < 32) {
+      // warp 0, thread 0: TMA, each stage as soon as its slot is free
+      if (use_tma && threadIdx.x == 0) {
+        for (int i = 0; i < nt; ++i) {
+          const int s = i % depth, k0 = (t0 + i) * kBK;
+          if (i >= depth) tma::mbar_wait(empty + s, ((i / depth) - 1) & 1);
+          tma::mbar_expect(full_tma + s, G::kXBytes + G::kWBytes);
+          if constexpr (G::kF32) {
+            tma::load_2d(stage_x(s), &xmap, k0, m0, full_tma + s);
+            tma::load_2d(stage_x(s) + BM * 128, &xmap, k0 + 32, m0, full_tma + s);
+          } else {
+            tma::load_2d(stage_x(s), &xmap, k0, m0, full_tma + s);
+          }
+          tma::load_2d(stage_w(s), &wmap, k0, n0, full_tma + s);
+        }
       }
-      tma::load_2d(stage_w(s), &wmap, k0, n0, full_tma + s);
-    };
-    if (use_tma && pt == 0)
-      for (int i = 0; i < min(depth, nt); ++i) issue(i);
-    for (int i = 0; i < nt; ++i) {
-      const int s = i % depth;
-      const uint32_t ph = (i / depth) & 1;
-      uint8_t* bs = stage_b(s);
-      if (use_tma) {
-        tma::mbar_wait(full_tma + s, ph);
-        const uint8_t* ws = stage_w(s);
-        // 16 int8 of row n (k 16c .. 16c+15) -> B chunks 2c, 2c+1 of row n
-        for (int it = pt; it < BN * 4; it += 128) {
-          const int n = it >> 2, c = it & 3;
-          const uint4 w = *reinterpret_cast<const uint4*>(ws + n * kBK + 16 * c);
-          uint4 lo, hi;
-          widen4<G::kF16>(w.x, lo.x, lo.y);
-          widen4<G::kF16>(w.y, lo.z, lo.w);
-          widen4<G::kF16>(w.z, hi.x, hi.y);
-          widen4<G::kF16>(w.w, hi.z, hi.w);
-          *reinterpret_cast<uint4*>(bs + b_offset(n, 16 * c)) = lo;
-          *reinterpret_cast<uint4*>(bs + b_offset(n, 16 * c + 8)) = hi;
+      __syncwarp();
+    } else {
+      // warps 1-3: widen each landed wq tile into B (or, off TMA's grid,
+      // copy x and wq element by element)
+      const int ct = threadIdx.x - 32;
+      for (int i = 0; i < nt; ++i) {
+        const int s = i % depth;
+        const uint32_t ph = (i / depth) & 1;
+        uint8_t* bs = stage_b(s);
+        if (use_tma) {
+          tma::mbar_wait(full_tma + s, ph);
+          const uint8_t* ws = stage_w(s);
+          // 16 int8 of row n (k 16c .. 16c+15) -> B chunks 2c, 2c+1 of row n
+          for (int it = ct; it < BN * 4; it += kConverters) {
+            const int n = it >> 2, c = it & 3;
+            const uint4 w = *reinterpret_cast<const uint4*>(ws + n * kBK + 16 * c);
+            uint4 lo, hi;
+            widen4<G::kF16>(w.x, lo.x, lo.y);
+            widen4<G::kF16>(w.y, lo.z, lo.w);
+            widen4<G::kF16>(w.z, hi.x, hi.y);
+            widen4<G::kF16>(w.w, hi.z, hi.w);
+            *reinterpret_cast<uint4*>(bs + b_offset(n, 16 * c)) = lo;
+            *reinterpret_cast<uint4*>(bs + b_offset(n, 16 * c + 8)) = hi;
+          }
+        } else {
+          if (i >= depth) tma::mbar_wait(empty + s, ((i / depth) - 1) & 1);
+          const int k0 = (t0 + i) * kBK;
+          // x's bits as they are, zeros past M and K
+          using U = typename std::conditional<sizeof(T) == 4, uint32_t, uint16_t>::type;
+          const U* xu = reinterpret_cast<const U*>(x);
+          T* xs = reinterpret_cast<T*>(stage_x(s));
+          for (int e = ct; e < BM * kBK; e += kConverters) {
+            const int r = e / kBK, c = e % kBK;
+            const int m = m0 + r, k = k0 + c;
+            const U v = (m < M && k < K) ? xu[static_cast<size_t>(m) * K + k] : U(0);
+            *reinterpret_cast<U*>(stage_x(s) + x_offset(xs, BM, r, c)) = v;
+          }
+          for (int e = ct; e < BN * kBK; e += kConverters) {
+            const int n = e / kBK, c = e % kBK;
+            const int nn = n0 + n, k = k0 + c;
+            const int8_t v = (nn < N && k < K) ? wq[static_cast<size_t>(nn) * K + k] : 0;
+            *reinterpret_cast<uint16_t*>(bs + b_offset(n, c)) = widen1<G::kF16>(v);
+          }
+          if (ct == 0) tma::mbar_arrive(full_tma + s);
         }
-      } else {
-        if (i >= depth) tma::mbar_wait(empty + s, ((i / depth) - 1) & 1);
-        const int k0 = (t0 + i) * kBK;
-        // x's bits as they are, zeros past M and K
-        using U = typename std::conditional<sizeof(T) == 4, uint32_t, uint16_t>::type;
-        const U* xu = reinterpret_cast<const U*>(x);
-        T* xs = reinterpret_cast<T*>(stage_x(s));
-        for (int e = pt; e < BM * kBK; e += 128) {
-          const int r = e / kBK, c = e % kBK;
-          const int m = m0 + r, k = k0 + c;
-          const U v = (m < M && k < K) ? xu[static_cast<size_t>(m) * K + k] : U(0);
-          *reinterpret_cast<U*>(stage_x(s) + x_offset(xs, BM, r, c)) = v;
-        }
-        for (int e = pt; e < BN * kBK; e += 128) {
-          const int n = e / kBK, c = e % kBK;
-          const int nn = n0 + n, k = k0 + c;
-          const int8_t v = (nn < N && k < K) ? wq[static_cast<size_t>(nn) * K + k] : 0;
-          *reinterpret_cast<uint16_t*>(bs + b_offset(n, c)) = widen1<G::kF16>(v);
-        }
-        if (pt == 0) tma::mbar_arrive(full_tma + s);
-      }
-      tma::fence_proxy_async();  // B (and x) stores -> visible to wgmma
-      tma::mbar_arrive(full_b + s);
-      // refill the slot tile i-1 used once the consumers are done with it
-      if (use_tma && pt == 0 && i >= 1 && i - 1 + depth < nt) {
-        tma::mbar_wait(empty + (i - 1) % depth, ((i - 1) / depth) & 1);
-        issue(i - 1 + depth);
+        tma::fence_proxy_async();  // B (and x) stores -> visible to wgmma
+        __syncwarp();
+        if (threadIdx.x % 32 == 0) tma::mbar_arrive(full_b + s);  // one arrival a warp
       }
     }
     // the accumulators never cross into this branch: after setmaxnreg it
     // has too few registers to hold them
     if (split > 1) {
-      __syncthreads();  // the consumers write their partials
+      __syncthreads();  // the consumers' barrier before their partials
       split_reduce<T, BM, BN, G::kPartStride, G::kThreads>(reinterpret_cast<float*>(ring), scale,
                                                            out, m0, n0, M, N, split, rank);
     }
@@ -279,7 +287,8 @@ int8_mm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
                                     (G::kPromote && p == 0 && j == 0) ? 0 : 1);
       wg::commit();
       wg::wait<0>();
-      tma::mbar_arrive(empty + s);
+      __syncwarp();
+      if (lane == 0) tma::mbar_arrive(empty + s);  // one arrival a warp
       if constexpr (G::kPromote) {
 #pragma unroll
         for (int e = 0; e < BN / 2; ++e) sum[e] += acc[e];
