@@ -1391,8 +1391,9 @@ def int8_bounds(M: int, N: int, K: int, itemsize: int) -> dict:
 
 
 #: The instantiation of each int8 kernel, by plan, in its build log.
-_INT8_TEMPLATE = {"int8_matmul": ("int8_mm_kernelI{t}Li{tile_n}ELi{c}E",
-                                  lambda tm, tn: {"tile_n": tn, "c": tm // 64}),
+_INT8_TEMPLATE = {"int8_matmul": (
+                      "int8_mm_kernelI{t}Li{tile_n}ELi{c}E",
+                      lambda tm, tn: {"tile_n": tn, "c": tm // 64}),
                   "int8_matmul_pipelined": (
                       "int8_mm_pipelined_kernelI{t}Li{mt}ELi{w}E",
                       lambda tm, tn: {"mt": tm // 8, "w": tn // 16})}

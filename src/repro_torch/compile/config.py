@@ -88,6 +88,9 @@ class LoweringConfig:
             raise ValueError(f"unknown backend {backend!r}; "
                              f"valid: {VALID_BACKENDS}")
         self.backend = backend
+        # int8_matmul's lowering by (M, K, N, dtype): the decision is fixed
+        # for a shape, and the entry point is called once a projection
+        self._int8_isax: dict = {}
 
     def __repr__(self):
         return f"LoweringConfig(backend={self.backend!r})"
@@ -146,9 +149,12 @@ class LoweringConfig:
         (M,N) of x's dtype; K4/K5 where ``lower`` says ``isax`` (routed by
         ``kernels.ops.int8_matmul``), the plain version where it says
         ``reference``."""
-        M, K = x.shape
-        N = wq.shape[0]
-        if self.lower("int8_matmul", (M, K, N), x.dtype).impl == "isax":
+        key = (*x.shape, wq.shape[0], x.dtype)
+        isax = self._int8_isax.get(key)
+        if isax is None:
+            isax = self._int8_isax[key] = self.lower(
+                "int8_matmul", key[:3], x.dtype).impl == "isax"
+        if isax:
             return kernel_ops.int8_matmul(x, wq, scale)
         return kernel_ref.int8_matmul_ref(x, wq, scale)
 

@@ -11,9 +11,12 @@
 // ~N*K weight bytes, ~2*M flop/byte: bound by operations.  fp32 x runs as
 // three bf16 passes (989 / 3 TFLOP/s), bf16 and fp16 x as one (989).
 //
-// Design: one block a tile_m x tile_n output tile (tile_m = 64 * C for C
-// consumer warpgroups; tile_n 64, 128 or 256), plus one producer
-// warpgroup.  Thread 0 of the producer streams the x tile (x's type, 64 k
+// Design: output tiles of tile_m x tile_n (tile_m = 64 * C for C consumer
+// warpgroups; tile_n 64, 128 or 256), and one producer warpgroup.  Without
+// a K split, one block an SM walks its tiles (persistent), so that the next
+// tile's loads and widening overlap this tile's epilogue (one tile a block
+// left the SM idle through each epilogue and each new block's first
+// loads).  Thread 0 of the producer streams the x tile (x's type, 64 k
 // a stage, 128-byte swizzle) and the int8 wq tile into a ring of `depth`
 // stages with TMA, one mbarrier a stage, refilling each slot as soon as the
 // consumers release it; the producer's other three warps widen each landed
@@ -129,7 +132,10 @@ int8_mm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
       (reinterpret_cast<uintptr_t>(smem_raw + kBarBytes) + kAlign - 1) &
       ~static_cast<uintptr_t>(kAlign - 1));
   const int grp = threadIdx.x / 128;  // warpgroup 0: producer, 1..C: consumers
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  // output tiles, N-tile fastest: a block takes tiles tile0, tile0 + step, ...
+  // (split 1: one block an SM walks them; split > 1: one tile a cluster)
+  const int tiles_n = cdiv(N, BN), ntiles = tiles_n * cdiv(M, BM);
+  const int tile0 = blockIdx.y * gridDim.x + blockIdx.x, step = gridDim.x * gridDim.y;
   const int split = gridDim.z, rank = blockIdx.z;
   const int nk = cdiv(K, kBK);
   const int t0 = rank * tiles_per_split;
@@ -155,75 +161,82 @@ int8_mm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
     if (threadIdx.x < 32) {
       // warp 0, thread 0: TMA, each stage as soon as its slot is free
       if (use_tma && threadIdx.x == 0) {
-        for (int i = 0; i < nt; ++i) {
-          const int s = i % depth, k0 = (t0 + i) * kBK;
-          if (i >= depth) tma::mbar_wait(empty + s, ((i / depth) - 1) & 1);
-          tma::mbar_expect(full_tma + s, G::kXBytes + G::kWBytes);
-          if constexpr (G::kF32) {
-            tma::load_2d(stage_x(s), &xmap, k0, m0, full_tma + s);
-            tma::load_2d(stage_x(s) + BM * 128, &xmap, k0 + 32, m0, full_tma + s);
-          } else {
-            tma::load_2d(stage_x(s), &xmap, k0, m0, full_tma + s);
+        int q = 0;  // stages issued over this block's tiles
+        for (int tile = tile0; tile < ntiles; tile += step)
+          for (int i = 0; i < nt; ++i, ++q) {
+            const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+            const int s = q % depth, k0 = (t0 + i) * kBK;
+            if (q >= depth) tma::mbar_wait(empty + s, ((q / depth) - 1) & 1);
+            tma::mbar_expect(full_tma + s, G::kXBytes + G::kWBytes);
+            if constexpr (G::kF32) {
+              tma::load_2d(stage_x(s), &xmap, k0, m0, full_tma + s);
+              tma::load_2d(stage_x(s) + BM * 128, &xmap, k0 + 32, m0, full_tma + s);
+            } else {
+              tma::load_2d(stage_x(s), &xmap, k0, m0, full_tma + s);
+            }
+            tma::load_2d(stage_w(s), &wmap, k0, n0, full_tma + s);
           }
-          tma::load_2d(stage_w(s), &wmap, k0, n0, full_tma + s);
-        }
       }
       __syncwarp();
     } else {
       // warps 1-3: widen each landed wq tile into B (or, off TMA's grid,
       // copy x and wq element by element)
       const int ct = threadIdx.x - 32;
-      for (int i = 0; i < nt; ++i) {
-        const int s = i % depth;
-        const uint32_t ph = (i / depth) & 1;
-        uint8_t* bs = stage_b(s);
-        if (use_tma) {
-          tma::mbar_wait(full_tma + s, ph);
-          const uint8_t* ws = stage_w(s);
-          // 16 int8 of row n (k 16c .. 16c+15) -> B chunks 2c, 2c+1 of row n
-          for (int it = ct; it < BN * 4; it += kConverters) {
-            const int n = it >> 2, c = it & 3;
-            const uint4 w = *reinterpret_cast<const uint4*>(ws + n * kBK + 16 * c);
-            uint4 lo, hi;
-            widen4<G::kF16>(w.x, lo.x, lo.y);
-            widen4<G::kF16>(w.y, lo.z, lo.w);
-            widen4<G::kF16>(w.z, hi.x, hi.y);
-            widen4<G::kF16>(w.w, hi.z, hi.w);
-            *reinterpret_cast<uint4*>(bs + b_offset(n, 16 * c)) = lo;
-            *reinterpret_cast<uint4*>(bs + b_offset(n, 16 * c + 8)) = hi;
+      int q = 0;
+      for (int tile = tile0; tile < ntiles; tile += step)
+        for (int i = 0; i < nt; ++i, ++q) {
+          const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+          const int s = q % depth;
+          const uint32_t ph = (q / depth) & 1;
+          uint8_t* bs = stage_b(s);
+          if (use_tma) {
+            tma::mbar_wait(full_tma + s, ph);
+            const uint8_t* ws = stage_w(s);
+            // 16 int8 of row n (k 16c .. 16c+15) -> B chunks 2c, 2c+1 of row n
+            for (int it = ct; it < BN * 4; it += kConverters) {
+              const int n = it >> 2, c = it & 3;
+              const uint4 w = *reinterpret_cast<const uint4*>(ws + n * kBK + 16 * c);
+              uint4 lo, hi;
+              widen4<G::kF16>(w.x, lo.x, lo.y);
+              widen4<G::kF16>(w.y, lo.z, lo.w);
+              widen4<G::kF16>(w.z, hi.x, hi.y);
+              widen4<G::kF16>(w.w, hi.z, hi.w);
+              *reinterpret_cast<uint4*>(bs + b_offset(n, 16 * c)) = lo;
+              *reinterpret_cast<uint4*>(bs + b_offset(n, 16 * c + 8)) = hi;
+            }
+          } else {
+            if (q >= depth) tma::mbar_wait(empty + s, ((q / depth) - 1) & 1);
+            const int k0 = (t0 + i) * kBK;
+            // x's bits as they are, zeros past M and K
+            using U = typename std::conditional<sizeof(T) == 4, uint32_t, uint16_t>::type;
+            const U* xu = reinterpret_cast<const U*>(x);
+            T* xs = reinterpret_cast<T*>(stage_x(s));
+            for (int e = ct; e < BM * kBK; e += kConverters) {
+              const int r = e / kBK, c = e % kBK;
+              const int m = m0 + r, k = k0 + c;
+              const U v = (m < M && k < K) ? xu[static_cast<size_t>(m) * K + k] : U(0);
+              *reinterpret_cast<U*>(stage_x(s) + x_offset(xs, BM, r, c)) = v;
+            }
+            for (int e = ct; e < BN * kBK; e += kConverters) {
+              const int n = e / kBK, c = e % kBK;
+              const int nn = n0 + n, k = k0 + c;
+              const int8_t v = (nn < N && k < K) ? wq[static_cast<size_t>(nn) * K + k] : 0;
+              *reinterpret_cast<uint16_t*>(bs + b_offset(n, c)) = widen1<G::kF16>(v);
+            }
+            if (ct == 0) tma::mbar_arrive(full_tma + s);
           }
-        } else {
-          if (i >= depth) tma::mbar_wait(empty + s, ((i / depth) - 1) & 1);
-          const int k0 = (t0 + i) * kBK;
-          // x's bits as they are, zeros past M and K
-          using U = typename std::conditional<sizeof(T) == 4, uint32_t, uint16_t>::type;
-          const U* xu = reinterpret_cast<const U*>(x);
-          T* xs = reinterpret_cast<T*>(stage_x(s));
-          for (int e = ct; e < BM * kBK; e += kConverters) {
-            const int r = e / kBK, c = e % kBK;
-            const int m = m0 + r, k = k0 + c;
-            const U v = (m < M && k < K) ? xu[static_cast<size_t>(m) * K + k] : U(0);
-            *reinterpret_cast<U*>(stage_x(s) + x_offset(xs, BM, r, c)) = v;
-          }
-          for (int e = ct; e < BN * kBK; e += kConverters) {
-            const int n = e / kBK, c = e % kBK;
-            const int nn = n0 + n, k = k0 + c;
-            const int8_t v = (nn < N && k < K) ? wq[static_cast<size_t>(nn) * K + k] : 0;
-            *reinterpret_cast<uint16_t*>(bs + b_offset(n, c)) = widen1<G::kF16>(v);
-          }
-          if (ct == 0) tma::mbar_arrive(full_tma + s);
+          tma::fence_proxy_async();  // B (and x) stores -> visible to wgmma
+          __syncwarp();
+          if (threadIdx.x % 32 == 0) tma::mbar_arrive(full_b + s);  // one arrival a warp
         }
-        tma::fence_proxy_async();  // B (and x) stores -> visible to wgmma
-        __syncwarp();
-        if (threadIdx.x % 32 == 0) tma::mbar_arrive(full_b + s);  // one arrival a warp
-      }
     }
     // the accumulators never cross into this branch: after setmaxnreg it
     // has too few registers to hold them
     if (split > 1) {
       __syncthreads();  // the consumers' barrier before their partials
-      split_reduce<T, BM, BN, G::kPartStride, G::kThreads>(reinterpret_cast<float*>(ring), scale,
-                                                           out, m0, n0, M, N, split, rank);
+      split_reduce<T, BM, BN, G::kPartStride, G::kThreads>(
+          reinterpret_cast<float*>(ring), scale, out, tile0 / tiles_n * BM, tile0 % tiles_n * BN,
+          M, N, split, rank);
     }
     return;
   }
@@ -235,114 +248,119 @@ int8_mm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
     const int r0 = 64 * (grp - 1) + 16 * warp + g;  // this thread's rows r0, r0 + 8
     // output (r0 + 8h, 8j + 2t + e) of the tile is acc (or sum)[4j + 2h + e],
     // as wgmma lays it out
-    float acc[BN / 2];
-    float sum[G::kPromote ? BN / 2 : 1];
+    int q = 0;
+    for (int tile = tile0; tile < ntiles; tile += step) {
+      const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+      float acc[BN / 2];
+      float sum[G::kPromote ? BN / 2 : 1];
 #pragma unroll
-    for (int e = 0; e < BN / 2; ++e) acc[e] = 0.f;
+      for (int e = 0; e < BN / 2; ++e) acc[e] = 0.f;
 #pragma unroll
-    for (int e = 0; e < (G::kPromote ? BN / 2 : 1); ++e) sum[e] = 0.f;
-    for (int i = 0; i < nt; ++i) {
-      const int s = i % depth;
-      const uint32_t ph = (i / depth) & 1;
-      tma::mbar_wait(full_tma + s, ph);
-      tma::mbar_wait(full_b + s, ph);
-      const uint8_t* xs = stage_x(s);
-      // A fragments of the 4 k16 steps: (r0, c), (r0+8, c), (r0, c+8), (r0+8, c+8)
-      uint32_t a[G::kPasses][4][4];
+      for (int e = 0; e < (G::kPromote ? BN / 2 : 1); ++e) sum[e] = 0.f;
+      for (int i = 0; i < nt; ++i, ++q) {
+        const int s = q % depth;
+        const uint32_t ph = (q / depth) & 1;
+        tma::mbar_wait(full_tma + s, ph);
+        tma::mbar_wait(full_b + s, ph);
+        const uint8_t* xs = stage_x(s);
+        // A fragments of the 4 k16 steps: (r0, c), (r0+8, c), (r0, c+8), (r0+8, c+8)
+        uint32_t a[G::kPasses][4][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = 16 * j + 2 * t;
-        if constexpr (G::kF32) {
-          float* tag = nullptr;
-          const float2 v[4] = {
-              *reinterpret_cast<const float2*>(xs + x_offset(tag, BM, r0, c)),
-              *reinterpret_cast<const float2*>(xs + x_offset(tag, BM, r0 + 8, c)),
-              *reinterpret_cast<const float2*>(xs + x_offset(tag, BM, r0, c + 8)),
-              *reinterpret_cast<const float2*>(xs + x_offset(tag, BM, r0 + 8, c + 8))};
+        for (int j = 0; j < 4; ++j) {
+          const int c = 16 * j + 2 * t;
+          if constexpr (G::kF32) {
+            float* tag = nullptr;
+            const float2 v[4] = {
+                *reinterpret_cast<const float2*>(xs + x_offset(tag, BM, r0, c)),
+                *reinterpret_cast<const float2*>(xs + x_offset(tag, BM, r0 + 8, c)),
+                *reinterpret_cast<const float2*>(xs + x_offset(tag, BM, r0, c + 8)),
+                *reinterpret_cast<const float2*>(xs + x_offset(tag, BM, r0 + 8, c + 8))};
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            uint32_t h0, m0b, l0, h1, m1b, l1;
-            split3(v[q].x, h0, m0b, l0);
-            split3(v[q].y, h1, m1b, l1);
-            a[0][j][q] = pack_hi16(l0, l1);  // lo pass first
-            a[1][j][q] = pack_hi16(m0b, m1b);
-            a[2][j][q] = pack_hi16(h0, h1);
-          }
-        } else {
-          T* tag = nullptr;
-          a[0][j][0] = *reinterpret_cast<const uint32_t*>(xs + x_offset(tag, BM, r0, c));
-          a[0][j][1] = *reinterpret_cast<const uint32_t*>(xs + x_offset(tag, BM, r0 + 8, c));
-          a[0][j][2] = *reinterpret_cast<const uint32_t*>(xs + x_offset(tag, BM, r0, c + 8));
-          a[0][j][3] =
-              *reinterpret_cast<const uint32_t*>(xs + x_offset(tag, BM, r0 + 8, c + 8));
-        }
-      }
-      const uint64_t desc = wg::make_desc_sw128(stage_b(s));
-      wg::fence();
-#pragma unroll
-      for (int p = 0; p < G::kPasses; ++p)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wg::Mma<BN, G::kF16>::run(acc, a[p][j], desc + 2 * j,
-                                    (G::kPromote && p == 0 && j == 0) ? 0 : 1);
-      wg::commit();
-      wg::wait<0>();
-      __syncwarp();
-      if (lane == 0) tma::mbar_arrive(empty + s);  // one arrival a warp
-      if constexpr (G::kPromote) {
-#pragma unroll
-        for (int e = 0; e < BN / 2; ++e) sum[e] += acc[e];
-      }
-    }
-
-    // ---------------- epilogue ----------------
-    const float* v = G::kPromote ? sum : acc;
-    if (split == 1) {
-      const bool pairs = N % 2 == 0;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int n = n0 + 8 * j + 2 * t;
-        if (n >= N) continue;
-        const float s0 = __ldg(scale + n);
-        const float s1 = n + 1 < N ? __ldg(scale + n + 1) : 0.f;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + r0 + 8 * h;
-          if (m >= M) continue;
-          T* o = out + static_cast<size_t>(m) * N + n;
-          const T y0 = from_f32<T>(v[4 * j + 2 * h] * s0);
-          const T y1 = from_f32<T>(v[4 * j + 2 * h + 1] * s1);
-          if (pairs) {
-            T pr[2] = {y0, y1};
-            if constexpr (sizeof(T) == 4)
-              *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(pr);
-            else
-              *reinterpret_cast<uint32_t*>(o) = *reinterpret_cast<const uint32_t*>(pr);
+            for (int q = 0; q < 4; ++q) {
+              uint32_t h0, m0b, l0, h1, m1b, l1;
+              split3(v[q].x, h0, m0b, l0);
+              split3(v[q].y, h1, m1b, l1);
+              a[0][j][q] = pack_hi16(l0, l1);  // lo pass first
+              a[1][j][q] = pack_hi16(m0b, m1b);
+              a[2][j][q] = pack_hi16(h0, h1);
+            }
           } else {
-            o[0] = y0;
-            if (n + 1 < N) o[1] = y1;
+            T* tag = nullptr;
+            a[0][j][0] = *reinterpret_cast<const uint32_t*>(xs + x_offset(tag, BM, r0, c));
+            a[0][j][1] = *reinterpret_cast<const uint32_t*>(xs + x_offset(tag, BM, r0 + 8, c));
+            a[0][j][2] = *reinterpret_cast<const uint32_t*>(xs + x_offset(tag, BM, r0, c + 8));
+            a[0][j][3] =
+                *reinterpret_cast<const uint32_t*>(xs + x_offset(tag, BM, r0 + 8, c + 8));
           }
         }
+        const uint64_t desc = wg::make_desc_sw128(stage_b(s));
+        wg::fence();
+#pragma unroll
+        for (int p = 0; p < G::kPasses; ++p)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            wg::Mma<BN, G::kF16>::run(acc, a[p][j], desc + 2 * j,
+                                      (G::kPromote && p == 0 && j == 0) ? 0 : 1);
+        wg::commit();
+        wg::wait<0>();
+        __syncwarp();
+        if (lane == 0) tma::mbar_arrive(empty + s);  // one arrival a warp
+        if constexpr (G::kPromote) {
+#pragma unroll
+          for (int e = 0; e < BN / 2; ++e) sum[e] += acc[e];
+        }
       }
-      return;
+
+      // ---------------- epilogue ----------------
+      const float* v = G::kPromote ? sum : acc;
+      if (split == 1) {
+        const bool pairs = N % 2 == 0;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int n = n0 + 8 * j + 2 * t;
+          if (n >= N) continue;
+          const float s0 = __ldg(scale + n);
+          const float s1 = n + 1 < N ? __ldg(scale + n + 1) : 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = m0 + r0 + 8 * h;
+            if (m >= M) continue;
+            T* o = out + static_cast<size_t>(m) * N + n;
+            const T y0 = from_f32<T>(v[4 * j + 2 * h] * s0);
+            const T y1 = from_f32<T>(v[4 * j + 2 * h + 1] * s1);
+            if (pairs) {
+              T pr[2] = {y0, y1};
+              if constexpr (sizeof(T) == 4)
+                *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(pr);
+              else
+                *reinterpret_cast<uint32_t*>(o) = *reinterpret_cast<const uint32_t*>(pr);
+            } else {
+              o[0] = y0;
+              if (n + 1 < N) o[1] = y1;
+            }
+          }
+        }
+        continue;
+      }
+      // split-K (one tile a cluster): partial tiles to shared memory, summed
+      // over the cluster
+      __syncthreads();  // every stage is consumed: the ring is free
+      float* part = reinterpret_cast<float*>(ring);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(part + (r0 + 8 * h) * G::kPartStride + 8 * j + 2 * t) =
+              make_float2(v[4 * j + 2 * h], v[4 * j + 2 * h + 1]);
+      split_reduce<T, BM, BN, G::kPartStride, G::kThreads>(part, scale, out, m0, n0, M, N, split,
+                                                           rank);
     }
-    // split-K: partial tiles to shared memory, summed over the cluster
-    __syncthreads();  // every stage is consumed: the ring is free
-    float* part = reinterpret_cast<float*>(ring);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(part + (r0 + 8 * h) * G::kPartStride + 8 * j + 2 * t) =
-            make_float2(v[4 * j + 2 * h], v[4 * j + 2 * h + 1]);
-    split_reduce<T, BM, BN, G::kPartStride, G::kThreads>(part, scale, out, m0, n0, M, N, split,
-                                                         rank);
   }
 }
 
 template <typename T, int BN, int C>
 cudaError_t launch(const void* x, const void* wq, const void* scale, void* out, int M, int N,
-                   int K, int split, int depth, cudaStream_t stream) {
+                   int K, int split, int depth, int sms, cudaStream_t stream) {
   using G = Cfg<T, BN, C>;
   auto kern = int8_mm_kernel<T, BN, C>;
   static bool attr_set = false;  // once per instantiation, not every launch
@@ -373,7 +391,11 @@ cudaError_t launch(const void* x, const void* wq, const void* scale, void* out, 
     if (e != cudaSuccess) return e;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cdiv(N, BN), cdiv(M, G::BM), split);
+  // split 1: one block an SM walks the tiles (each SM holds one block);
+  // split > 1: a cluster of `split` blocks a tile
+  const int tiles = cdiv(N, BN) * cdiv(M, G::BM);
+  cfg.gridDim = split == 1 ? dim3(tiles < sms ? tiles : sms)
+                           : dim3(cdiv(N, BN), cdiv(M, G::BM), split);
   cfg.blockDim = dim3(G::kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -394,10 +416,11 @@ cudaError_t launch(const void* x, const void* wq, const void* scale, void* out, 
 
 template <typename T>
 cudaError_t dispatch(int tile_m, int tile_n, const void* x, const void* wq, const void* scale,
-                     void* out, int M, int N, int K, int split, int depth, cudaStream_t s) {
+                     void* out, int M, int N, int K, int split, int depth, int sms,
+                     cudaStream_t s) {
 #define K4_CASE(BN, C)                                                      \
   if (tile_n == BN && tile_m == 64 * C)                                    \
-    return launch<T, BN, C>(x, wq, scale, out, M, N, K, split, depth, s);
+    return launch<T, BN, C>(x, wq, scale, out, M, N, K, split, depth, sms, s);
   K4_CASE(64, 1)
   K4_CASE(128, 1)
   K4_CASE(64, 2)
@@ -429,9 +452,14 @@ REPRO_EXPORT int int8_matmul_launch(const void* x, const void* wq, const void* s
       (split != 1 && split != 2 && split != 4 && split != 8) || split > cdiv(K, kBK) ||
       cdiv(M, tile_m) > 65535)
     return cudaErrorInvalidValue;
+  static int sms = 0;  // the card's SMs, asked once
+  if (sms == 0) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return e;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  REPRO_DISPATCH_FLOAT(dtype, T,
-                       dispatch<T>(tile_m, tile_n, x, wq, scale, out, M, N, K, split, depth, s));
+  REPRO_DISPATCH_FLOAT(dtype, T, dispatch<T>(tile_m, tile_n, x, wq, scale, out, M, N, K, split,
+                                             depth, sms, s));
 }
 
 // Dynamic shared memory of one block of the plan (bytes), 0 for a plan

@@ -22,16 +22,20 @@
 // masking bits, i8mm::split3; bf16 and fp16 as they are) and kept in shared
 // memory for the block's whole K range (a panel; a range too long for
 // kPanelBudget bytes goes in several; each thread loads a batch of vectors
-// before it splits any).  A producer warp streams wq with TMA, 64 k of the
-// block's rows a stage, into a ring of `depth` stages (up to 8), each with a
-// full and an empty mbarrier: it refills a slot as soon as every consumer
-// warp has the slot's bytes in registers, so the consumers never wait on a
-// block barrier and ~depth * tile_n * 64 bytes a block stay in flight while
-// they compute (the first design synced the block every stage and refilled
-// after it: its compute and its panel load then added to the stream's
-// time).  Each consumer warp widens its 16 rows x 64 k of int8 in
-// registers (i8mm::widen4) as the A operand; a thread's 16 consecutive
-// bytes of a row feed four k16 steps
+// before it splits any, so the loads overlap).  Thread 0 streams wq with
+// TMA, 64 k of the block's rows a stage, into a ring with one mbarrier a
+// stage (the schedule is K8's: fill depth-1 stages; at stage i wait for
+// it, sync the block, which frees stage i-1's slot, start stage i+depth-1
+// there, compute on stage i), so ~depth * tile_n * 64 bytes a block are in
+// flight.  (A design with a producer warp that refilled each slot as soon
+// as every consumer warp had arrived on an empty mbarrier gave wrong tiles
+// now and then where two or more blocks shared an SM -- K = 2048, M > 8,
+// the card's tests -- with the release after the reads or after the
+// stage, with a fence after the wait and with a consumers' barrier there;
+// the same design with one bulk copy a row was right but 5x slower.  The
+// block barrier was right in every run; PERF.md.)  Each
+// warp widens its 16 rows x 64 k of int8 in registers (i8mm::widen4) as the
+// A operand; a thread's 16 consecutive bytes of a row feed four k16 steps
 // with their k permuted, and it reads x's terms under the same permutation,
 // so the dot products are unchanged.  Each term has its own accumulators
 // (the three column groups of the fp32 product), summed into fp32 registers
@@ -47,8 +51,7 @@ namespace {
 using namespace i8mm;
 
 constexpr int kBK = 64;                // k-values a stage
-constexpr int kMaxDepth = 8;           // ring stages at most
-constexpr int kBarBytes = 16 * kMaxDepth;  // a full and an empty mbarrier a stage
+constexpr int kBarBytes = 64;          // one mbarrier a stage (depth <= 4), padded
 constexpr int kAlign = 128;            // TMA destinations
 constexpr int kPanelBudget = 110592;   // bytes of x's terms a panel holds at most
 constexpr int kMaxSmem = 232448;
@@ -60,7 +63,7 @@ struct Cfg {
   static constexpr int kTerms = kF32 ? 3 : 1;
   static constexpr int TM = 8 * MT;   // rows of x a block
   static constexpr int TN = 16 * W;   // rows of wq a block
-  static constexpr int kThreads = 32 * W;   // consumers (and one producer warp)
+  static constexpr int kThreads = 32 * W;
   static constexpr int kStage = TN * kBK;
   static constexpr int kPartStride = TM + 4;  // floats a row (n) of the partial
 };
@@ -101,44 +104,15 @@ __device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b
   }
 }
 
-// Named barrier 1 over the W consumer warps (the producer warp is not in it).
-template <int W>
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * W) : "memory");
-}
-
-// Split-K epilogue, run by every thread of the block once the consumers'
-// fp32 partial tiles (TN x TM, row stride S floats) are in `part`: after a
-// cluster barrier, block `rank` sums rows (wq's) [rank, rank + 1) * TN /
-// split over the cluster's blocks in rank order, scales them and writes x's
-// type; a second barrier keeps every block's partial alive until read.
-template <typename T, int TM, int TN, int S>
-__device__ __forceinline__ void split_reduce(float* part, const float* __restrict__ scale,
-                                             T* __restrict__ out, int m0, int n0, int M, int N,
-                                             int split, int rank) {
-  cooperative_groups::this_cluster().sync();
-  const int rows = TN / split;
-  for (int e = threadIdx.x; e < rows * TM; e += blockDim.x) {
-    const int nl = rank * rows + e % rows, ml = e / rows;
-    const int n = n0 + nl, m = m0 + ml;
-    if (m < M && n < N)
-      out[static_cast<size_t>(m) * N + n] =
-          from_f32<T>(cluster_sum(part, nl * S + ml, split) * __ldg(scale + n));
-  }
-  cooperative_groups::this_cluster().sync();
-}
-
 template <typename T, int MT, int W>
-__global__ void __launch_bounds__(32 * (W + 1))
+__global__ void __launch_bounds__(32 * W)
 int8_mm_pipelined_kernel(const __grid_constant__ CUtensorMap wmap, const T* __restrict__ x,
                          const float* __restrict__ scale, T* __restrict__ out, int M, int N,
                          int K, int depth, int tiles_per_split, int ps) {
   using G = Cfg<T, MT, W>;
   constexpr int TM = G::TM, TN = G::TN, NT = G::kTerms;
-  constexpr int kConsumers = 32 * W;
   extern __shared__ uint8_t smem_raw[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);  // stage landed
-  uint64_t* empty = full + kMaxDepth;                      // stage consumed
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw + kBarBytes) + kAlign - 1) &
       ~static_cast<uintptr_t>(kAlign - 1));
@@ -153,33 +127,18 @@ int8_mm_pipelined_kernel(const __grid_constant__ CUtensorMap wmap, const T* __re
   const int nt = max(0, min(nk, t0 + tiles_per_split) - t0);
 
   if (tid == 0) {
-    for (int s = 0; s < depth; ++s) {
-      tma::mbar_init(full + s, 1);
-      tma::mbar_init(empty + s, W);
-    }
+    for (int s = 0; s < depth; ++s) tma::mbar_init(full + s, 1);
     tma::fence_barrier_init();
   }
   __syncthreads();
+  auto issue = [&](int i) {
+    const int s = i % depth;
+    tma::mbar_expect(full + s, G::kStage);
+    tma::load_2d(ring + s * G::kStage, &wmap, (t0 + i) * kBK, n0, full + s);
+  };
+  if (tid == 0)
+    for (int i = 0; i < min(depth - 1, nt); ++i) issue(i);
 
-  if (warp == W) {
-    // ---------------- producer: keeps `depth` stages in flight ----------------
-    if (lane == 0) {
-      for (int i = 0; i < nt; ++i) {
-        const int s = i % depth;
-        if (i >= depth) tma::mbar_wait(empty + s, ((i / depth) - 1) & 1);
-        tma::mbar_expect(full + s, G::kStage);
-        tma::load_2d(ring + s * G::kStage, &wmap, (t0 + i) * kBK, n0, full + s);
-      }
-    }
-    if (split > 1) {
-      __syncthreads();  // with the consumers' barrier before their partials
-      split_reduce<T, TM, TN, G::kPartStride>(reinterpret_cast<float*>(ring), scale, out, m0,
-                                              n0, M, N, split, rank);
-    }
-    return;
-  }
-
-  // ---------------- consumers ----------------
   // acc[term][j]: this thread's 2 x 2 outputs of n-tile j (x rows 8j ..)
   // for one stage; sum: their running fp32 totals
   float acc[NT][MT][4], sum[NT][MT][4];
@@ -192,26 +151,25 @@ int8_mm_pipelined_kernel(const __grid_constant__ CUtensorMap wmap, const T* __re
 
   for (int p0 = 0; p0 < nt; p0 += ps) {
     const int pn = min(ps, nt - p0);
-    consumers_sync<W>();  // every consumer is done with the previous panel
+    __syncthreads();  // every warp is done with the previous panel
     // x rows m0 .. m0+TM, k (t0+p0)*64 .. + pn*64 -> terms; zeros past M
     // and K; each thread loads kBatch vectors before it splits any
     {
       constexpr int V = 16 / sizeof(T), kBatch = 8;
       const int kb = (t0 + p0) * kBK, cols = pn * kBK / V, total = TM * cols;
-      for (int base = tid; base < total; base += kBatch * kConsumers) {
+      for (int base = tid; base < total; base += kBatch * G::kThreads) {
         uint4 raw[kBatch];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
-          const int idx = base + u * kConsumers;
+          const int idx = base + u * G::kThreads;
           const int r = idx / cols, c = (idx % cols) * V;
           raw[u] = make_uint4(0, 0, 0, 0);
-          // K % 16 == 0: a 16-byte vector is all in or all out
           if (idx < total && m0 + r < M && kb + c < K)
             raw[u] = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(m0 + r) * K + kb + c);
         }
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
-          const int idx = base + u * kConsumers;
+          const int idx = base + u * G::kThreads;
           if (idx >= total) break;
           const int r = idx / cols, c = (idx % cols) * V;
           if constexpr (G::kF32) {
@@ -231,16 +189,16 @@ int8_mm_pipelined_kernel(const __grid_constant__ CUtensorMap wmap, const T* __re
         }
       }
     }
-    consumers_sync<W>();
+    __syncthreads();
     for (int i = p0; i < p0 + pn; ++i) {
       const int s = i % depth;
       tma::mbar_wait(full + s, (i / depth) & 1);
+      __syncthreads();  // every warp is done with stage i-1: its slot is free
+      if (tid == 0 && i + depth - 1 < nt) issue(i + depth - 1);
       // A: rows 16*warp + g and + 8, bytes 16t .. 16t+15 of the stage's 64
       const uint8_t* ws = ring + s * G::kStage + (16 * warp + g) * kBK + 16 * t;
       const uint4 w0 = *reinterpret_cast<const uint4*>(ws);
       const uint4 w1 = *reinterpret_cast<const uint4*>(ws + 8 * kBK);
-      __syncwarp();
-      if (lane == 0) tma::mbar_arrive(empty + s);  // the stage is in registers
       const uint32_t wr0[4] = {w0.x, w0.y, w0.z, w0.w}, wr1[4] = {w1.x, w1.y, w1.z, w1.w};
       uint32_t a[4][4];
 #pragma unroll
@@ -288,14 +246,23 @@ int8_mm_pipelined_kernel(const __grid_constant__ CUtensorMap wmap, const T* __re
       }
     return;
   }
-  __syncthreads();  // every stage and the panel are consumed: the ring is free
+  __syncthreads();  // every stage and the panel are consumed
   float* part = reinterpret_cast<float*>(ring);
 #pragma unroll
   for (int j = 0; j < MT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       part[(16 * warp + g + 8 * (e / 2)) * G::kPartStride + 8 * j + 2 * t + e % 2] = v[j][e];
-  split_reduce<T, TM, TN, G::kPartStride>(part, scale, out, m0, n0, M, N, split, rank);
+  cooperative_groups::this_cluster().sync();
+  const int rows = TN / split;  // rows of wq (outputs' columns) this block sums
+  for (int e = tid; e < rows * TM; e += G::kThreads) {
+    const int nl = rank * rows + e % rows, ml = e / rows;
+    const int n = n0 + nl, m = m0 + ml;
+    if (m < M && n < N)
+      out[static_cast<size_t>(m) * N + n] =
+          from_f32<T>(cluster_sum(part, nl * G::kPartStride + ml, split) * __ldg(scale + n));
+  }
+  cooperative_groups::this_cluster().sync();  // no block leaves while read
 }
 
 template <typename T, int MT, int W>
@@ -320,7 +287,7 @@ cudaError_t launch(const void* x, const void* wq, const void* scale, void* out, 
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cdiv(N, G::TN), cdiv(M, G::TM), split);
-  cfg.blockDim = dim3(G::kThreads + 32);  // and the producer warp
+  cfg.blockDim = dim3(G::kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -357,7 +324,7 @@ cudaError_t dispatch(int tile_m, int tile_n, const void* x, const void* wq, cons
 
 // As int8_matmul_launch (int8_matmul.cu) for the plan tile_m in {8, 16,
 // 32}, tile_n in {64, 128}, split in {1, 2, 4, 8} (at most K's 64-wide
-// stages), depth in 2..8; K must be a multiple of 16 and x, wq
+// stages), depth in {2, 3, 4}; K must be a multiple of 16 and x, wq
 // 16-byte aligned (cudaErrorInvalidValue otherwise, without launching).
 REPRO_EXPORT int int8_matmul_pipelined_launch(const void* x, const void* wq,
                                               const void* scale, void* out, int M, int N,
@@ -367,7 +334,7 @@ REPRO_EXPORT int int8_matmul_pipelined_launch(const void* x, const void* wq,
   if (e != cudaSuccess) return e;
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(wq) % 16 != 0 ||
-      depth < 2 || depth > kMaxDepth || (split != 1 && split != 2 && split != 4 && split != 8) ||
+      depth < 2 || depth > 4 || (split != 1 && split != 2 && split != 4 && split != 8) ||
       split > cdiv(K, kBK) || cdiv(M, tile_m) > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

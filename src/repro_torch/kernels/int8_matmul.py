@@ -31,8 +31,10 @@ INT8_MATMUL = _build.CudaKernel(
     replaces="src/repro/kernels/int8_matmul.py:46")
 
 
-def check_int8_args(name: str, x, wq, scale) -> None:
-    """Raise on anything the CUDA int8 GEMMs do not take."""
+def check_int8_args(name: str, x, wq, scale) -> int:
+    """Raise on anything the CUDA int8 GEMMs do not take; return x's CUDA
+    device index.  Devices are compared as indices (``get_device``), which
+    costs a fraction of comparing ``torch.device`` objects on every call."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if x.dim() != 2 or wq.dim() != 2 or wq.shape[1] != x.shape[1]:
@@ -48,9 +50,18 @@ def check_int8_args(name: str, x, wq, scale) -> None:
     if min(x.shape[0], x.shape[1], wq.shape[0]) < 1:
         raise ValueError(f"{name}: empty operand {tuple(x.shape)} x "
                          f"{tuple(wq.shape)}")
-    for t in (x, wq, scale):
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous on one device")
+    device = x.get_device()
+    if (wq.get_device() != device or scale.get_device() != device
+            or not (x.is_contiguous() and wq.is_contiguous()
+                    and scale.is_contiguous())):
+        raise ValueError(f"{name}: inputs must be contiguous on one device")
+    return device
+
+
+def current_stream(device: int) -> int:
+    """The handle of PyTorch's current stream on CUDA device ``device``
+    (the raw handle, without building a ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def int8_matmul(x, wq, scale, *, _plan=None):
@@ -61,7 +72,7 @@ def int8_matmul(x, wq, scale, *, _plan=None):
     does not take raises."""
     if x.device.type == "cpu":
         return ref.int8_matmul_ref(x, wq, scale)
-    check_int8_args("int8_matmul", x, wq, scale)
+    device = check_int8_args("int8_matmul", x, wq, scale)
     M, K = x.shape
     N = wq.shape[0]
     if _plan is None:
@@ -73,7 +84,7 @@ def int8_matmul(x, wq, scale, *, _plan=None):
         raise ValueError(f"int8_matmul: plan {_plan} is not built or does "
                          f"not fit for M={M}, N={N}, K={K}, {x.dtype}")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    INT8_MATMUL.launch(_build.ptr(x), _build.ptr(wq), _build.ptr(scale),
-                       _build.ptr(out), M, N, K, *plan, DTYPE_CODES[x.dtype],
-                       x.device.index, _build.stream_of(x))
+    INT8_MATMUL.launch(x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+                       out.data_ptr(), M, N, K, *plan, DTYPE_CODES[x.dtype],
+                       device, current_stream(device))
     return out

@@ -152,8 +152,7 @@ K5_STAGE_K = 64
 #: warp).
 K5_TILE_M = (8, 16, 32)
 K5_TILE_N = (64, 128)
-#: K5's ring depths (its producer warp keeps them all in flight).
-K5_DEPTHS = (2, 3, 4, 6, 8)
+
 #: Most bytes of x's bf16 terms a K5 panel holds (csrc kPanelBudget).
 K5_PANEL_BUDGET = 110_592
 
@@ -187,7 +186,7 @@ def k5_panel_stages(tile_m: int, itemsize: int, stages: int) -> int:
 def k5_smem_bytes(tile_m: int, tile_n: int, split: int, depth: int,
                   itemsize: int, K: int) -> int:
     """Dynamic shared memory of one K5 block (csrc/int8_matmul_pipelined.cu
-    ``smem_bytes``): 128 bytes of alignment slack and 128 of mbarriers, the
+    ``smem_bytes``): 128 bytes of alignment slack and 64 of mbarriers, the
     ring, and the panel of x's terms (rows of 16-bit values padded by 8),
     or where K is split and it is larger, the fp32 partial tile."""
     stages = -(-(-(-K // K5_STAGE_K)) // split)
@@ -196,13 +195,13 @@ def k5_smem_bytes(tile_m: int, tile_n: int, split: int, depth: int,
     main = (int8_ring_bytes(itemsize, depth, tile_n)
             + terms * tile_m * (ps * K5_STAGE_K + 8) * 2)
     part = tile_n * (tile_m + 4) * 4 if split > 1 else 0
-    return 128 + 128 + max(main, part)
+    return 128 + 64 + max(main, part)
 
 
 def int8_ring_takes(x, wq) -> bool:
-    """True iff K5's TMA copies take these operands: wq rows of a multiple
-    of 16 bytes (K % 16 == 0, which also makes x's rows of fp32, bf16 or
-    fp16 whole 16-byte vectors) and 16-byte aligned bases."""
+    """True iff K5's TMA bulk copies take these operands: wq rows of a
+    multiple of 16 bytes (K % 16 == 0, which also makes x's rows of fp32,
+    bf16 or fp16 whole 16-byte vectors) and 16-byte aligned bases."""
     return (x.shape[-1] % 16 == 0 and x.data_ptr() % 16 == 0
             and wq.data_ptr() % 16 == 0)
 
@@ -217,13 +216,13 @@ def int8_matmul_pipelined(x, wq, scale, *, depth: int | None = None,
     take raises."""
     if x.device.type == "cpu":
         return ref.int8_matmul_ref(x, wq, scale)
-    _i8.check_int8_args("int8_matmul_pipelined", x, wq, scale)
+    device = _i8.check_int8_args("int8_matmul_pipelined", x, wq, scale)
     if not int8_ring_takes(x, wq):
         raise ValueError(f"int8_matmul_pipelined: K={x.shape[1]} is not a "
                          f"multiple of 16 or an operand is not 16-byte "
                          f"aligned (TMA); K4 takes it")
-    if depth is not None and depth not in K5_DEPTHS:
-        raise ValueError(f"depth {depth} not in {K5_DEPTHS}")
+    if depth is not None and depth not in DEPTHS:
+        raise ValueError(f"depth {depth} not in {DEPTHS}")
     M, K = x.shape
     N = wq.shape[0]
     plan = _plan or int8_plan(M, N, K, x.element_size(), pipelined=True)
@@ -236,9 +235,9 @@ def int8_matmul_pipelined(x, wq, scale, *, depth: int | None = None,
                          f"{x.dtype}")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     INT8_MATMUL_PIPELINED.launch(
-        _build.ptr(x), _build.ptr(wq), _build.ptr(scale), _build.ptr(out),
-        M, N, K, *plan, _i8.DTYPE_CODES[x.dtype], x.device.index,
-        _build.stream_of(x))
+        x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(), M, N,
+        K, *plan, _i8.DTYPE_CODES[x.dtype], device,
+        _i8.current_stream(device))
     return out
 
 
@@ -279,7 +278,7 @@ def int8_plan_legal(plan, M: int, N: int, K: int, itemsize: int, *,
     if pipelined:
         return (tile_m in K5_TILE_M and tile_n in K5_TILE_N
                 and split in INT8_SPLITS and split <= -(-K // K5_STAGE_K)
-                and depth in K5_DEPTHS and K % 16 == 0
+                and depth in DEPTHS and K % 16 == 0
                 and -(-M // tile_m) <= 65535
                 and k5_smem_bytes(tile_m, tile_n, split, depth, itemsize,
                                   K) <= MAX_SMEM)
@@ -294,11 +293,10 @@ def int8_plans(M: int, N: int, K: int, itemsize: int, *,
                pipelined: bool) -> list[tuple[int, int, int, int]]:
     """Every plan the kernel (K5 if ``pipelined``, else K4) is built for
     and takes at this shape (``int8_plan_legal``)."""
-    tiles_m, tiles_n, depths = ((K5_TILE_M, K5_TILE_N, K5_DEPTHS)
-                                if pipelined else
-                                (K4_TILE_M, K4_TILE_N[itemsize], DEPTHS))
+    tiles_m, tiles_n = ((K5_TILE_M, K5_TILE_N) if pipelined
+                        else (K4_TILE_M, K4_TILE_N[itemsize]))
     return [plan for plan in itertools.product(tiles_m, tiles_n, INT8_SPLITS,
-                                               depths)
+                                               DEPTHS)
             if int8_plan_legal(plan, M, N, K, itemsize, pipelined=pipelined)]
 
 
@@ -341,7 +339,8 @@ def _k5_plan(M: int, N: int, K: int, itemsize: int):
     else 32 and more blocks; 128 rows of wq a block where the blocks reach
     the SMs, else 64; K split over a cluster of 2, 4 or 8 blocks while the
     grid stays within two blocks an SM and no split is past K's 64-wide
-    stages; a ring of 4 stages, no deeper than the block's stages."""
+    stages; a ring of 2 stages (deeper rings were no faster at any (i2)
+    shape in the sweep in PERF.md)."""
     nk = -(-K // K5_STAGE_K)
     tile_m = next((t for t in K5_TILE_M if t >= M), max(K5_TILE_M))
     rows = -(-M // tile_m)
@@ -351,7 +350,7 @@ def _k5_plan(M: int, N: int, K: int, itemsize: int):
     while (2 * split in INT8_SPLITS and blocks * 2 * split <= 2 * SMS
            and 2 * split <= nk):
         split *= 2
-    return tile_m, tile_n, split, min(4, max(2, -(-nk // split)))
+    return tile_m, tile_n, split, 2
 
 
 # ---------------------------------------------------------------------------

@@ -132,7 +132,8 @@ def _inputs(M, N, K, seed):
 
 def _k_ulps(x, wq, scale) -> float:
     """``chip_smoke.int8_tol``'s fp32 atol: K ulps of the largest product."""
-    big = np.abs(x).max() * np.abs(scale[:, None] * wq.astype(np.float32)).max()
+    big = (np.abs(x).max()
+           * np.abs(scale[:, None] * wq.astype(np.float32)).max())
     return x.shape[1] * float(big) * 2.0 ** -23
 
 
