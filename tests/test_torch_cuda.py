@@ -666,8 +666,9 @@ def _int8_inputs(gen, M, N, K, dtype):
     return x, wq, scale
 
 
-# M, N, K: ragged M, N and K around the tiles (K4 64 x 64, K5 8 x 32, k steps
-# of 64), one row, llama110m's decode and prefill projections
+# M, N, K: ragged M, N and K around the plans' tiles (K4 64/128 rows x
+# 64-256 columns, K5 8-32 x 64/128, k stages of 64), one row, llama110m's
+# decode and prefill projections
 INT8 = [(1, 1000, 768), (7, 1000, 768), (100, 1000, 768), (8, 768, 768),
         (8, 32000, 768), (512, 2048, 768), (65, 33, 2048), (3, 5, 16),
         (130, 70, 80)]
