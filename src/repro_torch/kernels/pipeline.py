@@ -309,8 +309,8 @@ def int8_plan(M: int, N: int, K: int, itemsize: int, *,
     K4: 128 rows a tile (two consumer warpgroups) above 64 rows, else 64;
     the widest tile whose grid reaches 7/8 of the SMs, else 128 columns;
     K split over a cluster of 2, 4 or 8 blocks while the grid stays within
-    one wave and each block keeps two stages or more; a ring of 2 stages
-    for fp32 x, 3 for bf16 and fp16, no deeper than the block's stages.
+    one wave and each block keeps two stages or more; a ring of 3 stages,
+    no deeper than the block's stages.
     At the (i2) shapes (M = 512; K, N of 768, 2048 and the 768 x 32000
     unembedding) this takes the fastest plan of the sweep in PERF.md, or
     one within 4 % of it.
@@ -330,7 +330,7 @@ def int8_plan(M: int, N: int, K: int, itemsize: int, *,
     while (2 * split in INT8_SPLITS and tiles(tile_n) * 2 * split <= SMS
            and nk >= 4 * split):
         split *= 2
-    depth = min(2 if itemsize == 4 else 3, max(2, -(-nk // split)))
+    depth = min(3, max(2, -(-nk // split)))
     return tile_m, tile_n, split, depth
 
 

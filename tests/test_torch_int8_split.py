@@ -227,3 +227,26 @@ def test_int8_plan_splits_k_only_where_the_grid_leaves_sms_idle(itemsize):
             blocks = -(-M // tile_m) * -(-N // tile_n)
             if split > 1:
                 assert blocks * split <= per_sm * pipeline.SMS, (M, N, K)
+
+
+# The rule's picks at the (i2) shapes, each measured against every plan in
+# chip_smoke.int8_sweep_phase (PERF.md §6): the fastest, or within 4 % of it.
+I2_PICKS = {
+    # (M, K, N, itemsize): (tile_m, tile_n, split, depth)
+    (512, 768, 768, 4): (128, 128, 4, 3),
+    (512, 768, 768, 2): (128, 128, 4, 3),
+    (512, 768, 2048, 4): (128, 64, 1, 3), (512, 768, 2048, 2): (128, 64, 1, 3),
+    (512, 2048, 768, 4): (128, 128, 4, 3), (512, 2048, 768, 2): (128, 128, 4, 3),
+    (512, 768, 32000, 4): (128, 128, 1, 3),
+    (512, 768, 32000, 2): (128, 256, 1, 3),
+    (8, 768, 768, 4): (8, 64, 8, 2), (8, 768, 768, 2): (8, 64, 8, 2),
+    (8, 768, 2048, 4): (8, 64, 8, 2), (8, 768, 2048, 2): (8, 64, 8, 2),
+    (8, 2048, 768, 4): (8, 64, 8, 2), (8, 2048, 768, 2): (8, 64, 8, 2),
+    (8, 768, 32000, 4): (8, 128, 1, 2), (8, 768, 32000, 2): (8, 128, 1, 2)}
+
+
+@pytest.mark.parametrize("key", sorted(I2_PICKS))
+def test_int8_plan_picks_at_the_swept_i2_shapes(key):
+    M, K, N, itemsize = key
+    assert pipeline.int8_plan(M, N, K, itemsize,
+                              pipelined=M <= 64) == I2_PICKS[key]
