@@ -124,8 +124,13 @@ Phases (any failure exits non-zero; nothing is caught):
    |x|·|scale·wq| (``int8_tol``: the rounding of a K-term fp32 sum, which
    a TF32 or bf16 rounding of x exceeds many times over), bf16 and fp16
    at the reference's atol 0.5 / rtol 2e-2 (tests/test_kernels.py:69),
-   scales from U(0.001, 0.02); bound = max(bytes / 3.35 TB/s, 2·M·N·K /
-   peak), see INT8_FORMULA; library yardstick
+   scales from U(0.001, 0.02); bound = max(bytes / 3.35 TB/s, 2·M·N·K ·
+   passes / 989 TFLOP/s) at the bf16 tensor cores' rate, three passes for
+   fp32 x, beside ``bound_cuda_core_ms`` (fp32 at 67 TFLOP/s), see
+   INT8_FORMULA; each row with its plan (``pipeline.int8_plan``: tile_m,
+   tile_n, split, depth), the instantiation's registers and spills, and
+   ``dequant_mm_ms`` (``torch.mm`` on weights dequantized once in x's
+   dtype, what int8 serving runs); library yardstick
    ``torch.ops.aten._weight_int8pack_mm`` where this PyTorch build runs it
    on CUDA, else null with its error.  K6 flash_attention_int8kv at
    llama110m's attention (B=1, H=K=12, hd=64, S=T=512 and 64, causal), a
@@ -135,6 +140,10 @@ Phases (any failure exits non-zero; nothing is caught):
    oracle on the unquantized K/V; bound as K2's over the causal pairs with
    int8 K/V bytes; no one-call library counterpart.  Also K6 at head dims
    80, 96 and 256 and with fp16 q.
+8b. int8 sweep: K4 at M = 512 and K5 at M = 8 at every plan they are
+   built for (K5 at the rule's tile_m), at the (i2) shapes in fp32 and
+   bf16, each held to the plain version and timed warm; the rule's pick
+   beside the fastest, timed again in turns.
 9. int8 serve (i1): llama110m as in phase 4 (fp32, random weights from
    seed 0) through ``StaticBatchEngine(quantize=True)`` on backend "cuda":
    the serve phase's 16 Poisson requests in static groups of 8 padded to
@@ -146,7 +155,9 @@ Phases (any failure exits non-zero; nothing is caught):
    wi_gate, wi_up, mlp wo) and the unembedding, from (i1)'s int8 tree laid
    out as (N, K), through ``LoweringConfig("cuda").int8_matmul`` at M = 512
    and M = 8: exactly 85 K4 launches at M = 512 and 85 K5 launches at M = 8,
-   each output against the plain version at phase 8's fp32 tolerance.
+   each output against the plain version at phase 8's fp32 tolerance;
+   the card's µs for the 85 calls back to back and the host's µs a call
+   (queued behind a GPU spin), and their wall time.
 
 Prints the seconds each phase took (``{"phase": "wall", ...}``), a
 ``{"kernels": [...]}`` line, the card's name and power limit, and last

@@ -199,9 +199,9 @@ def k5_smem_bytes(tile_m: int, tile_n: int, split: int, depth: int,
 
 
 def int8_ring_takes(x, wq) -> bool:
-    """True iff K5's TMA bulk copies take these operands: wq rows of a
-    multiple of 16 bytes (K % 16 == 0, which also makes x's rows of fp32,
-    bf16 or fp16 whole 16-byte vectors) and 16-byte aligned bases."""
+    """True iff K5's TMA copies take these operands: wq rows of a multiple
+    of 16 bytes (K % 16 == 0, which also makes x's rows of fp32, bf16 or
+    fp16 whole 16-byte vectors) and 16-byte aligned bases."""
     return (x.shape[-1] % 16 == 0 and x.data_ptr() % 16 == 0
             and wq.data_ptr() % 16 == 0)
 

@@ -235,14 +235,20 @@ I2_PICKS = {
     # (M, K, N, itemsize): (tile_m, tile_n, split, depth)
     (512, 768, 768, 4): (128, 128, 4, 3),
     (512, 768, 768, 2): (128, 128, 4, 3),
-    (512, 768, 2048, 4): (128, 64, 1, 3), (512, 768, 2048, 2): (128, 64, 1, 3),
-    (512, 2048, 768, 4): (128, 128, 4, 3), (512, 2048, 768, 2): (128, 128, 4, 3),
+    (512, 768, 2048, 4): (128, 64, 1, 3),
+    (512, 768, 2048, 2): (128, 64, 1, 3),
+    (512, 2048, 768, 4): (128, 128, 4, 3),
+    (512, 2048, 768, 2): (128, 128, 4, 3),
     (512, 768, 32000, 4): (128, 128, 1, 3),
     (512, 768, 32000, 2): (128, 256, 1, 3),
-    (8, 768, 768, 4): (8, 64, 8, 2), (8, 768, 768, 2): (8, 64, 8, 2),
-    (8, 768, 2048, 4): (8, 64, 8, 2), (8, 768, 2048, 2): (8, 64, 8, 2),
-    (8, 2048, 768, 4): (8, 64, 8, 2), (8, 2048, 768, 2): (8, 64, 8, 2),
-    (8, 768, 32000, 4): (8, 128, 1, 2), (8, 768, 32000, 2): (8, 128, 1, 2)}
+    (8, 768, 768, 4): (8, 64, 8, 2),
+    (8, 768, 768, 2): (8, 64, 8, 2),
+    (8, 768, 2048, 4): (8, 64, 8, 2),
+    (8, 768, 2048, 2): (8, 64, 8, 2),
+    (8, 2048, 768, 4): (8, 64, 8, 2),
+    (8, 2048, 768, 2): (8, 64, 8, 2),
+    (8, 768, 32000, 4): (8, 128, 1, 2),
+    (8, 768, 32000, 2): (8, 128, 1, 2)}
 
 
 @pytest.mark.parametrize("key", sorted(I2_PICKS))
