@@ -76,13 +76,25 @@ Phases (any failure exits non-zero; nothing is caught):
    carries its µs a step (ms·1e3 / (S - 1)), its plan (``fps_plan``:
    cluster, threads, points a thread), the SMs it runs on and its
    registers and spills; the SMs are those the kernel's blocks wrote
-   (``sm_ids``) in the timed calls.
+   (``sm_ids``) in the timed calls.  Each K10/K11 row carries its plan
+   (``ball_plan``: centers a warp, warps a block, cloud split, ring
+   depth), registers and spills, ``visited_share`` (the share of the
+   B·M·N pairs the exact result needs: each center's points up to its
+   k-th hit, all N for a center with fewer, from the plain output) and
+   ``bound_visited_ms`` (the bound over those pairs; ``bound_ms`` stays
+   the full sweep's).
 5b. fps sweep (before the stage runs): K9 at every plan it is built for
    at (a), (b), a large cloud (1, 65536, 128) alone and at B = 8 and 16, one
    block's largest cloud and twice it, the largest cloud in registers
    (1, 131072, 64) and a cloud on the scratch path, each plan held
    exactly to ``fps_ref``; the rule's pick beside the fastest, timed in
    turns for their spread.
+5c. ball sweep (before the stage runs): K10 at every plan it is built
+   for and K11 at every plan and ring depth (``ball_plans``), fp32, at
+   (a), (b), a cloud past K10's shared memory (1, 65536, 1024, k 32, r
+   0.2) and (a)'s cloud with empty balls, each plan held exactly to
+   ``ball_query_ref``; the rule's pick (K11 at the route's depth) beside
+   the fastest, timed in turns for their spread.
 6. ssm kernels: K1 at the SSM path's widths (d 2560 and 5120, 2048 rows of
    a 4 x 512 prefill and 4 of a decode step, fp32 and bf16; tolerances of
    phase 3), then K7 ssd_scan and K8 ssd_scan_pipelined (every ring depth
@@ -144,6 +156,10 @@ Phases (any failure exits non-zero; nothing is caught):
    built for (K5 at the rule's tile_m), at the (i2) shapes in fp32 and
    bf16, each held to the plain version and timed warm; the rule's pick
    beside the fastest, timed again in turns.
+8c. k4 repeat: K4 at every plan at which two or more of its blocks fit an
+   SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), 500 runs each
+   at a grid of at least two blocks an SM, fp32/bf16/fp16: every run the
+   first run's bits, the first within ``int8_tol``; blocks per SM printed.
 9. int8 serve (i1): llama110m as in phase 4 (fp32, random weights from
    seed 0) through ``StaticBatchEngine(quantize=True)`` on backend "cuda":
    the serve phase's 16 Poisson requests in static groups of 8 padded to
@@ -786,6 +802,48 @@ def fps_design(B: int, N: int, dtype: str, sms: int, plan=None) -> dict:
             "spill_store_bytes": hits[0][1]}
 
 
+def ball_visited(xyz, centers, k: int, r: float, idx) -> int:
+    """Center-point pairs the exact result needs: for each center, the
+    points up to its k-th hit (from the plain output ``idx``), or all N
+    where it has fewer than k hits."""
+    import torch
+    from repro_torch.pointcloud import ref as pcref
+    N = xyz.shape[1]
+    hits = (pcref.sqdist(centers[:, :, None], xyz[:, None])
+            <= pcref.squared_radius(r)).sum(-1)
+    need = torch.where(hits >= k, idx[..., k - 1].long() + 1,
+                       torch.full_like(hits, N))
+    return int(need.sum())
+
+
+def ball_design(xyz, centers, k: int, r: float, idx, depth: int = 0,
+                plan=None) -> dict:
+    """The design fields of a K10 (``depth`` 0) or K11 row: its plan
+    (``ball_plan`` unless given: centers a warp, warps, split, depth), the
+    instantiation's registers and spills (its build log), the share of the
+    B·M·N pairs the exact result needs (``ball_visited``) and the bound
+    over those pairs alone (PC_FORMULA's bytes, 10 ops a needed pair)."""
+    from repro_torch.kernels import pipeline as pl
+    B, N, _ = xyz.shape
+    M = centers.shape[1]
+    dtype = str(xyz.dtype).replace("torch.", "")
+    cpw, warps, split, depth = plan or pl.ball_plan(
+        B, N, M, k, xyz.element_size(), depth)
+    lib = "ball_query_pipelined" if depth else "ball_query"
+    tag = (f"{'ball_pipelined_kernel' if depth else 'ball_query_kernel'}"
+           f"I{_MANGLED_T[dtype]}Li{cpw}EE")
+    hits = [v for name, v in ptxas_report(lib).items() if tag in name]
+    if len(hits) != 1:
+        raise AssertionError(f"{tag}: {len(hits)} kernels in the build log")
+    visited = ball_visited(xyz, centers, k, r, idx)
+    nbytes = (B * N + B * M) * 3 * xyz.element_size() + B * M * k * 4
+    return {"cpw": cpw, "warps": warps, "split": split, "depth": depth,
+            "registers": hits[0][0], "spill_store_bytes": hits[0][1],
+            "visited_share": visited / (B * M * N),
+            "bound_visited_ms": max(nbytes / HBM_BYTES_PER_S,
+                                    10 * visited / PEAK_FLOPS["float32"]) * 1e3}
+
+
 def pointcloud_kernel_phase() -> list[dict]:
     import torch
     import torch.nn.functional as F
@@ -838,7 +896,8 @@ def pointcloud_kernel_phase() -> list[dict]:
             "ball_query", case, pck.ball_query(xyz, centers, r, k), idx,
             device_ms(lambda: pck.ball_query(xyz, centers, r, k), 20), plain,
             nbytes, 10 * B * M * N, dtype,
-            cold=(lambda p, c: pck.ball_query(p, c, r, k), (xyz, centers))))
+            cold=(lambda p, c: pck.ball_query(p, c, r, k), (xyz, centers)),
+            design=ball_design(xyz, centers, k, r, idx)))
         for depth in (2, 3, 4):
             call = lambda p, c, depth=depth: pck.ball_query_pipelined(  # noqa: E731
                 p, c, r, k, depth=depth)
@@ -846,7 +905,8 @@ def pointcloud_kernel_phase() -> list[dict]:
             rows.append(_pc_row(
                 "ball_query_pipelined", f"{case} depth={depth}", run(), idx,
                 device_ms(run, 20), plain, nbytes, 10 * B * M * N, dtype,
-                cold=(call, (xyz, centers))))
+                cold=(call, (xyz, centers)),
+                design=ball_design(xyz, centers, k, r, idx, depth)))
         f = feats.to(xyz.dtype)
         want = pcref.group_aggregate_ref(f, idx)
         rows_read = int(torch.unique(
@@ -935,6 +995,93 @@ def fps_sweep_phase() -> None:
                           "fastest": best, "us_min_median_max": spread,
                           "pick_within_spread": min(turns[pick])
                           <= max(turns[best])}))
+
+
+#: Ball query's sweep: B, N, M, k, radius.  (a) and (b) as the path runs
+#: them (the FPS samples as centers); a cloud larger than K10's shared
+#: memory (4096 points a part) with a random subset of its points as
+#: centers; (a)'s cloud with centers four times wider (many empty balls).
+BALL_SWEEP = {"a": (2, 4096, 512, 16, 0.9), "b": (16, 1024, 512, 32, 0.2),
+              "large": (1, 65536, 1024, 32, 0.2),
+              "empty": (2, 4096, 512, 16, 0.3)}
+
+
+def ball_sweep_inputs(name: str):
+    """(xyz, centers) of one BALL_SWEEP shape on the card, from numpy's
+    seed 0 (and 2 for the empty balls' centers)."""
+    import numpy as np
+    import torch
+    from repro_torch.pointcloud import ref as pcref
+    B, N, M, _, _ = BALL_SWEEP[name]
+    if name in PC_SHAPES:
+        xyz = pc_inputs(name)[0]
+        sel = pcref.fps_ref(xyz, M).long()
+        return xyz, torch.gather(xyz, 1, sel[..., None].expand(-1, -1, 3))
+    if name == "empty":
+        far = 4 * np.random.default_rng(2).normal(size=(B, M, 3))
+        return (pc_inputs("a")[0],
+                torch.from_numpy(far.astype(np.float32)).cuda())
+    rng = np.random.default_rng(0)
+    xyz = rng.normal(size=(B, N, 3)).astype(np.float32)
+    centers = xyz[:, rng.choice(N, M, replace=False)]
+    return torch.from_numpy(xyz).cuda(), torch.from_numpy(centers).cuda()
+
+
+def ball_sweep_phase() -> None:
+    """K10 at every plan it is built for and K11 at every plan and ring
+    depth, fp32, at the shapes of BALL_SWEEP: each plan's indices held
+    exactly to ``ball_query_ref``, its warm µs; the plan rule's pick (K11
+    at the ring depth the route gives it) beside the fastest plan at that
+    depth, both timed again in turns (pick, fastest, fastest, pick, ...)
+    for their spread, and the fastest at any depth."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import pipeline as pl
+    from repro_torch.pointcloud import kernels as pck
+    from repro_torch.pointcloud import ops as pcops
+    from repro_torch.pointcloud import ref as pcref
+    for name, (B, N, M, k, r) in BALL_SWEEP.items():
+        xyz, centers = ball_sweep_inputs(name)
+        want = pcref.ball_query_ref(xyz, centers, r, k)
+        n_hit = (pcref.sqdist(centers[:, :, None], xyz[:, None])
+                 <= pcref.squared_radius(r)).sum(-1)
+        visited = ball_visited(xyz, centers, k, r, want)
+        for kernel in ("ball_query", "ball_query_pipelined"):
+            def call(plan):
+                if plan[3] == 0:
+                    return pck.ball_query(xyz, centers, r, k, _plan=plan)
+                return pck.ball_query_pipelined(xyz, centers, r, k,
+                                                depth=plan[3], _plan=plan)
+            route = (0 if kernel == "ball_query"
+                     else min(max(pl.DEPTHS), pcops.ball_steps(N)))
+            times = {}
+            for depth in ((0,) if route == 0 else pl.DEPTHS):
+                for plan in pl.ball_plans(B, N, M, k, 4, depth):
+                    if not torch.equal(call(plan), want):
+                        raise AssertionError(f"ball sweep {name} {kernel} "
+                                             f"{plan}: differs from "
+                                             f"ball_query_ref")
+                    times[plan] = device_ms(lambda plan=plan: call(plan), 10,
+                                            spin=4_000_000) * 1e3
+            pick = pl.ball_plan(B, N, M, k, 4, route)
+            best = min((p for p in times if p[3] == route), key=times.get)
+            turns = {pick: [], best: []}
+            for plan in (pick, best, best, pick) * 3:
+                turns[plan].append(device_ms(
+                    lambda plan=plan: call(plan), 10, spin=4_000_000) * 1e3)
+            med = {p: float(np.median(v)) for p, v in turns.items()}
+            print(json.dumps({
+                "phase": "ball_sweep", "shape": name, "kernel": kernel,
+                "B": B, "N": N, "M": M, "k": k, "radius": r,
+                "empty_balls": int((n_hit == 0).sum()),
+                "visited_share": visited / (B * M * N),
+                "us": {str(p): t for p, t in sorted(times.items(),
+                                                    key=lambda e: e[1])},
+                "pick": pick, "fastest": best,
+                "fastest_any_depth": min(times, key=times.get),
+                "us_min_median_max": {str(p): [min(v), med[p], max(v)]
+                                      for p, v in turns.items()},
+                "pick_within_5pct": med[pick] <= 1.05 * med[best]}))
 
 
 def pointcloud_path_phase() -> dict:
@@ -1527,6 +1674,65 @@ def int8_sweep_phase() -> None:
                     <= max(turns[best])}))
 
 
+#: The K4 repeat check: (N, K) of llama110m's square projection, and the
+#: runs of each plan.
+K4_REPEAT_NK = (768, 768)
+K4_REPEATS = 500
+
+
+def k4_repeat_phase() -> None:
+    """K4 at every plan at which the occupancy query puts two or more
+    blocks on one SM, 500 runs each at an M of at least 2 x SMs blocks
+    (tiles x split; without a split the kernel is persistent, at most one
+    block an SM, and two share an SM only where the scheduler puts them
+    there), in fp32, bf16 and fp16: the first run within ``int8_tol`` of
+    the plain version, and every run with the first run's bits.  K4's ring
+    releases a stage with one arrival a warp, the pattern that gave wrong
+    tiles in a K5 design where blocks shared an SM."""
+    import torch
+    from repro_torch.kernels import pipeline as pl
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.int8_matmul import int8_matmul, k4_blocks_per_sm
+    N, K = K4_REPEAT_NK
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    shared = 0
+    for dtype in ("float32", "bfloat16", "float16"):
+        dt = getattr(torch, dtype)
+        itemsize = torch.tensor([], dtype=dt).element_size()
+        for plan in pl.int8_plans(1, N, K, itemsize, pipelined=False):
+            per_sm = k4_blocks_per_sm(plan, dt)
+            if per_sm < 2:
+                continue
+            tile_m, tile_n, split, _ = plan
+            M = tile_m * -(-2 * sms // (split * -(-N // tile_n)))
+            x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+            wq = torch.randint(-127, 128, (N, K), generator=gen,
+                               device="cuda", dtype=torch.int8)
+            scale = 0.001 + 0.019 * torch.rand((N,), generator=gen,
+                                               device="cuda")
+            first = int8_matmul(x, wq, scale, _plan=plan)
+            _check(f"k4 repeat {dtype} {plan}", first,
+                   ref.int8_matmul_ref(x, wq, scale), dtype,
+                   int8_tol(x, wq, scale))
+            differ = sum(not torch.equal(int8_matmul(x, wq, scale, _plan=plan),
+                                         first)
+                         for _ in range(K4_REPEATS - 1))
+            tiles = -(-M // tile_m) * -(-N // tile_n)
+            print(json.dumps({
+                "phase": "k4_repeat", "dtype": dtype, "plan": plan, "M": M,
+                "N": N, "K": K, "blocks_per_sm": per_sm,
+                "blocks": min(tiles, sms) if split == 1 else tiles * split,
+                "repeats": K4_REPEATS, "runs_differing": differ}))
+            if differ:
+                raise AssertionError(f"K4 {dtype} {plan}: {differ} of "
+                                     f"{K4_REPEATS} runs differ from the "
+                                     f"first")
+            shared += 1
+    print(json.dumps({"phase": "k4_repeat", "plans_sharing_an_sm": shared}))
+
+
 def int8kv_case(S: int, H: int, K: int, dtype: str, gen,
                 mask_kind: str = "causal", hd: int = 64) -> dict:
     import torch
@@ -1839,6 +2045,7 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                     "case": row["case"]})
         for key in ("blocks_per_sm", "live_tiles", "chunk", "heads_per_block",
                     "cluster", "threads", "ppt", "us_per_step", "sms_used",
+                    "cpw", "warps", "visited_share", "bound_visited_ms",
                     "tile_m", "tile_n", "split", "depth",
                     "bound_cuda_core_ms", "dequant_mm_ms",
                     "registers", "spill_store_bytes"):
@@ -1879,11 +2086,13 @@ def main() -> int:
     timed("sync_check", sync_check_phase)
     rows += timed("pointcloud_kernels", pointcloud_kernel_phase)
     timed("fps_sweep", fps_sweep_phase)
+    timed("ball_sweep", ball_sweep_phase)
     pc_launches = timed("pointcloud", pointcloud_path_phase)
     rows += timed("ssm_kernels", ssm_kernel_phase)
     ssm_launches = timed("ssm", ssm_serve_phase)
     rows += timed("int8_kernels", int8_kernel_phase)
     timed("int8_sweep", int8_sweep_phase)
+    timed("k4_repeat", k4_repeat_phase)
     i1_launches, qtree = timed("int8_serve", int8_serve_phase)
     i2_launches = timed("int8_gemm", int8_gemm_phase, qtree)
     runs = (launches, pc_launches, ssm_launches, i1_launches, i2_launches)

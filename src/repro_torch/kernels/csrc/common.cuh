@@ -163,7 +163,7 @@ __device__ __forceinline__ void load16(const int8_t* p, float* out) {
 // registers and L1.  `src_bytes` (0..16) bytes are read from `gmem_src` and
 // the rest of the 16 are written as zeros, so a ragged edge or a masked row
 // is filled by the copy itself.  Both addresses must be 16-byte aligned.
-// Shared by the pipelined kernels (K3, K11, K13).
+// Shared by the pipelined kernels (K3, K13).
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src,
                                            int src_bytes) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));

@@ -462,6 +462,38 @@ REPRO_EXPORT int int8_matmul_launch(const void* x, const void* wq, const void* s
                                              depth, sms, s));
 }
 
+// Blocks of the plan's kernel resident on one SM at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the plan's shared
+// memory), 0 for a plan that is not built, or -error.
+template <typename T, int BN, int C>
+int occupancy(int depth, int split) {
+  auto kern = int8_mm_kernel<T, BN, C>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kMaxSmem);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, Cfg<T, BN, C>::kThreads,
+                                                      smem_bytes<T, BN, C>(depth, split));
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+REPRO_EXPORT int int8_matmul_occupancy(int tile_m, int tile_n, int split, int depth,
+                                       int dtype) {
+#define K4_OCC(T, BN, C) \
+  if (tile_n == BN && tile_m == 64 * C) return occupancy<T, BN, C>(depth, split);
+  if (dtype == kFloat32) {
+    K4_OCC(float, 64, 1) K4_OCC(float, 128, 1) K4_OCC(float, 64, 2) K4_OCC(float, 128, 2)
+  } else if (dtype == kBFloat16) {
+    K4_OCC(__nv_bfloat16, 64, 1) K4_OCC(__nv_bfloat16, 128, 1) K4_OCC(__nv_bfloat16, 256, 1)
+    K4_OCC(__nv_bfloat16, 64, 2) K4_OCC(__nv_bfloat16, 128, 2) K4_OCC(__nv_bfloat16, 256, 2)
+  } else if (dtype == kFloat16) {
+    K4_OCC(__half, 64, 1) K4_OCC(__half, 128, 1) K4_OCC(__half, 256, 1)
+    K4_OCC(__half, 64, 2) K4_OCC(__half, 128, 2) K4_OCC(__half, 256, 2)
+  }
+#undef K4_OCC
+  return 0;
+}
+
 // Dynamic shared memory of one block of the plan (bytes), 0 for a plan
 // that is not built; kernels/pipeline.py int8_plan mirrors it.
 REPRO_EXPORT int int8_matmul_smem(int tile_m, int tile_n, int split, int depth, int dtype) {

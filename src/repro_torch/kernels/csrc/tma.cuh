@@ -1,5 +1,6 @@
 // TMA, mbarrier and thread-block-cluster helpers of the int8 GEMMs (K4
-// int8_matmul.cu, K5 int8_matmul_pipelined.cu), and the host code that
+// int8_matmul.cu, K5 int8_matmul_pipelined.cu) and of K11's ring
+// (ball_query_pipelined.cu), and the host code that
 // encodes a 2-D tensor map (cuTensorMapEncodeTiled, reached through the
 // runtime's driver entry point, so the libraries need no -lcuda).
 #pragma once
@@ -61,6 +62,16 @@ __device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map, int c
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Copy `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, in one 1-D bulk copy completing on `bar`.
+__device__ __forceinline__ void load_1d(void* dst, const void* src, uint32_t bytes,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

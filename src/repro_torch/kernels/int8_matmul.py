@@ -88,3 +88,15 @@ def int8_matmul(x, wq, scale, *, _plan=None):
                        out.data_ptr(), M, N, K, *plan, DTYPE_CODES[x.dtype],
                        device, current_stream(device))
     return out
+
+
+def k4_blocks_per_sm(plan, dtype: torch.dtype) -> int:
+    """Blocks of K4 under ``plan`` (tile_m, tile_n, split, depth) resident
+    on one SM of the current card with x of ``dtype``, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports it at the
+    plan's shared memory (0 for a plan the kernel is not built for)."""
+    n = INT8_MATMUL.query("int8_matmul_occupancy", *plan, DTYPE_CODES[dtype])
+    if n < 0:
+        raise RuntimeError(f"int8_matmul: occupancy query failed (CUDA "
+                           f"error {-n})")
+    return n

@@ -492,3 +492,108 @@ def fps_plan_legal(plan, N: int) -> bool:
     return (cluster in FPS_CLUSTERS and threads in FPS_THREADS
             and (ppt == 0 or (ppt in FPS_PPTS
                               and cluster * threads * ppt >= N)))
+
+
+# ---------------------------------------------------------------------------
+# K10's and K11's plan: ball query, C centers a warp, the cloud split over a
+# cluster
+# ---------------------------------------------------------------------------
+
+#: Points of a K11 ring slot; a split cuts the cloud into whole tiles
+#: (csrc/ball_tile.cuh kTile).
+BALL_TILE = 256
+#: What csrc/ball_query.cu (K10) and csrc/ball_query_pipelined.cu (K11) are
+#: built for: centers a warp (held in registers, each loaded point tested
+#: against all of them), warps a block, and blocks of a cluster that split
+#: the cloud.  K10's depth is 0 (no ring), K11's one of ``DEPTHS``.
+BALL_CPW = (1, 2, 4, 8)
+BALL_WARPS = (2, 4, 8)
+BALL_SPLITS = (1, 2, 4, 8)
+#: Most points of a part K10 holds in shared memory at once, as fp32
+#: (csrc/ball_query.cu kResident).
+BALL_RESIDENT = 4096
+#: Shared memory a K10/K11 block keeps for its static part, its queue of
+#: empty balls (csrc/ball_tile.cuh kMaxDynamicSmem); the dynamic part must
+#: leave room for it.
+BALL_STATIC_SMEM = 1024
+
+
+def ball_part_points(N: int, split: int) -> int:
+    """Points of one part of a cloud of N split ``split`` ways: whole
+    ``BALL_TILE`` tiles (the last part may be shorter or empty)."""
+    return -(-(-(-N // BALL_TILE)) // split) * BALL_TILE
+
+
+def ball_smem_bytes(plan, N: int, k: int, itemsize: int) -> int:
+    """Shared memory of one K10 (depth 0) or K11 block under ``plan`` =
+    (cpw, warps, split, depth), as the kernels lay it out: K10 up to
+    ``BALL_RESIDENT`` points of fp32 coordinates, K11 ``depth`` slots of a
+    raw tile plus a 16-byte lead and its mbarriers; then, where the cloud
+    is split, an inbox of (count, first k hits) from every part for each
+    center the block merges."""
+    cpw, warps, split, depth = plan
+    lists = (0 if split == 1 else
+             4 * -(-(cpw * warps) // split) * split * (1 + k))
+    if depth == 0:
+        return 12 * min(ball_part_points(N, split), N, BALL_RESIDENT) + lists
+    slot = -(-(BALL_TILE * 3 * itemsize + 16) // 16) * 16
+    return depth * slot + 32 + lists
+
+
+def ball_plan_legal(plan, B: int, N: int, M: int, k: int,
+                    itemsize: int) -> bool:
+    """True iff K10 (depth 0) or K11 (depth in ``DEPTHS``) is built for
+    ``plan`` = (cpw, warps, split, depth), no part is past the cloud's
+    tiles, and the block's shared memory fits beside its static part."""
+    cpw, warps, split, depth = plan
+    return (cpw in BALL_CPW and warps in BALL_WARPS and split in BALL_SPLITS
+            and split <= -(-N // BALL_TILE) and (depth == 0 or depth in DEPTHS)
+            and 1 <= B <= 65535 and M >= 1 and k >= 1
+            and ball_smem_bytes(plan, N, k, itemsize) + BALL_STATIC_SMEM
+            <= MAX_SMEM)
+
+
+def ball_plans(B: int, N: int, M: int, k: int, itemsize: int,
+               depth: int = 0) -> list[tuple[int, int, int, int]]:
+    """Every plan of K10 (``depth`` 0) or of K11 at ring ``depth`` that is
+    legal at this shape."""
+    return [(c, w, s, depth) for c, w, s in itertools.product(
+        BALL_CPW, BALL_WARPS, BALL_SPLITS)
+        if ball_plan_legal((c, w, s, depth), B, N, M, k, itemsize)]
+
+
+def ball_plan(B: int, N: int, M: int, k: int, itemsize: int,
+              depth: int = 0) -> tuple[int, int, int, int]:
+    """The plan (cpw, warps, split, depth) of K10 (``depth`` 0) or of K11
+    at ring ``depth`` for B clouds of N points and M centers of k
+    neighbours.
+
+    K11: 4 centers a warp, 4 warps a block.  K10: 8 warps a block (each
+    K10 block copies its whole part into shared memory, so fewer, wider
+    blocks copy less); one center a warp where the centers alone give at
+    most 8 warps an SM and the cloud fits one block's shared memory (a
+    warp then stops at its one center's k-th hit), else 2.  Both: the
+    cloud split over a cluster of 2, 4 or 8 blocks while the warps of all
+    parts stay under 12 an SM (a warp's walk over its part is the latency
+    the split cuts; past that the merge costs more than it saves), K10
+    further while a part is past the ``BALL_RESIDENT`` points it holds at
+    once; no part without a tile, and only as far as the block fits.  At
+    the swept shapes ((a), (b), a 65536-point cloud and (a) with empty
+    balls) this takes the fastest plan of the sweep in PERF.md or one
+    within 5 % of it, except K10 with empty balls (7.6 %): it has (a)'s
+    shape, so it takes (a)'s plan."""
+    if depth:
+        cpw, warps = 4, 4
+    else:
+        cpw = 1 if B * M <= 8 * SMS and N <= BALL_RESIDENT else 2
+        warps = 8
+    walks = B * -(-M // cpw)
+    split = 1
+    while (2 * split in BALL_SPLITS
+           and (walks * split < 12 * SMS
+                or (depth == 0
+                    and ball_part_points(N, split) > BALL_RESIDENT))
+           and ball_plan_legal((cpw, warps, 2 * split, depth), B, N, M, k,
+                               itemsize)):
+        split *= 2
+    return cpw, warps, split, depth

@@ -4,9 +4,12 @@ The port of ``repro/pointcloud/kernels.py``:
 
 * K9 ``fps`` (``csrc/fps.cu``): one cloud per thread-block cluster, one
   barrier an argmax step, the plan from ``kernels.pipeline.fps_plan``;
-* K10 ``ball_query`` (``csrc/ball_query.cu``) and K11
-  ``ball_query_pipelined`` (``csrc/ball_query_pipelined.cu``, X tiles
-  through a ``cp.async`` ring): one warp per center;
+* K10 ``ball_query`` (``csrc/ball_query.cu``, the cloud held in shared
+  memory as fp32) and K11 ``ball_query_pipelined``
+  (``csrc/ball_query_pipelined.cu``, X tiles through a ring of TMA bulk
+  copies): several centers a warp, the cloud split over a cluster where
+  the centers leave SMs idle, the plan from
+  ``kernels.pipeline.ball_plan``;
 * K12 ``group_aggregate`` (``csrc/group_aggregate.cu``) and K13
   ``group_aggregate_pipelined`` (``csrc/group_aggregate_pipelined.cu``, the
   gathered rows through a ``cp.async`` ring): a direct row gather and a max.
@@ -25,6 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPE_CODES
+from repro_torch.kernels import pipeline as _pl
 from repro_torch.kernels.pipeline import (DEPTHS, FPS_CAPACITY, MAX_SMEM,
                                           fps_plan, fps_plan_legal)
 from repro_torch.pointcloud import ref
@@ -33,8 +37,9 @@ from repro_torch.pointcloud import ref
 #: of 1024 threads, 8 points a thread); above it the running distances live
 #: in a global scratch array.
 FPS_REGISTER_POINTS = FPS_CAPACITY
-#: Points per X tile of K10/K11 (csrc/ball_tile.cuh).
-BALL_TILE = 256
+#: Points per X tile of K11 and per part of a split cloud
+#: (csrc/ball_tile.cuh).
+BALL_TILE = _pl.BALL_TILE
 #: K13's block: centers, neighbours per ring stage, most channels
 #: (csrc/group_aggregate_pipelined.cu).
 GROUP_CENTERS = 4
@@ -49,12 +54,12 @@ FPS = _build.CudaKernel(
     argtypes=[_P] * 4 + [_I] * 8 + [_P], replaces=f"{_PC}:61")
 BALL_QUERY = _build.CudaKernel(
     "ball_query", lib="ball_query", symbol="ball_query_launch",
-    argtypes=[_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    argtypes=[_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     replaces=f"{_PC}:130")
 BALL_QUERY_PIPELINED = _build.CudaKernel(
     "ball_query_pipelined", lib="ball_query_pipelined",
     symbol="ball_query_pipelined_launch",
-    argtypes=[_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    argtypes=[_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _P],
     replaces=f"{_PC}:180")
 GROUP_AGGREGATE = _build.CudaKernel(
     "group_aggregate", lib="group_aggregate", symbol="group_aggregate_launch",
@@ -142,43 +147,62 @@ def fps(xyz: torch.Tensor, n_samples: int, *, sm_ids=None,
     return out
 
 
-def _ball_args(name, xyz, centers, k):
+def _ball_args(name, xyz, centers, k, plan, depth):
+    """Check the inputs; return (B, N, M, out, plan): ``plan`` as given if
+    the kernel takes it (else raise), or ``ball_plan``'s at ring ``depth``
+    (0: K10)."""
     _check(name, xyz, centers)
     _check_points(name, xyz, centers)
     if k < 1:
         raise ValueError(f"{name}: k must be at least 1, got {k}")
     B, N, _ = xyz.shape
     M = centers.shape[1]
+    itemsize = xyz.element_size()
+    plan = (_pl.ball_plan(B, N, M, k, itemsize, depth) if plan is None
+            else tuple(plan))
+    if (plan[3] == 0) != (depth == 0) or not (
+            B * N * M == 0
+            or _pl.ball_plan_legal(plan, B, N, M, k, itemsize)):
+        raise ValueError(f"{name}: no kernel for plan {plan} at B={B}, "
+                         f"N={N}, M={M}, k={k}, {xyz.dtype}")
     out = torch.empty((B, M, k), dtype=torch.int32, device=xyz.device)
-    return B, N, M, out
+    return B, N, M, out, plan
 
 
 def ball_query(xyz, centers, radius: float, k: int, *,
-               radius_sq: float | None = None) -> torch.Tensor:
-    """K10: xyz (B, N, 3), centers (B, M, 3) → indices (B, M, k) i32."""
+               radius_sq: float | None = None, _plan=None) -> torch.Tensor:
+    """K10: xyz (B, N, 3), centers (B, M, 3) → indices (B, M, k) i32.
+
+    The plan is ``ball_plan(B, N, M, k, itemsize)``; ``_plan`` forces
+    another (cpw, warps, split, 0), for the sweep and tests only."""
     if xyz.device.type == "cpu":
         return ref.ball_query_ref(xyz, centers, radius, k, radius_sq=radius_sq)
-    B, N, M, out = _ball_args("ball_query", xyz, centers, k)
+    B, N, M, out, plan = _ball_args("ball_query", xyz, centers, k, _plan, 0)
     if out.numel():
         BALL_QUERY.launch(
             _build.ptr(xyz), _build.ptr(centers), _build.ptr(out), B, N, M, k,
-            ref.squared_radius(radius, radius_sq), DTYPE_CODES[xyz.dtype],
-            xyz.device.index, _build.stream_of(xyz))
+            ref.squared_radius(radius, radius_sq), *plan[:3],
+            DTYPE_CODES[xyz.dtype], xyz.device.index, _build.stream_of(xyz))
     return out
 
 
 def ball_query_pipelined(xyz, centers, radius: float, k: int, *,
-                         depth: int = 2,
-                         radius_sq: float | None = None) -> torch.Tensor:
-    """K11: K10 with the X tiles streamed through a ``depth``-stage ring."""
+                         depth: int = 2, radius_sq: float | None = None,
+                         _plan=None) -> torch.Tensor:
+    """K11: K10 with the X tiles streamed through a ``depth``-stage ring.
+
+    The plan is ``ball_plan(B, N, M, k, itemsize, depth)``; ``_plan``
+    forces another (cpw, warps, split, depth), whose depth then replaces
+    ``depth``, for the sweep and tests only."""
     if xyz.device.type == "cpu":
         return ref.ball_query_ref(xyz, centers, radius, k, radius_sq=radius_sq)
     _check_depth("ball_query_pipelined", depth)
-    B, N, M, out = _ball_args("ball_query_pipelined", xyz, centers, k)
+    B, N, M, out, plan = _ball_args("ball_query_pipelined", xyz, centers, k,
+                                    _plan, depth)
     if out.numel():
         BALL_QUERY_PIPELINED.launch(
             _build.ptr(xyz), _build.ptr(centers), _build.ptr(out), B, N, M, k,
-            ref.squared_radius(radius, radius_sq), depth,
+            ref.squared_radius(radius, radius_sq), *plan,
             DTYPE_CODES[xyz.dtype], xyz.device.index, _build.stream_of(xyz))
     return out
 

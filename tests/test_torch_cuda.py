@@ -376,13 +376,38 @@ def test_fps_never_takes_the_plain_version_on_the_card(gen, monkeypatch):
 
 BALL = [  # B, N, M, k, radius
     (2, 256, 64, 8, 0.9), (1, 1000, 13, 16, 0.5), (2, 4096, 512, 16, 0.9),
-    (3, 777, 40, 64, 0.3), (16, 1024, 512, 32, 0.2), (1, 5, 3, 4, 10.0)]
+    (3, 777, 40, 64, 0.3), (16, 1024, 512, 32, 0.2), (1, 5, 3, 4, 10.0),
+    # parts past K10's 4096 points in shared memory: its tiled path
+    (1, 20000, 40, 32, 0.3)]
+
+
+def _every_ball_plan(xyz, centers, radius, k, want, radius_sq=None):
+    """K10 at every plan it is built for, K11 at every plan and ring depth,
+    each forced through ``_plan`` and held exactly to ``want``."""
+    B, N, _ = xyz.shape
+    M, itemsize = centers.shape[1], xyz.element_size()
+    for depth in (0, *pipeline.DEPTHS):
+        plans = pipeline.ball_plans(B, N, M, k, itemsize, depth)
+        assert pipeline.ball_plan(B, N, M, k, itemsize, depth) in plans
+        for plan in plans:
+            if depth == 0:
+                got = _launched("ball_query", lambda: pck.ball_query(
+                    xyz, centers, radius, k, radius_sq=radius_sq,
+                    _plan=plan))
+            else:
+                got = _launched("ball_query_pipelined",
+                                lambda: pck.ball_query_pipelined(
+                                    xyz, centers, radius, k, depth=depth,
+                                    radius_sq=radius_sq, _plan=plan))
+            assert torch.equal(got, want), plan
 
 
 @pytest.mark.parametrize("kind", ["normal", "lattice", "empty"])
 @pytest.mark.parametrize("dtype", FLOATS)
 @pytest.mark.parametrize("B,N,M,k,radius", BALL)
 def test_ball_query_kernels(gen, B, N, M, k, radius, dtype, kind):
+    """K10 and K11 under the plan rule (K11 at every ring depth), then at
+    every plan, exactly; two calls give the same bits."""
     xyz = _points(gen, B, N, dtype, kind)
     centers = xyz[:, :M].contiguous() if M <= N else _points(gen, B, M, dtype)
     if kind == "empty":        # centers away from the cloud: empty balls
@@ -394,10 +419,14 @@ def test_ball_query_kernels(gen, B, N, M, k, radius, dtype, kind):
     got = _launched("ball_query",
                     lambda: pck.ball_query(xyz, centers, radius, k))
     assert torch.equal(got, want)
+    assert torch.equal(pck.ball_query(xyz, centers, radius, k), got)
     for depth in (2, 3, 4):
         got = _launched("ball_query_pipelined", lambda: pck.ball_query_pipelined(
             xyz, centers, radius, k, depth=depth))
         assert torch.equal(got, want), depth
+        assert torch.equal(pck.ball_query_pipelined(
+            xyz, centers, radius, k, depth=depth), got), depth
+    _every_ball_plan(xyz, centers, radius, k, want)
 
 
 def test_ball_query_kernels_take_radius_sq_and_misaligned_batches(gen):
@@ -409,6 +438,50 @@ def test_ball_query_kernels_take_radius_sq_and_misaligned_batches(gen):
                            want)
         assert torch.equal(pck.ball_query_pipelined(
             xyz, centers, 0.0, 16, depth=3, radius_sq=r2), want)
+        if r2 == 2.0:
+            _every_ball_plan(xyz, centers, 0.0, 16, want, radius_sq=r2)
+
+
+def test_ball_query_smem_mirrors_match_the_kernels(gen):
+    """``pipeline.ball_smem_bytes`` is what the libraries ask for."""
+    k10, k11 = pck.BALL_QUERY, pck.BALL_QUERY_PIPELINED
+    for N, k in ((5, 4), (4096, 16), (1024, 32), (65536, 32), (20000, 64)):
+        for itemsize, code in ((4, 0), (2, 1)):
+            for depth in (0, *pipeline.DEPTHS):
+                for plan in pipeline.ball_plans(1, N, 512, k, itemsize, depth):
+                    cpw, warps, split, _ = plan
+                    got = (k10.query("ball_query_smem", N, k, cpw, warps, split)
+                           if depth == 0 else
+                           k11.query("ball_query_pipelined_smem", k, cpw,
+                                     warps, split, depth, code))
+                    assert got == pipeline.ball_smem_bytes(plan, N, k,
+                                                           itemsize), plan
+
+
+def test_ball_query_refuses_plans_the_kernels_do_not_take(gen):
+    """No fallback: a plan the kernels do not take raises in the wrapper,
+    and one that reaches the C entry point is refused there and raises,
+    launching nothing."""
+    xyz = _points(gen, 2, 1024, torch.float32)
+    centers = xyz[:, :64].contiguous()
+    for plan in ((3, 8, 1, 0), (4, 16, 1, 0), (4, 8, 8, 0), (4, 8, 1, 2)):
+        with pytest.raises(ValueError):
+            pck.ball_query(xyz, centers, 0.5, 8, _plan=plan)
+    for plan in ((4, 8, 1, 0), (4, 8, 1, 5), (4, 8, 8, 2)):
+        with pytest.raises(ValueError):
+            pck.ball_query_pipelined(xyz, centers, 0.5, 8, _plan=plan)
+    out = torch.empty((2, 64, 8), dtype=torch.int32, device="cuda")
+    args = (_build.ptr(xyz), _build.ptr(centers), _build.ptr(out), 2, 1024,
+            64, 8, 0.25)
+    tail = (0, xyz.device.index, _build.stream_of(xyz))
+    before = dict(_build.launch_counts())
+    for plan in ((3, 8, 1), (4, 16, 1), (4, 8, 8), (4, 8, 16)):
+        with pytest.raises(RuntimeError):
+            pck.BALL_QUERY.launch(*args, *plan, *tail)
+    for plan in ((4, 8, 1, 1), (4, 8, 1, 5), (4, 8, 8, 2), (5, 8, 1, 2)):
+        with pytest.raises(RuntimeError):
+            pck.BALL_QUERY_PIPELINED.launch(*args, *plan, *tail)
+    assert _build.launch_counts() == before
 
 
 GROUP = [  # B, N, M, k, C
@@ -807,6 +880,50 @@ def test_int8_smem_mirrors_match_the_kernels(gen):
                 assert k5.query("int8_matmul_pipelined_smem", *plan, code,
                                 K) == pipeline.k5_smem_bytes(*plan, itemsize,
                                                              K)
+
+
+#: The K4 repeat test: (N, K) of llama110m's square projection, and the
+#: runs of each plan.
+K4_REPEAT_NK = (768, 768)
+K4_REPEATS = 50
+
+
+def k4_repeat_m(plan, N: int, sms: int) -> int:
+    """Rows of x that give K4 under ``plan`` at least two blocks an SM:
+    tiles x split >= 2 x the SMs (without a split the kernel is
+    persistent, one block an SM walks the tiles; two share an SM only
+    where the scheduler puts them there)."""
+    tile_m, tile_n, split, _ = plan
+    return tile_m * -(-2 * sms // (split * -(-N // tile_n)))
+
+
+@pytest.mark.parametrize("dtype", INT8_DTYPES)
+def test_int8_k4_repeats_where_blocks_share_an_sm(gen, dtype):
+    """K4's ring releases a stage with one arrival a warp, the pattern
+    that gave wrong tiles in a K5 design where two or more blocks shared
+    an SM.  Every K4 plan at which the occupancy query puts two or more
+    blocks on an SM runs 50 times at an M of at least 2 x SMs blocks:
+    every run gives the first run's bits, within ``_int8_tol`` of the
+    plain version.  (In fp32 no plan fits two blocks an SM: every plan
+    must then report one.)"""
+    from repro_torch.kernels.int8_matmul import k4_blocks_per_sm
+    N, K = K4_REPEAT_NK
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    every = pipeline.int8_plans(1, N, K, itemsize, pipelined=False)
+    per_sm = {p: k4_blocks_per_sm(p, dtype) for p in every}
+    assert min(per_sm.values()) >= 1
+    plans = [p for p in every if per_sm[p] >= 2]
+    for plan in plans:
+        x, wq, scale = _int8_inputs(gen, k4_repeat_m(plan, N, sms), N, K,
+                                    dtype)
+        first = int8_matmul(x, wq, scale, _plan=plan)
+        torch.testing.assert_close(first, ref.int8_matmul_ref(x, wq, scale),
+                                   **_int8_tol(x, wq, scale),
+                                   msg=lambda m: f"{plan}: {m}")
+        for i in range(K4_REPEATS - 1):
+            again = int8_matmul(x, wq, scale, _plan=plan)
+            assert torch.equal(again, first), (plan, i + 1)
 
 
 def test_int8_k5_refuses_what_its_tma_cannot_copy(gen):
