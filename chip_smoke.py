@@ -63,7 +63,13 @@ Phases (any failure exits non-zero; nothing is caught):
    ``F.embedding_bag(mode="max")`` over the flattened batch (offsets built
    outside the timed call; its output is held exactly against the plain
    version too); no single PyTorch call computes FPS or ball query, so
-   theirs is null.  Then the set-abstraction stage (fps → gather
+   theirs is null.  Each K12/K13 row carries its plan
+   (``pipeline.group_plan``: K12 (centers a warp, 0, 0, 0), K13 (tile
+   rows, channel slice, cluster split, slots: one a tile)), registers and spills,
+   ``gathered_bytes`` (B·M·k·C·itemsize), ``reuse`` (gathered ÷ the
+   distinct rows' bytes) and ``l2_bound_us`` (the gathered bytes at the
+   card's L2 read rate, ``l2_read_rate``: the floor of a gather from L2,
+   K12's design), and the pointcloud phase prints that rate.  Then the set-abstraction stage (fps → gather
    → ball query → group aggregate) through ``LoweringConfig("cuda")``,
    held exactly against backend "torch", in three runs, each with launch
    counts zeroed just before and read just after: (a) the bench's full size
@@ -71,7 +77,8 @@ Phases (any failure exits non-zero; nothing is caught):
    (b) PointNet++ SSG ModelNet40 SA1 (Qi et al., NeurIPS 2017: 1024 points,
    512 centers, r=0.2, 32 samples) at batch 16, C=64, points uniform in
    the unit ball; (c) run (a) with ``pipelined=False``.  Across the three,
-   every one of K9-K13 must have launched.  The kernel rows include fp16
+   every one of K9-K13 must have launched: (a) and (b) K9, K11, K13 (K13's
+   plan copies 16 and 4 feature tiles), (c) K9, K10, K12.  The kernel rows include fp16
    at (a)'s shape (distances in fp32, exact as bf16's).  Each K9 row
    carries its µs a step (ms·1e3 / (S - 1)), its plan (``fps_plan``:
    cluster, threads, points a thread), the SMs it runs on and its
@@ -95,6 +102,18 @@ Phases (any failure exits non-zero; nothing is caught):
    0.2) and (a)'s cloud with empty balls, each plan held exactly to
    ``ball_query_ref``; the rule's pick (K11 at the route's depth) beside
    the fastest, timed in turns for their spread.
+5d. group sweep (before the stage runs): K12 at every plan and K13 at
+   every plan (``group_plans``) at (a), (b), (b) in bf16, a PointNet++ SSG
+   SA2-like stage (16 × 512 points, 128 centers, r 0.4, k 64, C 128) and
+   one large cloud (1 × 65536, 1024 centers, k 32, C 64; no 16-byte slice
+   of it fits a K13 block, so K13 has no plan there and the route takes
+   K12), ball query's indices, each plan held exactly to
+   ``group_aggregate_ref``, its warm µs, registers and spills; the rule's
+   pick beside the fastest, timed in turns; K13's fastest time at each
+   slice width (the bank conflicts of narrow rows); the fastest of each
+   kernel beside the one the route picks.  Then every plan of both exact
+   at (a) and (b) in bf16 and fp16, and with stray indices, and equal
+   (NaN in the same places) on features with NaNs in all three dtypes.
 6. ssm kernels: K1 at the SSM path's widths (d 2560 and 5120, 2048 rows of
    a 4 x 512 prefill and 4 of a decode step, fp32 and bf16; tolerances of
    phase 3), then K7 ssd_scan and K8 ssd_scan_pipelined (every ring depth
@@ -720,7 +739,11 @@ PC_FORMULA = {
     "ball_query": "bytes = (B*N + B*M)*3*itemsize + B*M*k*4; "
                   "ops = 10*B*M*N (3 sub, 3 mul, 2 add, 2 compares a pair)",
     "group_aggregate": "bytes = distinct gathered rows*C*itemsize + B*M*k*4 "
-                       "+ B*M*C*itemsize; ops = B*M*k*C compares",
+                       "+ B*M*C*itemsize; ops = B*M*k*C compares.  K13 "
+                       "reads each row from HBM once (its cloud's tiles by "
+                       "TMA, multicast to a cluster) and gathers the "
+                       "B*M*k*C*itemsize bytes from shared memory; K12 "
+                       "gathers them from L2 (l2_bound_us)",
 }
 
 
@@ -844,9 +867,109 @@ def ball_design(xyz, centers, k: int, r: float, idx, depth: int = 0,
                                     10 * visited / PEAK_FLOPS["float32"]) * 1e3}
 
 
-def pointcloud_kernel_phase() -> list[dict]:
+_L2_RATE: list = []
+
+
+def l2_read_rate() -> float:
+    """Bytes a second the card's L2 serves to a reduction: warm
+    ``device_ms`` of a row sum (rows of 1024 floats) over an L2-resident
+    16 MB fp32 tensor and over its first half; the rate is the 8 MB
+    between them over the time between them, so the launch's fixed cost
+    cancels.  A yardstick for a gather's floor only; the port never calls
+    it."""
+    import torch
+    if not _L2_RATE:
+        x = torch.ones(4 * 1024 ** 2, device="cuda")
+        half = x[:x.numel() // 2]
+        full_ms = device_ms(lambda: x.view(-1, 1024).sum(1), 200)
+        half_ms = device_ms(lambda: half.view(-1, 1024).sum(1), 200)
+        if full_ms <= half_ms:
+            raise AssertionError(f"l2_read_rate: 16 MB in {full_ms} ms, "
+                                 f"8 MB in {half_ms} ms")
+        _L2_RATE.append(half.numel() * 4 / ((full_ms - half_ms) * 1e-3))
+    return _L2_RATE[0]
+
+
+def group_bytes(f, idx) -> int:
+    """PC_FORMULA's bytes of one grouped aggregation: the distinct rows
+    the indices name (clamped as the kernels clamp them), the indices and
+    the output."""
+    import torch
+    from repro_torch.pointcloud import ref as pcref
+    B, N, C = f.shape
+    M, k = idx.shape[1], idx.shape[2]
+    rows = pcref.neighbour_rows(idx, N) + N * torch.arange(
+        B, device=idx.device)[:, None, None]
+    distinct = int(torch.unique(rows).numel())
+    return distinct * C * f.element_size() + B * M * k * 4 + B * M * C * (
+        f.element_size())
+
+
+def group_library_ms(f, idx, want, case: str) -> float:
+    """Library yardstick of K12/K13 (never called by the port): one
+    max-mode embedding bag a center over the batch-flattened rows, held
+    exactly to the plain version first."""
     import torch
     import torch.nn.functional as F
+    B, N, C = f.shape
+    M, k = idx.shape[1], idx.shape[2]
+    bags = (idx.long() + N * torch.arange(B, device="cuda")[:, None, None]
+            ).view(B * M, k)
+    table = f.view(B * N, C)
+    lib = lambda: F.embedding_bag(bags, table, mode="max")  # noqa: E731
+    if not torch.equal(lib().view(B, M, C), want):
+        raise AssertionError(f"embedding_bag {case}: differs from the "
+                             f"plain version")
+    return device_ms(lib, 50)
+
+
+def group_ptxas(kernel: str, dtype: str, plan, C: int) -> tuple[int, int]:
+    """Registers and spill-store bytes of the K12 or K13 instantiation
+    that ``plan`` launches, from the build log."""
+    import torch
+    itemsize = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    if kernel == "group_aggregate":
+        from repro_torch.kernels.pipeline import group_lanes
+        vec = (C * itemsize) % 16 == 0
+        tag = (f"group_kernelI{_MANGLED_T[dtype]}Lb{int(vec)}E"
+               f"Li{group_lanes(C, itemsize)}EE")
+    else:
+        tag = f"group_tiled_kernelI{_MANGLED_T[dtype]}Li{plan[1] * itemsize // 16}EE"
+    hits = [v for name, v in ptxas_report(kernel).items() if tag in name]
+    if len(hits) != 1:
+        raise AssertionError(f"{tag}: {len(hits)} kernels in the build log")
+    return hits[0]
+
+
+def group_design(kernel: str, f, idx, plan=None) -> dict:
+    """The design fields of a K12/K13 row: its plan (``group_plan``
+    unless given), the instantiation's registers and spills, the gathered
+    bytes (B·M·k·C·itemsize), their reuse (gathered ÷ the distinct rows'
+    bytes) and ``l2_bound_us`` (the gathered bytes at ``l2_read_rate``: the
+    floor of a design that gathers from L2, as K12 does)."""
+    import torch
+    from repro_torch.kernels import pipeline as pl
+    from repro_torch.pointcloud import ref as pcref
+    B, N, C = f.shape
+    M, k = idx.shape[1], idx.shape[2]
+    it = f.element_size()
+    dtype = str(f.dtype).replace("torch.", "")
+    if plan is None:
+        plan = pl.group_plan(B, N, M, k, C, it,
+                             0 if kernel == "group_aggregate" else None,
+                             pl.sm_count(f.device))
+    regs, spills = group_ptxas(kernel, dtype, plan, C)
+    rows = pcref.neighbour_rows(idx, N) + N * torch.arange(
+        B, device=idx.device)[:, None, None]
+    gathered = B * M * k * C * it
+    return {"plan": list(plan), "registers": regs,
+            "spill_store_bytes": spills, "gathered_bytes": gathered,
+            "reuse": gathered / (int(torch.unique(rows).numel()) * C * it),
+            "l2_bound_us": gathered / l2_read_rate() * 1e6}
+
+
+def pointcloud_kernel_phase() -> list[dict]:
+    import torch
     from repro_torch.pointcloud import kernels as pck
     from repro_torch.pointcloud import ref as pcref
     rows = []
@@ -909,33 +1032,20 @@ def pointcloud_kernel_phase() -> list[dict]:
                 design=ball_design(xyz, centers, k, r, idx, depth)))
         f = feats.to(xyz.dtype)
         want = pcref.group_aggregate_ref(f, idx)
-        rows_read = int(torch.unique(
-            idx.long() + N * torch.arange(B, device="cuda")[:, None, None]).numel())
-        nbytes = rows_read * C * it + B * M * k * 4 + B * M * C * it
         plain = device_ms(lambda: pcref.group_aggregate_ref(f, idx), 20)
-        # library yardstick (never called by the port): one max-mode
-        # embedding bag a center over the batch-flattened rows
-        bags = (idx.long() + N * torch.arange(B, device="cuda")[:, None, None]
-                ).view(B * M, k)
-        table = f.view(B * N, C)
-        lib = lambda: F.embedding_bag(bags, table, mode="max")  # noqa: E731
-        if not torch.equal(lib().view(B, M, C), want):
-            raise AssertionError(f"embedding_bag {case}: differs from the "
-                                 f"plain version")
-        lib_ms = device_ms(lib, 50)
-        rows.append(_pc_row(
-            "group_aggregate", case, pck.group_aggregate(f, idx), want,
-            device_ms(lambda: pck.group_aggregate(f, idx), 50), plain,
-            nbytes, B * M * k * C, dtype, lib_ms,
-            cold=(pck.group_aggregate, (f, idx))))
-        for depth in (2, 3, 4):
-            call = lambda f, i, depth=depth: pck.group_aggregate_pipelined(  # noqa: E731
-                f, i, depth=depth)
-            run = lambda: call(f, idx)  # noqa: E731
+        lib_ms = group_library_ms(f, idx, want, case)
+        nbytes = group_bytes(f, idx)
+        for name, fn in (("group_aggregate", pck.group_aggregate),
+                         ("group_aggregate_pipelined",
+                          pck.group_aggregate_pipelined)):
             rows.append(_pc_row(
-                "group_aggregate_pipelined", f"{case} depth={depth}", run(),
-                want, device_ms(run, 50), plain, nbytes, B * M * k * C, dtype,
-                lib_ms, cold=(call, (f, idx))))
+                name, case, fn(f, idx), want,
+                device_ms(lambda: fn(f, idx), 50), plain, nbytes,
+                B * M * k * C, dtype, lib_ms, cold=(fn, (f, idx)),
+                design=group_design(name, f, idx)))
+    print(json.dumps({"phase": "l2_read_rate", "bytes_per_s": l2_read_rate(),
+                      "how": "row sums over 16 MB and 8 MB of an L2-resident "
+                             "fp32 tensor: 8 MB over the time between them"}))
     return rows
 
 
@@ -1084,6 +1194,160 @@ def ball_sweep_phase() -> None:
                 "pick_within_5pct": med[pick] <= 1.05 * med[best]}))
 
 
+#: Grouped aggregation's sweep: B, N, M, k, C, dtype, radius.  (a) and (b)
+#: as the path runs them (the FPS samples as centers, ball query's
+#: indices); (b) in bf16; a PointNet++ SSG SA2-like stage (512 points,
+#: 128 centers, r 0.4, 64 samples, 128 channels; points uniform in the
+#: unit ball, FPS centers); one large cloud with random points as centers.
+GROUP_SWEEP = {"a": (2, 4096, 512, 16, 64, "float32", 0.9),
+               "b": (16, 1024, 512, 32, 64, "float32", 0.2),
+               "b-bf16": (16, 1024, 512, 32, 64, "bfloat16", 0.2),
+               "sa2": (16, 512, 128, 64, 128, "float32", 0.4),
+               "large": (1, 65536, 1024, 32, 64, "float32", 0.2)}
+
+
+def group_sweep_inputs(name: str):
+    """(features, idx) of one GROUP_SWEEP shape on the card, from numpy's
+    seed 0: ball query's indices (ascending, padded with the first hit)."""
+    import numpy as np
+    import torch
+    from repro_torch.pointcloud import ref as pcref
+    B, N, M, k, C, dtype, r = GROUP_SWEEP[name]
+    shape = name.split("-")[0]
+    if shape in PC_SHAPES:
+        xyz, feats = pc_inputs(shape, dtype)[:2]
+    else:
+        rng = np.random.default_rng(0)
+        if shape == "large":
+            pts = rng.normal(size=(B, N, 3))
+        else:
+            u = rng.normal(size=(B, N, 3))
+            u /= np.linalg.norm(u, axis=-1, keepdims=True)
+            pts = u * rng.uniform(size=(B, N, 1)) ** (1 / 3)
+        xyz = torch.from_numpy(pts.astype(np.float32)).cuda()
+        feats = torch.from_numpy(rng.normal(size=(B, N, C)).astype(
+            np.float32)).cuda().to(getattr(torch, dtype))
+    if shape == "large":
+        sel = torch.from_numpy(np.random.default_rng(1).choice(
+            N, (B, M), replace=False)).cuda()
+    else:
+        sel = pcref.fps_ref(xyz, M).long()
+    centers = torch.gather(xyz.float(), 1, sel[..., None].expand(-1, -1, 3))
+    return feats, pcref.ball_query_ref(xyz.float(), centers, r, k)
+
+
+def group_sweep_phase() -> None:
+    """K12 at every plan it is built for and K13 at every plan
+    (``group_plans``) at the shapes of GROUP_SWEEP: each plan held exactly
+    to ``group_aggregate_ref``, its warm µs, registers and spills; the
+    rule's pick beside the fastest, both timed again in turns (pick,
+    fastest, fastest, pick, ...) for their spread; for K13 the fastest
+    time at each slice width (16 to 128 bytes a row: the effect of shared
+    memory's bank conflicts, which a 128-byte row cannot have); the
+    fastest of each kernel beside the one the route sends the shape to (a
+    kernel with no plan at a shape is left out there).  Then every plan of
+    both kernels exact, untimed, at (a) and (b) in bf16 and fp16, in fp32
+    with stray indices (negative and past the end, any order), and equal
+    with NaN in the same places on features with NaNs in all three
+    dtypes."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import pipeline as pl
+    from repro_torch.kernels.pipeline import use_pipeline
+    from repro_torch.pointcloud import kernels as pck
+    from repro_torch.pointcloud import ops as pcops
+    from repro_torch.pointcloud import ref as pcref
+    kernels = (("group_aggregate", 0, pck.group_aggregate),
+               ("group_aggregate_pipelined", None,
+                pck.group_aggregate_pipelined))
+    sms = pl.sm_count("cuda")
+    for name, (B, N, M, k, C, dtype, _) in GROUP_SWEEP.items():
+        f, idx = group_sweep_inputs(name)
+        want = pcref.group_aggregate_ref(f, idx)
+        it = f.element_size()
+        fastest = {}
+        for kernel, depth, fn in kernels:
+            times, design = {}, {}
+            plans = pl.group_plans(B, N, M, k, C, it, depth)
+            if not plans:
+                if pl.group_plan(B, N, M, k, C, it, depth, sms) is not None:
+                    raise AssertionError(f"group sweep {name} {kernel}: "
+                                         f"a pick but no plans")
+                print(json.dumps({"phase": "group_sweep", "shape": name,
+                                  "kernel": kernel, "plans": 0}))
+                continue
+            for plan in plans:
+                if not torch.equal(fn(f, idx, _plan=plan), want):
+                    raise AssertionError(f"group sweep {name} {kernel} "
+                                         f"{plan}: differs from "
+                                         f"group_aggregate_ref")
+                times[plan] = device_ms(lambda plan=plan: fn(f, idx, _plan=plan),
+                                        20, spin=4_000_000) * 1e3
+                design[plan] = group_ptxas(kernel, dtype, plan, C)
+            pick = pl.group_plan(B, N, M, k, C, it, depth, sms)
+            best = min(times, key=times.get)
+            fastest[kernel] = times[best]
+            turns = {pick: [], best: []}
+            for plan in (pick, best, best, pick) * 3:
+                turns[plan].append(device_ms(
+                    lambda plan=plan: fn(f, idx, _plan=plan), 20,
+                    spin=4_000_000) * 1e3)
+            med = {p: float(np.median(v)) for p, v in turns.items()}
+            line = {
+                "phase": "group_sweep", "shape": name, "kernel": kernel,
+                "B": B, "N": N, "M": M, "k": k, "C": C, "dtype": dtype,
+                "us": {str(p): t for p, t in sorted(times.items(),
+                                                    key=lambda e: e[1])},
+                "registers_spills": {str(p): v for p, v in design.items()},
+                "pick": pick, "fastest": best,
+                "us_min_median_max": {str(p): [min(v), med[p], max(v)]
+                                      for p, v in turns.items()},
+                "pick_within_3pct": med[pick] <= 1.03 * med[best]}
+            if depth is None:
+                line["slice_bytes_us"] = {
+                    sb: min((t for p, t in times.items()
+                             if p[1] * it == sb), default=None)
+                    for sb in pl.GROUP_SLICE_BYTES}
+            print(json.dumps(line))
+        routed = ("group_aggregate_pipelined"
+                  if use_pipeline(pcops.group_steps(f, idx))
+                  else "group_aggregate")
+        print(json.dumps({"phase": "group_sweep", "shape": name,
+                          "fastest_us": fastest, "routed": routed,
+                          "routed_is_faster": fastest[routed]
+                          == min(fastest.values())}))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    checked = 0
+    for shape in ("a", "b"):
+        f32, idx = group_sweep_inputs(shape)
+        B, N, C = f32.shape
+        M, k = idx.shape[1], idx.shape[2]
+        stray = torch.randint(-2 * N, 2 * N, idx.shape, generator=gen,
+                              device="cuda", dtype=torch.int32)
+        nan = f32.masked_fill(torch.rand(f32.shape, generator=gen,
+                                         device="cuda") < 0.002,
+                              float("nan"))
+        for f, ii in ((f32.bfloat16(), idx), (f32.half(), idx),
+                      (f32, stray), (nan, idx), (nan.bfloat16(), idx),
+                      (nan.half(), idx)):
+            want = pcref.group_aggregate_ref(f, ii)
+            for kernel, depth, fn in kernels:
+                for plan in pl.group_plans(B, N, M, k, C, f.element_size(),
+                                           depth):
+                    got = fn(f, ii, _plan=plan)
+                    if not (torch.equal(got.isnan(), want.isnan())
+                            and torch.equal(got.nan_to_num(0.0),
+                                            want.nan_to_num(0.0))):
+                        raise AssertionError(
+                            f"group check ({shape}) {f.dtype} {kernel} "
+                            f"{plan}: differs from group_aggregate_ref")
+                    checked += 1
+    print(json.dumps({"phase": "group_sweep", "exact_plans_checked": checked,
+                      "cases": "(a), (b) x bf16, fp16, fp32 stray indices, "
+                               "NaN features in fp32, bf16, fp16"}))
+
+
 def pointcloud_path_phase() -> dict:
     """Runs (a), (b), (c) of the set-abstraction stage; returns the launch
     counts summed over the three."""
@@ -1093,8 +1357,10 @@ def pointcloud_path_phase() -> dict:
     from repro_torch.launch.pointcloud import set_abstraction
 
     runs = (("a", "a", None), ("b", "b", None), ("c", "a", False))
+    # K13 where its plan copies two feature tiles or more: (a) 16 tiles of
+    # 256 rows, (b) 4; (c) forces the baselines
     want_kernels = {
-        "a": {"fps", "ball_query_pipelined", "group_aggregate"},
+        "a": {"fps", "ball_query_pipelined", "group_aggregate_pipelined"},
         "b": {"fps", "ball_query_pipelined", "group_aggregate_pipelined"},
         "c": {"fps", "ball_query", "group_aggregate"}}
     cuda, plain = LoweringConfig("cuda"), LoweringConfig("torch")
@@ -2014,12 +2280,13 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                  "flash_attention_pipelined":
                      "B=8 S=512 T=512 H=12 K=12 hd=64 float32 causal "
                      f"depth={i1_depth}",
-                 # shape (a) for K9-K12, (b) for K13, as the path takes them
+                 # shape (a) for K9-K12 (K12 as run (c) takes it), (b) for
+                 # K13
                  "fps": "a float32",
                  "ball_query": "a float32",
                  "ball_query_pipelined": "a float32 depth=4",
                  "group_aggregate": "a float32",
-                 "group_aggregate_pipelined": "b float32 depth=2",
+                 "group_aggregate_pipelined": "b float32",
                  "ssd_scan": "BT=4 H=80 S=40 P=64 N=128",
                  "ssd_scan_pipelined": "BT=4 H=80 S=512 P=64 N=128 "
                                        f"depth={ssd_depth(64, 128, 512)}",
@@ -2047,7 +2314,8 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                     "cluster", "threads", "ppt", "us_per_step", "sms_used",
                     "cpw", "warps", "visited_share", "bound_visited_ms",
                     "tile_m", "tile_n", "split", "depth",
-                    "bound_cuda_core_ms", "dequant_mm_ms",
+                    "bound_cuda_core_ms", "dequant_mm_ms", "plan",
+                    "gathered_bytes", "reuse", "l2_bound_us",
                     "registers", "spill_store_bytes"):
             if key in row:
                 out[-1][key] = row[key]
@@ -2087,6 +2355,7 @@ def main() -> int:
     rows += timed("pointcloud_kernels", pointcloud_kernel_phase)
     timed("fps_sweep", fps_sweep_phase)
     timed("ball_sweep", ball_sweep_phase)
+    timed("group_sweep", group_sweep_phase)
     pc_launches = timed("pointcloud", pointcloud_path_phase)
     rows += timed("ssm_kernels", ssm_kernel_phase)
     ssm_launches = timed("ssm", ssm_serve_phase)

@@ -269,17 +269,6 @@ __device__ __forceinline__ void pad_rows(const Centers<C>& st, int m0, int M, in
   }
 }
 
-// The cluster barrier in two halves: every block of a split arrives as it
-// starts and waits before its first write to another block's shared
-// memory, which is valid only once that block runs; the loads issued in
-// between overlap the wait.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
 // Where the warp's centers send their hits: without a split, their output
 // rows; with one, local center i's slot in the inbox of block i % split,
 // (i / split) * split + rank, after the inbox's counts (inbox layout:

@@ -163,7 +163,7 @@ __device__ __forceinline__ void load16(const int8_t* p, float* out) {
 // registers and L1.  `src_bytes` (0..16) bytes are read from `gmem_src` and
 // the rest of the 16 are written as zeros, so a ragged edge or a masked row
 // is filled by the copy itself.  Both addresses must be 16-byte aligned.
-// Shared by the pipelined kernels (K3, K13).
+// Used by K3's ring (flash_tile.cuh).
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src,
                                            int src_bytes) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
@@ -177,6 +177,19 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The cluster barrier in two halves, for every thread of every block of a
+// thread-block cluster: each block arrives as it starts and waits before
+// its first access to another block's shared memory or mbarriers, which
+// are valid only once that block runs (and, for mbarriers, once it has
+// initialised them); the work issued in between overlaps the wait.
+// Shared by ball query (K10, K11: ball_tile.cuh) and K13.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // Set the device the caller's tensors live on; the ctypes route has no

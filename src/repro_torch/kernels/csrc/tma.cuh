@@ -1,6 +1,7 @@
 // TMA, mbarrier and thread-block-cluster helpers of the int8 GEMMs (K4
-// int8_matmul.cu, K5 int8_matmul_pipelined.cu) and of K11's ring
-// (ball_query_pipelined.cu), and the host code that
+// int8_matmul.cu, K5 int8_matmul_pipelined.cu), of K11's ring
+// (ball_query_pipelined.cu) and of K13's feature tiles
+// (group_aggregate_pipelined.cu), and the host code that
 // encodes a 2-D tensor map (cuTensorMapEncodeTiled, reached through the
 // runtime's driver entry point, so the libraries need no -lcuda).
 #pragma once
@@ -62,6 +63,18 @@ __device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map, int c
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// load_2d into the same shared-memory offset of every block of the cluster
+// in `mask` (bit r: block rank r), each copy completing on the mbarrier at
+// `bar`'s offset in its own block.
+__device__ __forceinline__ void load_2d_multicast(void* dst, const CUtensorMap* map, int c0,
+                                                  int c1, uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar)), "h"(mask)
       : "memory");
 }
 

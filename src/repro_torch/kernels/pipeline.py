@@ -597,3 +597,156 @@ def ball_plan(B: int, N: int, M: int, k: int, itemsize: int,
                                itemsize)):
         split *= 2
     return cpw, warps, split, depth
+
+
+# ---------------------------------------------------------------------------
+# K12's and K13's plan: grouped aggregation, a direct gather (K12) or the
+# cloud's feature tiles copied whole into shared memory (K13)
+# ---------------------------------------------------------------------------
+
+#: Threads of a K13 block (csrc/group_aggregate_pipelined.cu kThreads).
+GROUP_THREADS = 512
+#: What csrc/group_aggregate_pipelined.cu (K13) is built for: bytes of a
+#: row of the channel slice (read by 1, 2, 4 or 8 lanes of 16 bytes; 128
+#: bytes is one conflict-free shared-memory wavefront), rows of a feature
+#: tile (a TMA box is at most 256 rows), blocks of a cluster that share
+#: each tile (one multicast copy) and split the centers, and the most
+#: centers one lane group keeps in registers.
+GROUP_SLICE_BYTES = (16, 32, 64, 128)
+GROUP_TILE_ROWS = (64, 128, 256)
+GROUP_SPLITS = (1, 2, 4, 8)
+GROUP_CPG = 4
+#: What csrc/group_aggregate.cu (K12) is built for: centers a warp (the
+#: warp's lanes split evenly between them), and row loads a lane issues
+#: before it folds them (compile-time, so all are in flight at once).
+GROUP_CPW = (1, 2, 4, 8)
+GROUP_LOADS = 8
+
+
+def group_lanes(C: int, itemsize: int) -> int:
+    """Lanes K12 gives one row of C channels: one a 16-byte chunk (one an
+    element where rows are not whole chunks), rounded up to a power of
+    two, at most the warp (wider rows loop over chunks of 32 lanes)."""
+    units = C * itemsize // 16 if (C * itemsize) % 16 == 0 else C
+    return min(32, 1 << max(0, units - 1).bit_length())
+
+
+def group_tiles(N: int, bn: int) -> int:
+    """Feature tiles of ``bn`` rows K13 streams for a cloud of N points:
+    the reference's ``N // bn`` where bn divides N."""
+    return -(-N // bn)
+
+
+def group_smem_bytes(plan, M: int, k: int, itemsize: int) -> int:
+    """Dynamic shared memory of one K13 block under ``plan`` = (bn, cs,
+    split, depth), as csrc/group_aggregate_pipelined.cu ``Layout`` lays
+    it out: ``depth`` slots (one a tile) of bn rows of the cs-channel
+    slice, the block's centers' neighbour offsets (16-byte chunks of four,
+    an odd count a center against bank conflicts), one mbarrier a slot."""
+    bn, cs, split, depth = plan
+    mb = -(-M // split)
+    return depth * bn * cs * itemsize + 16 * mb * (-(-k // 4) | 1) + 8 * depth
+
+
+def group_plan_legal(plan, B: int, N: int, M: int, k: int, C: int,
+                     itemsize: int) -> bool:
+    """True iff K12 (depth 0: (cpw, 0, 0, 0)) or K13 ((bn, cs, split,
+    depth), depth >= 1) is built for ``plan`` and takes this shape.
+
+    K13: rows of whole 16-byte chunks, a slice of ``GROUP_SLICE_BYTES``
+    that divides the row, no tile wider than the cloud unless it is the
+    narrowest, each of the split's parts of a tile at least 8 rows, one
+    slot a tile (``depth`` = the tiles: the whole slice in shared
+    memory); each lane group keeps at most
+    ``GROUP_CPG`` centers, and the block fits."""
+    if not (1 <= B <= 65535 and N >= 1 and M >= 1 and k >= 1 and C >= 1):
+        return False
+    if plan[3] == 0:
+        cpw = plan[0]
+        return (tuple(plan[1:]) == (0, 0, 0) and cpw in GROUP_CPW
+                and cpw * group_lanes(C, itemsize) <= 32)
+    bn, cs, split, depth = plan
+    nt = group_tiles(N, bn)
+    lanes = cs * itemsize // 16
+    return ((C * itemsize) % 16 == 0 and cs * itemsize in GROUP_SLICE_BYTES
+            and C % cs == 0 and C // cs <= 65535
+            and bn in GROUP_TILE_ROWS and (bn <= N or bn == GROUP_TILE_ROWS[0])
+            and split in GROUP_SPLITS and bn // split >= 8
+            and depth == nt
+            and -(-(-(-M // split)) // (GROUP_THREADS // lanes)) <= GROUP_CPG
+            and group_smem_bytes(plan, M, k, itemsize) <= MAX_SMEM)
+
+
+def group_plans(B: int, N: int, M: int, k: int, C: int, itemsize: int,
+                depth: int | None = None) -> list[tuple[int, int, int, int]]:
+    """Every legal plan of K12 (``depth`` 0) or of K13 (None)."""
+    if depth == 0:
+        plans = [(c, 0, 0, 0) for c in GROUP_CPW]
+    else:
+        plans = [(bn, sb // itemsize, split, group_tiles(N, bn))
+                 for bn, sb, split in itertools.product(
+                     GROUP_TILE_ROWS, GROUP_SLICE_BYTES, GROUP_SPLITS)]
+    return [p for p in plans
+            if group_plan_legal(p, B, N, M, k, C, itemsize)]
+
+
+def sm_count(device=None) -> int:
+    """SMs of ``device``'s card (a CUDA device, as the driver reports
+    them); ``SMS`` for a CPU device, whose tensors take the plain
+    versions."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type != "cuda":
+        return SMS
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+#: K13's plan rule (``group_plan``), from the card's sweep (PERF.md): a
+#: block's gather out of shared memory at most this many bytes, and the
+#: tiles copied into all blocks' shared memory at most this many in all.
+GROUP_GATHER_CAP = 512 * 1024
+GROUP_FILL_CAP = 8 * 1024 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def group_plan(B: int, N: int, M: int, k: int, C: int, itemsize: int,
+               depth: int | None = None, sms: int = SMS):
+    """The plan of K12 (``depth`` 0: (cpw, 0, 0, 0)) or of K13 (None: (bn,
+    cs, split, depth)) for B clouds of N rows of C channels and M centers
+    of k neighbours, on a card of ``sms`` SMs; None where K13 takes no plan
+    (rows that are not whole 16-byte chunks, or no slice of the cloud fits
+    a block whole), so the route sends the cloud to K12.
+
+    K12: as many centers a warp as the row's lanes leave room for, while
+    that keeps 8 warps an SM busy, else one.
+
+    K13: tiles of 256 rows (or the narrowest where the cloud is shorter),
+    of the plans whose slice fits a block whole: the blocks one wave and
+    more than a quarter of the SMs, a block's gather (its centers' k rows
+    of the slice) at most ``GROUP_GATHER_CAP`` bytes, the slices copied into all blocks at most
+    ``GROUP_FILL_CAP`` bytes (dropping these conditions from the last where
+    no plan meets them all); then the largest gather a block (fewer, fuller
+    blocks), the widest slice, the smallest split.  At the swept shapes
+    this takes the fastest plan of the sweep in PERF.md or one within 3 %
+    of it."""
+    if depth == 0:
+        lanes = group_lanes(C, itemsize)
+        cpw = max(c for c in GROUP_CPW
+                  if c == 1 or (c * lanes <= 32 and B * M >= 8 * sms * c))
+        return cpw, 0, 0, 0
+    bn = max(b for b in GROUP_TILE_ROWS if b <= N or b == GROUP_TILE_ROWS[0])
+    plans = [p for p in group_plans(B, N, M, k, C, itemsize) if p[0] == bn]
+
+    def blocks(p):
+        return B * (C // p[1]) * p[2]
+
+    def gather(p):
+        return -(-M // p[2]) * k * p[1] * itemsize
+    conds = (lambda p: sms // 4 < blocks(p) <= sms,
+             lambda p: gather(p) <= GROUP_GATHER_CAP,
+             lambda p: blocks(p) * N * p[1] * itemsize <= GROUP_FILL_CAP)
+    for n in range(len(conds), -1, -1):
+        chosen = [p for p in plans if all(c(p) for c in conds[:n])]
+        if chosen:
+            return max(chosen, key=lambda p: (gather(p), p[1], -p[2]))
+    return None

@@ -10,9 +10,13 @@ The port of ``repro/pointcloud/kernels.py``:
   copies): several centers a warp, the cloud split over a cluster where
   the centers leave SMs idle, the plan from
   ``kernels.pipeline.ball_plan``;
-* K12 ``group_aggregate`` (``csrc/group_aggregate.cu``) and K13
-  ``group_aggregate_pipelined`` (``csrc/group_aggregate_pipelined.cu``, the
-  gathered rows through a ``cp.async`` ring): a direct row gather and a max.
+* K12 ``group_aggregate`` (``csrc/group_aggregate.cu``: a direct row
+  gather, a center's row loads all in flight at once) and K13
+  ``group_aggregate_pipelined`` (``csrc/group_aggregate_pipelined.cu``: a
+  channel slice of the cloud copied whole into shared memory in feature
+  tiles by TMA, each row read from device memory once, a cluster's blocks
+  sharing each tile by multicast, the gather from shared memory), the plan
+  from ``kernels.pipeline.group_plan``.
 
 Points are 3-d, fp32, bf16 or fp16 (distances in fp32 either way);
 indices are int32.  On CPU tensors each
@@ -29,8 +33,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPE_CODES
 from repro_torch.kernels import pipeline as _pl
-from repro_torch.kernels.pipeline import (DEPTHS, FPS_CAPACITY, MAX_SMEM,
-                                          fps_plan, fps_plan_legal)
+from repro_torch.kernels.pipeline import (DEPTHS, FPS_CAPACITY, fps_plan,
+                                          fps_plan_legal)
 from repro_torch.pointcloud import ref
 
 #: Largest cloud whose points K9 keeps in registers (csrc/fps.cu: 16 blocks
@@ -40,11 +44,6 @@ FPS_REGISTER_POINTS = FPS_CAPACITY
 #: Points per X tile of K11 and per part of a split cloud
 #: (csrc/ball_tile.cuh).
 BALL_TILE = _pl.BALL_TILE
-#: K13's block: centers, neighbours per ring stage, most channels
-#: (csrc/group_aggregate_pipelined.cu).
-GROUP_CENTERS = 4
-GROUP_CHUNK = 16
-GROUP_MAX_CHANNELS = 256
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PC = "src/repro/pointcloud/kernels.py"
@@ -63,12 +62,12 @@ BALL_QUERY_PIPELINED = _build.CudaKernel(
     replaces=f"{_PC}:180")
 GROUP_AGGREGATE = _build.CudaKernel(
     "group_aggregate", lib="group_aggregate", symbol="group_aggregate_launch",
-    argtypes=[_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    argtypes=[_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     replaces=f"{_PC}:253")
 GROUP_AGGREGATE_PIPELINED = _build.CudaKernel(
     "group_aggregate_pipelined", lib="group_aggregate_pipelined",
     symbol="group_aggregate_pipelined_launch",
-    argtypes=[_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    argtypes=[_P, _P, _P] + [_I] * 11 + [_P],
     replaces=f"{_PC}:287")
 
 
@@ -207,19 +206,6 @@ def ball_query_pipelined(xyz, centers, radius: float, k: int, *,
     return out
 
 
-def group_ring_bytes(C: int, itemsize: int, k: int, depth: int) -> int:
-    """Shared memory of one K13 block: ``depth`` stages of 4 centers × 16
-    neighbour rows × C, plus the block's 4 × k indices."""
-    return (depth * GROUP_CENTERS * GROUP_CHUNK * C * itemsize
-            + GROUP_CENTERS * k * 4)
-
-
-def group_ring_takes(C: int, itemsize: int) -> bool:
-    """True iff K13 takes rows of C channels: whole 16-byte chunks, and at
-    most ``GROUP_MAX_CHANNELS`` channels."""
-    return (C * itemsize) % 16 == 0 and C <= GROUP_MAX_CHANNELS
-
-
 def _group_args(name, features, idx):
     _check(name, features, idx)
     if features.dim() != 3 or idx.dim() != 3 or idx.shape[0] != features.shape[0]:
@@ -236,37 +222,58 @@ def _group_args(name, features, idx):
     return B, N, M, k, C, out
 
 
-def group_aggregate(features, idx) -> torch.Tensor:
-    """K12: features (B, N, C), idx (B, M, k) i32 → max-pooled (B, M, C)."""
+def _group_plan(name, features, shape, plan, depth):
+    """``plan`` as given if the kernel (K12 at ``depth`` 0, else K13) takes
+    it at ``shape`` = (B, N, M, k, C), else raise; None: ``group_plan``'s
+    on features' card."""
+    itemsize = features.element_size()
+    if plan is None:
+        plan = _pl.group_plan(*shape, itemsize, depth,
+                              _pl.sm_count(features.device))
+    plan = None if plan is None else tuple(plan)
+    if (plan is None or (plan[3] == 0) != (depth == 0)
+            or not _pl.group_plan_legal(plan, *shape, itemsize)):
+        raise ValueError(f"{name}: no kernel for plan {plan} at "
+                         f"(B, N, M, k, C) = {shape}, {features.dtype}")
+    return plan
+
+
+def group_aggregate(features, idx, *, _plan=None) -> torch.Tensor:
+    """K12: features (B, N, C), idx (B, M, k) i32 → max-pooled (B, M, C).
+
+    The plan is ``group_plan(B, N, M, k, C, itemsize, 0)``; ``_plan``
+    forces another (cpw, 0, 0, 0), for the sweep and tests only."""
     if features.device.type == "cpu":
         return ref.group_aggregate_ref(features, idx)
     B, N, M, k, C, out = _group_args("group_aggregate", features, idx)
     if out.numel():
+        plan = _group_plan("group_aggregate", features, (B, N, M, k, C),
+                           _plan, 0)
         GROUP_AGGREGATE.launch(
             _build.ptr(features), _build.ptr(idx), _build.ptr(out), B, N, M, k,
-            C, DTYPE_CODES[features.dtype], features.device.index,
+            C, plan[0], DTYPE_CODES[features.dtype], features.device.index,
             _build.stream_of(features))
     return out
 
 
-def group_aggregate_pipelined(features, idx, *, depth: int = 2) -> torch.Tensor:
-    """K13: K12 with the gathered rows streamed through a ``depth``-stage
-    ring."""
+def group_aggregate_pipelined(features, idx, *, _plan=None) -> torch.Tensor:
+    """K13: K12 with a channel slice of the cloud copied whole into shared
+    memory, one slot a feature tile.
+
+    The plan (bn, cs, split, depth = tiles) is ``group_plan(B, N, M, k, C,
+    itemsize)``; ``_plan`` forces another, for the sweep and tests only.
+    Rows that are not whole 16-byte chunks, a cloud whose narrowest slice
+    does not fit a block, and a plan the kernel is not built for or whose
+    block does not fit, raise."""
     if features.device.type == "cpu":
         return ref.group_aggregate_ref(features, idx)
-    _check_depth("group_aggregate_pipelined", depth)
-    B, N, M, k, C, out = _group_args("group_aggregate_pipelined", features, idx)
-    itemsize = features.element_size()
-    if not group_ring_takes(C, itemsize):
-        raise ValueError(f"group_aggregate_pipelined: rows of {C} channels "
-                         f"are not whole 16-byte chunks or exceed "
-                         f"{GROUP_MAX_CHANNELS}")
-    if group_ring_bytes(C, itemsize, k, depth) > MAX_SMEM:
-        raise ValueError(f"group_aggregate_pipelined: a depth-{depth} ring "
-                         f"of {C} channels does not fit in {MAX_SMEM} bytes")
+    B, N, M, k, C, out = _group_args("group_aggregate_pipelined", features,
+                                     idx)
     if out.numel():
+        plan = _group_plan("group_aggregate_pipelined", features,
+                           (B, N, M, k, C), _plan, None)
         GROUP_AGGREGATE_PIPELINED.launch(
             _build.ptr(features), _build.ptr(idx), _build.ptr(out), B, N, M, k,
-            C, depth, DTYPE_CODES[features.dtype], features.device.index,
+            C, *plan, DTYPE_CODES[features.dtype], features.device.index,
             _build.stream_of(features))
     return out

@@ -14,7 +14,7 @@ CUDA tensors the kernel does not take (points other than 3-d, dtypes other
 than fp32/bf16/fp16).  Baseline or pipelined follows the port's rule
 (``kernels.pipeline.use_pipeline``): pipeline from two streamed tiles up,
 or as ``pipelined`` says.  The streamed tiles are K11's 256-point X tiles
-and K13's 16-neighbour stages.
+and the feature tiles of K13's plan (``kernels.pipeline.group_plan``).
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.tiling import down_pow2
-from repro_torch.kernels.pipeline import deepest_ring, use_pipeline
+from repro_torch.kernels.pipeline import (group_plan, group_tiles, sm_count,
+                                          use_pipeline)
 from repro_torch.pointcloud import kernels as pck
 from repro_torch.pointcloud import ref
 
@@ -106,30 +107,25 @@ def ball_query(xyz, centers, radius: float, k: int, *,
                              radius_sq=radius_sq)
 
 
-def group_steps(k: int) -> int:
-    """Neighbour stages of one K13 block."""
-    return -(-k // pck.GROUP_CHUNK)
-
-
-def group_depth(C: int, itemsize: int, k: int) -> int | None:
-    """Deepest K13 ring (2..4, no deeper than the stages) that fits, or None
-    where K13 does not take the rows."""
-    if not pck.group_ring_takes(C, itemsize):
-        return None
-    return deepest_ring(lambda d: pck.group_ring_bytes(C, itemsize, k, d),
-                        group_steps(k), max(pck.DEPTHS))
+def group_steps(features, idx) -> int:
+    """Feature tiles K13 copies under its plan (``group_plan``): the
+    reference's ``N // bn``; 0 where K13 takes no plan."""
+    B, N, C = features.shape
+    M, k = idx.shape[1], idx.shape[2]
+    plan = group_plan(B, N, M, k, C, features.element_size(), None,
+                      sm_count(features.device))
+    return 0 if plan is None else group_tiles(N, plan[0])
 
 
 def kernel_group_aggregate(features, idx, *,
                            pipelined: bool | None = None) -> torch.Tensor:
-    """K13 when the block has two neighbour stages or more (``pipelined``
-    overrides) and its ring takes the rows, else K12; no fallback."""
+    """K13 when its plan copies two feature tiles or more (``pipelined``
+    overrides), else K12 (also where no slice of the cloud fits a K13
+    block); no fallback."""
     features = _aligned(features)
     idx = _aligned(idx.to(torch.int32))
-    k = idx.shape[2]
-    depth = group_depth(features.shape[2], features.element_size(), k)
-    if depth is not None and use_pipeline(group_steps(k), pipelined):
-        return pck.group_aggregate_pipelined(features, idx, depth=depth)
+    if use_pipeline(group_steps(features, idx), pipelined):
+        return pck.group_aggregate_pipelined(features, idx)
     return pck.group_aggregate(features, idx)
 
 

@@ -487,36 +487,113 @@ def test_ball_query_refuses_plans_the_kernels_do_not_take(gen):
 GROUP = [  # B, N, M, k, C
     (2, 256, 64, 8, 32), (2, 4096, 512, 16, 64), (16, 1024, 512, 32, 64),
     (1, 300, 13, 5, 8), (2, 500, 30, 64, 128), (1, 64, 7, 33, 256),
-    (1, 100, 9, 17, 4)]
+    (1, 100, 9, 17, 4), (1, 8192, 64, 8, 4)]
+
+
+def _group_plans(feats, idx, depth):
+    Bc, Nc, Cc = feats.shape
+    return pipeline.group_plans(Bc, Nc, idx.shape[1], idx.shape[2], Cc,
+                                feats.element_size(), depth)
 
 
 @pytest.mark.parametrize("dtype", FLOATS)
 @pytest.mark.parametrize("B,N,M,k,C", GROUP)
 def test_group_aggregate_kernels(gen, B, N, M, k, C, dtype):
+    """Every plan of K12 and K13 (``_plan``), exactly, on indices in any
+    order and in ball query's order (ascending, padded with the first)."""
     feats = torch.randn((B, N, C), generator=gen, device="cuda").to(dtype)
-    idx = torch.randint(0, N, (B, M, k), generator=gen, device="cuda",
-                        dtype=torch.int32)
-    want = pc_ref.group_aggregate_ref(feats, idx)
-    got = _launched("group_aggregate", lambda: pck.group_aggregate(feats, idx))
-    assert got.dtype == dtype and torch.equal(got, want)
-    if not pck.group_ring_takes(C, feats.element_size()):
-        return
-    for depth in (2, 3, 4):
-        if pck.group_ring_bytes(C, feats.element_size(), k, depth) > pck.MAX_SMEM:
-            continue
-        got = _launched("group_aggregate_pipelined",
-                        lambda: pck.group_aggregate_pipelined(feats, idx,
-                                                              depth=depth))
-        assert torch.equal(got, want), depth
+    rand = torch.randint(0, N, (B, M, k), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    ball = torch.sort(rand, dim=-1).values
+    ball[..., k // 2:] = ball[..., :1]
+    plans = 0
+    for idx in (rand, ball):
+        want = pc_ref.group_aggregate_ref(feats, idx)
+        got = _launched("group_aggregate",
+                        lambda: pck.group_aggregate(feats, idx))
+        assert got.dtype == dtype and torch.equal(got, want)
+        for name, depth in (("group_aggregate", 0),
+                            ("group_aggregate_pipelined", None)):
+            for plan in _group_plans(feats, idx, depth):
+                got = _launched(name, lambda: getattr(pck, name)(
+                    feats, idx, _plan=plan))
+                assert torch.equal(got, want), (name, plan)
+                plans += 1
+    assert plans > 0
 
 
-def test_group_aggregate_kernels_clamp_stray_indices(gen):
-    feats = torch.randn((2, 50, 32), generator=gen, device="cuda")
-    idx = torch.randint(-120, 120, (2, 12, 20), generator=gen, device="cuda",
+@pytest.mark.parametrize("dtype", FLOATS)
+def test_group_aggregate_kernels_clamp_stray_indices(gen, dtype):
+    feats = torch.randn((2, 300, 32), generator=gen, device="cuda").to(dtype)
+    idx = torch.randint(-700, 700, (2, 12, 20), generator=gen, device="cuda",
                         dtype=torch.int32)
     want = pc_ref.group_aggregate_ref(feats, idx)
     assert torch.equal(pck.group_aggregate(feats, idx), want)
-    assert torch.equal(pck.group_aggregate_pipelined(feats, idx, depth=2), want)
+    assert torch.equal(pck.group_aggregate_pipelined(feats, idx), want)
+    for name, depth in (("group_aggregate", 0),
+                        ("group_aggregate_pipelined", None)):
+        for plan in _group_plans(feats, idx, depth):
+            assert torch.equal(getattr(pck, name)(feats, idx, _plan=plan),
+                               want), (name, plan)
+
+
+def test_group_aggregate_cluster_plan_repeats_its_bits(gen):
+    """K13 on a cluster (tiles multicast to 4 blocks) 50 times at (b)'s
+    shape: every run the first run's bits, and those the plain version's."""
+    feats = torch.randn((16, 1024, 64), generator=gen, device="cuda")
+    idx = torch.sort(torch.randint(0, 1024, (16, 512, 32), generator=gen,
+                                   device="cuda", dtype=torch.int32),
+                     dim=-1).values
+    plan = (256, 32, 4, 4)
+    assert plan in _group_plans(feats, idx, None)
+    first = pck.group_aggregate_pipelined(feats, idx, _plan=plan)
+    assert torch.equal(first, pc_ref.group_aggregate_ref(feats, idx))
+    for _ in range(50):
+        again = pck.group_aggregate_pipelined(feats, idx, _plan=plan)
+        assert torch.equal(again, first)
+
+
+@pytest.mark.parametrize("dtype", FLOATS)
+def test_group_aggregate_kernels_let_a_nan_win(gen, dtype):
+    """Every plan of K12 and K13 on features with NaNs: a NaN wins every
+    max it enters, as torch.amax takes it (group::max16's max.NaN), and
+    the other maxima are the plain version's, bit for bit."""
+    for B, N, M, k, C in ((2, 256, 64, 8, 32), (16, 1024, 512, 32, 64)):
+        feats = torch.randn((B, N, C), generator=gen, device="cuda")
+        feats[torch.rand((B, N, C), generator=gen, device="cuda") < 0.002] = (
+            float("nan"))
+        feats[0, 3, 1] = feats[-1, N - 1, C - 1] = float("nan")
+        feats = feats.to(dtype)
+        idx = torch.randint(0, N, (B, M, k), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        idx[0, 0, k // 2] = 3
+        idx[-1, -1, 0] = N - 1
+        want = pc_ref.group_aggregate_ref(feats, idx)
+        assert torch.isnan(want[0, 0, 1]) and not torch.isnan(want).all()
+        for name, depth in (("group_aggregate", 0),
+                            ("group_aggregate_pipelined", None)):
+            for plan in _group_plans(feats, idx, depth):
+                got = getattr(pck, name)(feats, idx, _plan=plan)
+                torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                           equal_nan=True,
+                                           msg=f"{name} {plan}")
+
+
+@pytest.mark.parametrize("pipelined", [None, True])
+def test_group_aggregate_routes_a_cloud_no_slice_fits_to_k12(gen,
+                                                             pipelined):
+    """On a cloud of 65536 rows no 16-byte slice fits a K13 block, so K13
+    has no plan and the route takes K12, exactly, even when asked for
+    K13."""
+    feats = torch.randn((1, 65536, 64), generator=gen, device="cuda")
+    idx = torch.sort(torch.randint(0, 65536, (1, 1024, 32), generator=gen,
+                                   device="cuda", dtype=torch.int32),
+                     dim=-1).values
+    assert pipeline.group_plan(1, 65536, 1024, 32, 64, 4) is None
+    assert pc_ops.group_steps(feats, idx) == 0
+    got = _launched("group_aggregate", lambda: pc_ops.group_aggregate(
+        feats, idx, pipelined=pipelined))
+    assert torch.equal(got, pc_ref.group_aggregate_ref(feats, idx))
 
 
 def test_pointcloud_wrappers_raise_on_what_the_kernels_do_not_take(gen):
@@ -535,7 +612,15 @@ def test_pointcloud_wrappers_raise_on_what_the_kernels_do_not_take(gen):
                  lambda: pck.group_aggregate_pipelined(
                      torch.randn((1, 64, 6), device="cuda"), idx),
                  lambda: pck.group_aggregate_pipelined(
-                     torch.randn((1, 64, 512), device="cuda"), idx)):
+                     feats, idx, _plan=(64, 32, 1, 2)),      # 2 slots, 1 tile
+                 lambda: pck.group_aggregate_pipelined(
+                     feats, idx, _plan=(2, 0, 0, 0)),        # K12's plan
+                 lambda: pck.group_aggregate(feats, idx, _plan=(8, 0, 0, 0)),
+                 lambda: pck.group_aggregate_pipelined(
+                     torch.randn((1, 4096, 512), device="cuda"), idx,
+                     _plan=(256, 32, 1, 16)),                # 512 KB slice
+                 lambda: pck.group_aggregate_pipelined(   # no slice fits
+                     torch.randn((1, 65536, 64), device="cuda"), idx)):
         with pytest.raises(ValueError):
             call()
 
@@ -560,7 +645,7 @@ def test_pointcloud_routes_raise_where_the_kernels_do_not_take_the_cloud(gen):
 
 def test_pointcloud_ops_route_baseline_and_pipelined(gen):
     """Ball query pipelines from two 256-point X tiles up, grouped
-    aggregation from two 16-neighbour stages up."""
+    aggregation from two feature tiles of K13's plan up."""
     counts = dict(_build.launch_counts())
     xyz = _points(gen, 2, 4096, torch.float32)
     feats = torch.randn((2, 4096, 64), generator=gen, device="cuda")

@@ -299,22 +299,33 @@ def test_ball_query_routes_by_streamed_tiles(monkeypatch, Np, pipelined, want):
     assert calls == [want]
 
 
-@pytest.mark.parametrize("k,Cc,dtype,pipelined,want", [
-    (16, 64, torch.float32, None, ("group_aggregate", None)),    # one stage
-    (32, 64, torch.float32, None, ("group_aggregate_pipelined", 2)),
-    (48, 64, torch.float32, None, ("group_aggregate_pipelined", 3)),
-    (64, 128, torch.bfloat16, None, ("group_aggregate_pipelined", 4)),
-    (64, 64, torch.float32, False, ("group_aggregate", None)),
-    (64, 512, torch.float32, None, ("group_aggregate", None)),  # too wide
-    (64, 6, torch.float32, True, ("group_aggregate", None)),    # 24-byte rows
+@pytest.mark.parametrize("Np,k,Cc,dtype,pipelined,want", [
+    (256, 16, 64, torch.float32, None, ("group_aggregate", None)),  # 1 tile
+    (128, 32, 64, torch.float32, None, ("group_aggregate", None)),  # 1 tile
+    (1024, 32, 64, torch.float32, None, ("group_aggregate_pipelined", None)),
+    (512, 64, 128, torch.bfloat16, None,
+     ("group_aggregate_pipelined", None)),
+    (1024, 64, 64, torch.float32, False, ("group_aggregate", None)),
+    (1024, 64, 512, torch.float32, None,                # past 256 channels
+     ("group_aggregate_pipelined", None)),
+    (1024, 64, 6, torch.float32, True, ("group_aggregate", None)),  # 24 B
+    (65536, 32, 64, torch.float32, None, ("group_aggregate", None)),  # 1 MB
+    (65536, 32, 64, torch.float32, True, ("group_aggregate", None)),
 ])
-def test_group_aggregate_routes_by_neighbour_stages(monkeypatch, k, Cc, dtype,
-                                                    pipelined, want):
+def test_group_aggregate_routes_by_neighbour_stages(monkeypatch, Np, k, Cc,
+                                                    dtype, pipelined, want):
+    """K13 where its plan copies two feature tiles or more (the
+    reference's N // bn; ``pipelined`` overrides), else K12; rows that are
+    not whole 16-byte chunks, and clouds of which no 16-byte slice fits a
+    block, always K12."""
     calls = _record_calls(monkeypatch)
-    feats = torch.zeros((1, 128, Cc), dtype=dtype)
+    feats = torch.zeros((1, Np, Cc), dtype=dtype)
     idx = torch.zeros((1, 8, k), dtype=torch.int32)
     pc_ops.group_aggregate(feats, idx, pipelined=pipelined)
     assert calls == [want]
+    steps = pc_ops.group_steps(feats, idx)
+    assert (want[0] == "group_aggregate_pipelined") == (
+        steps >= 2 and pipelined is not False)
 
 
 def test_ops_send_every_cloud_the_reference_kernels_take_to_the_kernels(
@@ -366,13 +377,28 @@ def test_lowering_config_runs_what_lower_records(monkeypatch, op, shape,
     assert [name for name, _ in calls] == ([kernel] if kernel else [])
 
 
-def test_group_depth_fits_shared_memory():
-    for Cc, itemsize, k in ((64, 4, 64), (256, 4, 64), (256, 2, 128)):
-        depth = pc_ops.group_depth(Cc, itemsize, k)
-        assert depth in pck.DEPTHS
-        assert pck.group_ring_bytes(Cc, itemsize, k, depth) <= pck.MAX_SMEM
-    assert pc_ops.group_depth(256, 4, 64) == 3   # 64 KB a stage
-    assert pc_ops.group_depth(300, 4, 64) is None
+@pytest.mark.parametrize("Np,k,Cc,itemsize", [
+    (1024, 64, 64, 4), (1024, 64, 256, 4), (1024, 128, 256, 2),
+    (4096, 16, 64, 4), (65536, 32, 64, 4), (1024, 64, 300, 4)])
+def test_group_depth_fits_shared_memory(Np, k, Cc, itemsize):
+    """K13's plan (``group_plan``) fits in a block's shared memory, one
+    slot a tile, at any row of whole 16-byte chunks (300 fp32 channels
+    included: the channel slice lifts the old 256-channel limit), wherever
+    a 16-byte slice of the cloud fits; elsewhere there is none, and the
+    route takes K12."""
+    plan = pipeline.group_plan(1, Np, 512, k, Cc, itemsize)
+    if Np * 16 > pipeline.MAX_SMEM:
+        assert plan is None
+        assert pc_ops.group_steps(torch.zeros((1, Np, Cc)),
+                                  torch.zeros((1, 512, k),
+                                              dtype=torch.int32)) == 0
+        return
+    bn, cs, split, depth = plan
+    assert depth == pipeline.group_tiles(Np, bn)
+    assert Cc % cs == 0
+    assert pipeline.group_smem_bytes(plan, 512, k, itemsize) <= (
+        pipeline.MAX_SMEM)
+    assert pipeline.group_plan(1, Np, 512, k, 6, 4) is None
 
 
 FPS_SHAPES_N = [1, 31, 256, 1024, 1031, 4096, 8192, 8193, 9000, 16384,
