@@ -163,14 +163,20 @@ Phases (any failure exits non-zero; nothing is caught):
    ``dequant_mm_ms`` (``torch.mm`` on weights dequantized once in x's
    dtype, what int8 serving runs); library yardstick
    ``torch.ops.aten._weight_int8pack_mm`` where this PyTorch build runs it
-   on CUDA, else null with its error.  K6 flash_attention_int8kv at
-   llama110m's attention (B=1, H=K=12, hd=64, S=T=512 and 64, causal), a
-   GQA case (K=4), fully masked rows and bf16 q, against
+   on CUDA, else null with its error.  K6 flash_attention_int8kv at its
+   ten rows (INT8KV_SHAPES): llama110m's attention (B=1, H=K=12, hd=64,
+   S=T=512 and 64, causal), a GQA case (K=4), fully masked rows, bf16 q,
+   head dims 80, 96 and 256 (one KV head) and fp16 q, against
    ``flash_attention_int8kv_ref`` at atol 2e-5 / rtol 1e-4 (fp32,
-   tests/test_kernels.py:124; bf16 phase 3's) and within 0.1 of the fp
-   oracle on the unquantized K/V; bound as K2's over the causal pairs with
-   int8 K/V bytes; no one-call library counterpart.  Also K6 at head dims
-   80, 96 and 256 and with fp16 q.
+   tests/test_kernels.py:124; bf16/fp16 phase 3's) and within 0.1 of the
+   fp oracle on the unquantized K/V; each row with its plan
+   (``pipeline.int8kv_plan``: split, depth), the instantiation's
+   registers and spills, bound = max(bytes / 3.35 TB/s, 4·hd·H·pairs ·
+   passes / 989 TFLOP/s) at the tensor cores' rate (three bf16 passes for
+   fp32 q) beside ``bound_cuda_core_ms`` (the same ops at 67 TFLOP/s),
+   see INT8KV_FORMULA, and ``dequant_sdpa_ms`` (SDPA on K/V dequantized
+   once in q's dtype: a yardstick, not a one-call counterpart; there is
+   none, library null).
 8b. int8 sweep: K4 at M = 512 and K5 at M = 8 at every plan they are
    built for (K5 at the rule's tile_m), at the (i2) shapes in fp32 and
    bf16, each held to the plain version and timed warm; the rule's pick
@@ -179,6 +185,13 @@ Phases (any failure exits non-zero; nothing is caught):
    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), 500 runs each
    at a grid of at least two blocks an SM, fp32/bf16/fp16: every run the
    first run's bits, the first within ``int8_tol``; blocks per SM printed.
+8d. int8kv sweep: K6 at every plan it takes (``pipeline.int8kv_plans``:
+   split 1/2/4 over a cluster, ring depth 2/3) at its ten rows, each held
+   to the plain version at INT8KV_TOL and timed warm; the rule's pick
+   beside the fastest, timed in turns for their spread.
+8e. int8kv repeat: K6 at every split plan at the main case in fp32, bf16
+   and fp16 and at hd 256 with one KV head, 50 runs each with the first
+   run's bits (the ranks' partial states are combined in rank order).
 9. int8 serve (i1): llama110m as in phase 4 (fp32, random weights from
    seed 0) through ``StaticBatchEngine(quantize=True)`` on backend "cuda":
    the serve phase's 16 Poisson requests in static groups of 8 padded to
@@ -1999,23 +2012,93 @@ def k4_repeat_phase() -> None:
     print(json.dumps({"phase": "k4_repeat", "plans_sharing_an_sm": shared}))
 
 
-def int8kv_case(S: int, H: int, K: int, dtype: str, gen,
-                mask_kind: str = "causal", hd: int = 64) -> dict:
+#: K6's rows: S = T, H, K, q dtype, mask kind, head dim.  llama110m's
+#: attention at its longest and shortest prompt bucket, a GQA case, fully
+#: masked rows, bf16 q; head dims 80, 96 and 256 (one KV head) and fp16 q.
+INT8KV_SHAPES = ((512, 12, 12, "float32", "causal", 64),
+                 (64, 12, 12, "float32", "causal", 64),
+                 (128, 12, 4, "float32", "causal", 64),
+                 (128, 12, 12, "float32", "fully_masked_rows", 64),
+                 (512, 12, 12, "bfloat16", "causal", 64),
+                 (64, 12, 12, "bfloat16", "causal", 64),
+                 (256, 12, 12, "float32", "causal", 80),
+                 (256, 12, 12, "bfloat16", "causal", 96),
+                 (256, 8, 1, "float32", "causal", 256),
+                 (256, 12, 12, "float16", "causal", 64))
+INT8KV_FORMULA = ("bytes = 2*B*S*H*hd*itemsize + 2*B*T*K*hd + 8*K + mask bytes "
+                  "(q, out, int8 K/V, scales, mask); ops = 4*hd*H*valid pairs "
+                  "* passes at 989 TFLOP/s (bf16/fp16 tensor cores), passes = "
+                  "3 for fp32 q (its three exact bf16 terms), 1 for bf16 and "
+                  "fp16; bound_ms = max(bytes / 3.35 TB/s, ops time); "
+                  "bound_cuda_core_ms = the same with 4*hd*H*pairs at the "
+                  "CUDA cores' 67 TFLOP/s")
+
+
+def int8kv_case_name(S: int, H: int, K: int, dtype: str, kind: str,
+                     hd: int) -> str:
+    return f"S={S} T={S} H={H} K={K} hd={hd} {dtype} {kind}"
+
+
+def int8kv_inputs(S: int, H: int, K: int, dtype: str, gen,
+                  mask_kind: str = "causal", hd: int = 64):
+    """q, the float K/V, their int8 quantization with per-head scales
+    (tests/test_kernels.py:111) and the (1, S, S) mask of one K6 row."""
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_int8kv
     dt = getattr(torch, dtype)
     B, T = 1, S
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt)
     kf = torch.randn((B, T, K, hd), generator=gen, device="cuda")
     vf = torch.randn((B, T, K, hd), generator=gen, device="cuda")
-    ks = kf.abs().amax(dim=(0, 1, 3)) / 127.0      # tests/test_kernels.py:111
+    ks = kf.abs().amax(dim=(0, 1, 3)) / 127.0
     vs = vf.abs().amax(dim=(0, 1, 3)) / 127.0
     k8 = torch.round(kf / ks[None, None, :, None]).clamp(-127, 127).to(torch.int8)
     v8 = torch.round(vf / vs[None, None, :, None]).clamp(-127, 127).to(torch.int8)
     mask = flash_mask("causal", S, T)
     if mask_kind == "fully_masked_rows":
         mask[:, :8, :] = False
+    return q, kf, vf, k8, v8, ks, vs, mask
+
+
+def int8kv_bounds(q, k8, mask) -> dict:
+    """INT8KV_FORMULA's bounds (ms) for one K6 call."""
+    B, S, H, hd = q.shape
+    T, K = k8.shape[1], k8.shape[2]
+    nbytes = (2 * B * S * H * hd * q.element_size() + 2 * B * T * K * hd
+              + 8 * K + mask.numel())
+    flops = 4 * hd * H * int(mask.expand(B, S, T).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    passes = 3 if q.element_size() == 4 else 1
+    t_tc = flops * passes / PEAK_FLOPS["bfloat16"] * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_tc),
+            "bound_by": "bytes" if t_bytes >= t_tc else "operations",
+            "bound_tensor_core_ms": max(t_bytes, t_tc),
+            "bound_cuda_core_ms": max(t_bytes,
+                                      flops / PEAK_FLOPS["float32"] * 1e3)}
+
+
+def int8kv_design(dtype: str, hd: int, plan) -> dict:
+    """The plan fields of a K6 row and its instantiation's registers and
+    spill bytes (the build log)."""
+    from repro_torch.kernels.flash_attention import padded_head_dim
+    tag = f"int8kv_kernelILi{padded_head_dim(hd)}E{_MANGLED_T[dtype]}E"
+    hits = [v for k, v in ptxas_report("flash_attention_int8kv").items()
+            if tag in k]
+    if len(hits) != 1:
+        raise AssertionError(f"{tag}: {len(hits)} kernels in the build log")
+    return {"plan": list(plan), "split": plan[0], "depth": plan[1],
+            "registers": hits[0][0], "spill_store_bytes": hits[0][1]}
+
+
+def int8kv_case(S: int, H: int, K: int, dtype: str, gen,
+                mask_kind: str = "causal", hd: int = 64) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import pipeline, ref
+    from repro_torch.kernels.flash_attention import flash_attention_int8kv
+    dt = getattr(torch, dtype)
+    q, kf, vf, k8, v8, ks, vs, mask = int8kv_inputs(S, H, K, dtype, gen,
+                                                    mask_kind, hd)
+    B, T = 1, S
     scale = hd ** -0.5
     call = lambda q, k8, v8, **kw: flash_attention_int8kv(  # noqa: E731
         q, k8, v8, ks, vs, mask, sm_scale=scale, **kw)
@@ -2024,7 +2107,7 @@ def int8kv_case(S: int, H: int, K: int, dtype: str, gen,
         q, k8, v8, ks, vs, mask, sm_scale=scale)
     got = run()
     torch.cuda.synchronize()
-    case = f"S={S} T={T} H={H} K={K} hd={hd} {dtype} {mask_kind}"
+    case = int8kv_case_name(S, H, K, dtype, mask_kind, hd)
     err = _check(f"flash_attention_int8kv {case}", got, plain(), dtype,
                  INT8KV_TOL)
     fp_err = float((got.float() - ref.flash_attention_ref(
@@ -2035,22 +2118,124 @@ def int8kv_case(S: int, H: int, K: int, dtype: str, gen,
     if mask_kind == "fully_masked_rows" and float(got[0, :8].abs().max()) != 0:
         raise AssertionError("flash_attention_int8kv: fully-masked rows are "
                              "not 0")
-    nbytes = (2 * B * S * H * hd * q.element_size() + 2 * B * T * K * hd
-              + 8 * K + mask.numel())
-    flops = 4 * hd * H * int(mask.expand(B, S, T).sum())
     iters = 20 if S >= 256 else 50
     spin = 50_000_000   # ~25 ms: enough to queue 50 plain versions
+    # a yardstick the port never calls: SDPA on K/V dequantized once in q's
+    # dtype, heads repeated for GQA, outside the timed call
+    rep = H // K
+    kl = ((k8.float() * ks[None, None, :, None]).to(dt)
+          .repeat_interleave(rep, dim=2).transpose(1, 2))
+    vl = ((v8.float() * vs[None, None, :, None]).to(dt)
+          .repeat_interleave(rep, dim=2).transpose(1, 2))
+    ql = q.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        ql, kl, vl, attn_mask=mask[:, None], scale=scale)
+    bounds = int8kv_bounds(q, k8, mask)
     row = _row("flash_attention_int8kv", case, err, device_ms(run, iters, spin),
-               device_ms(plain, iters, spin), None, nbytes, flops, dtype)
+               device_ms(plain, iters, spin), None, bounds.pop("bytes"),
+               bounds.pop("flops"), dtype)
+    row.update(bounds)   # at the tensor cores' rate the kernel runs
     row.update(library_note="no one-call counterpart (SDPA takes no int8 "
                             "K/V with per-head scales)",
+               bound_formula=INT8KV_FORMULA,
+               dequant_sdpa_ms=device_ms(sdpa, iters, spin),
+               dequant_sdpa_note="SDPA on K/V dequantized once in q's dtype: "
+                                 "a yardstick, not a one-call counterpart",
                max_abs_err_vs_fp_oracle=fp_err,
                cold_ms=cold_ms(call, (q, k8, v8)),
+               **int8kv_design(dtype, hd, pipeline.int8kv_plan(
+                   B, S, T, H, K, hd, dt)),
                **flash_shape_fields(
                    "flash_attention_int8kv", dt, hd, mask, B, H,
                    lambda n: call(q, k8, v8, live_count=n)))
     print(json.dumps(row))
     return row
+
+
+def int8kv_sweep_phase() -> None:
+    """K6 at every plan it takes (``pipeline.int8kv_plans``) at its ten
+    rows (INT8KV_SHAPES): each plan held to the plain version at INT8KV_TOL
+    and timed warm; the plan rule's pick beside the fastest, both timed
+    again in turns (pick, fastest, fastest, pick, ...) for their spread."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import pipeline as pl
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_int8kv
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    for S, H, K, dtype, kind, hd in INT8KV_SHAPES:
+        q, _, _, k8, v8, ks, vs, mask = int8kv_inputs(S, H, K, dtype, gen,
+                                                      kind, hd)
+        scale = hd ** -0.5
+        want = ref.flash_attention_int8kv_ref(q, k8, v8, ks, vs, mask,
+                                              sm_scale=scale)
+
+        def call(plan):
+            return flash_attention_int8kv(q, k8, v8, ks, vs, mask,
+                                          sm_scale=scale, _plan=plan)
+        case = int8kv_case_name(S, H, K, dtype, kind, hd)
+        times = {}
+        for plan in pl.int8kv_plans(1, S, S, H, K, hd, q.dtype):
+            _check(f"int8kv sweep {case} {plan}", call(plan), want, dtype,
+                   INT8KV_TOL)
+            times[plan] = device_ms(lambda plan=plan: call(plan), 20,
+                                    spin=4_000_000) * 1e3
+        pick = pl.int8kv_plan(1, S, S, H, K, hd, q.dtype)
+        best = min(times, key=times.get)
+        turns = {pick: [], best: []}
+        for plan in (pick, best, best, pick) * 3:
+            turns[plan].append(device_ms(lambda plan=plan: call(plan), 20,
+                                         spin=4_000_000) * 1e3)
+        print(json.dumps({
+            "phase": "int8kv_sweep", "case": case,
+            "us": {str(p): t for p, t in times.items()},
+            "pick": pick, "fastest": best,
+            "us_min_median_max": {str(p): [min(v), float(np.median(v)),
+                                           max(v)]
+                                  for p, v in turns.items()},
+            "pick_within_spread": min(turns[pick]) <= max(turns[best])}))
+
+
+#: K6's repeat check: runs of each split plan.
+INT8KV_REPEATS = 50
+
+
+def int8kv_repeat_phase() -> None:
+    """K6 at every plan that splits a q tile's keys over a cluster, at the
+    main case (S = T = 512, hd 64) in fp32, bf16 and fp16 and at hd 256 with
+    one KV head in fp32: 50 runs each with the first run's bits (the
+    partial states are combined in rank order)."""
+    import torch
+    from repro_torch.kernels import pipeline as pl
+    from repro_torch.kernels.flash_attention import flash_attention_int8kv
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    for S, H, K, dtype, hd in ((512, 12, 12, "float32", 64),
+                               (512, 12, 12, "bfloat16", 64),
+                               (512, 12, 12, "float16", 64),
+                               (256, 8, 1, "float32", 256)):
+        q, _, _, k8, v8, ks, vs, mask = int8kv_inputs(S, H, K, dtype, gen,
+                                                      "causal", hd)
+        for plan in pl.int8kv_plans(1, S, S, H, K, hd, q.dtype):
+            if plan[0] == 1:
+                continue
+
+            def call():
+                return flash_attention_int8kv(q, k8, v8, ks, vs, mask,
+                                              sm_scale=hd ** -0.5, _plan=plan)
+            first = call()
+            differ = sum(not torch.equal(call(), first)
+                         for _ in range(INT8KV_REPEATS - 1))
+            print(json.dumps({
+                "phase": "int8kv_repeat",
+                "case": int8kv_case_name(S, H, K, dtype, "causal", hd),
+                "plan": plan, "repeats": INT8KV_REPEATS,
+                "runs_differing": differ}))
+            if differ:
+                raise AssertionError(f"K6 {dtype} hd {hd} {plan}: {differ} "
+                                     f"of {INT8KV_REPEATS} runs differ from "
+                                     f"the first")
 
 
 def int8_kernel_phase() -> list[dict]:
@@ -2070,19 +2255,8 @@ def int8_kernel_phase() -> list[dict]:
     for kernel in ("int8_matmul", "int8_matmul_pipelined"):
         rows.append(int8_case(kernel, 8, 1000, 768, "float16", gen))
     rows.append(int8_case("int8_matmul", 100, 1000, 100, "float16", gen))
-    for S, H, K, dtype, kind in ((512, 12, 12, "float32", "causal"),
-                                 (64, 12, 12, "float32", "causal"),
-                                 (128, 12, 4, "float32", "causal"),
-                                 (128, 12, 12, "float32", "fully_masked_rows"),
-                                 (512, 12, 12, "bfloat16", "causal"),
-                                 (64, 12, 12, "bfloat16", "causal")):
-        rows.append(int8kv_case(S, H, K, dtype, gen, kind))
-    # head dims 80, 96 and 256 (one KV head), and fp16 q
-    for S, H, K, dtype, hd in ((256, 12, 12, "float32", 80),
-                               (256, 12, 12, "bfloat16", 96),
-                               (256, 8, 1, "float32", 256),
-                               (256, 12, 12, "float16", 64)):
-        rows.append(int8kv_case(S, H, K, dtype, gen, "causal", hd))
+    for S, H, K, dtype, kind, hd in INT8KV_SHAPES:
+        rows.append(int8kv_case(S, H, K, dtype, gen, kind, hd))
     return rows
 
 
@@ -2314,7 +2488,8 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                     "cluster", "threads", "ppt", "us_per_step", "sms_used",
                     "cpw", "warps", "visited_share", "bound_visited_ms",
                     "tile_m", "tile_n", "split", "depth",
-                    "bound_cuda_core_ms", "dequant_mm_ms", "plan",
+                    "bound_cuda_core_ms", "bound_tensor_core_ms",
+                    "dequant_mm_ms", "dequant_sdpa_ms", "plan",
                     "gathered_bytes", "reuse", "l2_bound_us",
                     "registers", "spill_store_bytes"):
             if key in row:
@@ -2362,6 +2537,8 @@ def main() -> int:
     rows += timed("int8_kernels", int8_kernel_phase)
     timed("int8_sweep", int8_sweep_phase)
     timed("k4_repeat", k4_repeat_phase)
+    timed("int8kv_sweep", int8kv_sweep_phase)
+    timed("int8kv_repeat", int8kv_repeat_phase)
     i1_launches, qtree = timed("int8_serve", int8_serve_phase)
     i2_launches = timed("int8_gemm", int8_gemm_phase, qtree)
     runs = (launches, pc_launches, ssm_launches, i1_launches, i2_launches)

@@ -25,7 +25,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -148,15 +147,6 @@ __device__ __forceinline__ void i8x4_to_f32(unsigned w, float* out) {
   out[1] = __int_as_float(__byte_perm(b, 0x4B000000u, 0x7541)) - 8388736.f;
   out[2] = __int_as_float(__byte_perm(b, 0x4B000000u, 0x7542)) - 8388736.f;
   out[3] = __int_as_float(__byte_perm(b, 0x4B000000u, 0x7543)) - 8388736.f;
-}
-
-// 16 int8 values at a 16-byte-aligned address as fp32.
-__device__ __forceinline__ void load16(const int8_t* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  i8x4_to_f32(u.x, out);
-  i8x4_to_f32(u.y, out + 4);
-  i8x4_to_f32(u.z, out + 8);
-  i8x4_to_f32(u.w, out + 12);
 }
 
 // cp.async (sm_80+): a 16-byte global -> shared copy that bypasses

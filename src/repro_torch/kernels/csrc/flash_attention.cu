@@ -38,10 +38,9 @@ REPRO_EXPORT int flash_attention_launch(const void* q, const void* k, const void
   if (B <= 0 || S <= 0 || T_len <= 0 || K <= 0 || H % K != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH_FLOAT(dtype, T,
-                       flash::dispatch_baseline<T, T>(hd, q, k, v, nullptr, nullptr,
-                                                      mask, out, B, S, T_len, H, K,
-                                                      mask_b, sm_scale,
-                                                      static_cast<int*>(live), s));
+                       flash::dispatch_baseline<T>(hd, q, k, v, mask, out, B, S, T_len, H,
+                                                   K, mask_b, sm_scale,
+                                                   static_cast<int*>(live), s));
 }
 
 // Blocks of K2 resident on one SM at head dim hd and `dtype`
@@ -53,6 +52,6 @@ REPRO_EXPORT int flash_attention_occupancy(int hd, int dtype, int device) {
   REPRO_DISPATCH_FLOAT(dtype, T,
                        [&]() -> int {
                          FLASH_DISPATCH_HD(hd, -static_cast<int>(cudaErrorInvalidValue),
-                                           (flash::occupancy<W, T, T, 1>(hd)));
+                                           (flash::occupancy<W, T, 1>(hd)));
                        }());
 }

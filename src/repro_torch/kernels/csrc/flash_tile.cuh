@@ -1,8 +1,8 @@
 // The flash-attention kernel shared by K2 (flash_attention.cu, a single
-// K/V stage), K3 (flash_attention_pipelined.cu, a `DEPTH`-stage cp.async
-// ring) and K6 (flash_attention_int8kv.cu, int8 K/V widened to fp32 in the
-// tile loader): the counterpart of _online_softmax_update /
-// _init_flash_scratch / _finalize_flash_output in
+// K/V stage) and K3 (flash_attention_pipelined.cu, a `DEPTH`-stage
+// cp.async ring), whose tile skipping (scan_window, LiveList, copy_mask)
+// and mma.sync helpers K6 (int8kv_tile.cuh) uses too: the counterpart of
+// _online_softmax_update / _init_flash_scratch / _finalize_flash_output in
 // src/repro/kernels/flash_attention.py.
 //
 // What it computes (the reference's rules, not its summation order):
@@ -31,7 +31,7 @@
 //    causal keys), so the causal imbalance does not leave a tail wave.
 //    Given a counter (`live`), each block adds the K/V tiles it computed,
 //    so a caller can check the skipping against the mask.
-// 2. fp32 rows (K/V fp32, or int8 widened to fp32; F32Tile): 256 threads,
+// 2. fp32 rows (F32Tile): 256 threads,
 //    all math fp32 FFMA on the CUDA cores (no TF32: fp32 parity).  q.k
 //    takes 4 rows x 4 keys a thread over float4 columns (8 FFMA a load);
 //    p.v takes 4 rows x 4 consecutive output dims a thread, P read as
@@ -71,9 +71,9 @@ constexpr uint16_t kPartial = 0x8000;  // list entry: tile (low bits) | partial
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename TKV>
+template <typename T>
 __host__ __device__ constexpr bool uses_mma() {
-  return std::is_same<TKV, __nv_bfloat16>::value || std::is_same<TKV, __half>::value;
+  return std::is_same<T, __nv_bfloat16>::value || std::is_same<T, __half>::value;
 }
 
 // The live list of one window of K/V tiles (scan_window): 528 bytes.
@@ -87,14 +87,14 @@ struct LiveList {
 
 // Shared memory of one block, in bytes and in order: the Q tile; the fp32
 // tile's P (BQ x BKT fp32); DEPTH stages of (K tile, V tile, mask tile);
-// the live list.  K/V (and Q) are held as TS: fp32 on the fp32 tile, the
-// 16-bit input type on the tensor cores.  Rows are padded by 16 bytes, so
+// the live list.  Q, K and V are held in their own type T (TS): fp32 on
+// the fp32 tile, the 16-bit input type on the tensor cores.  Rows are padded by 16 bytes, so
 // they stay 16-byte aligned and neighbouring rows start in other banks.
 // kernels/pipeline.ring_smem_bytes mirrors this layout.
-template <int HD, typename TKV, int DEPTH>
+template <int HD, typename T, int DEPTH>
 struct Layout {
-  static constexpr bool kMma = uses_mma<TKV>();
-  using TS = typename std::conditional<kMma, TKV, float>::type;
+  static constexpr bool kMma = uses_mma<T>();
+  using TS = T;
   static constexpr int BKT = HD > 128 ? 32 : 64;
   static constexpr int kThreads = kMma ? 128 : 256;
   static constexpr int KS = HD + 16 / static_cast<int>(sizeof(TS));  // Q, K, V row
@@ -224,37 +224,6 @@ __device__ __forceinline__ void copy_rows(T* dst, int rows, const T* __restrict_
       for (int j = 0; j < V; ++j)
         dst[r * KS + d + j] = ok && d + j < hd ? src[r * ld + d + j] : from_f32<T>(0.f);
     }
-  }
-}
-
-// Load `rows` rows of hd <= HD elements of T into fp32 shared memory (row
-// stride KS), through registers: bf16/fp16 q on the fp32 tile (K6), and
-// int8 K/V, turned into fp32 exactly (i8x4_to_f32) and multiplied by the
-// KV head's `scale`, the same single product as the plain version's
-// k8.float() * k_scale.  Rows at or past `valid` and columns past hd are 0.
-template <int NT, int HD, int KS, typename T>
-__device__ __forceinline__ void widen_rows(float* dst, int rows, const T* __restrict__ src,
-                                           size_t ld, int valid, int hd, float scale) {
-  constexpr int V = Vec16<T>::N;
-  constexpr int kChunks = HD / V;
-  const bool vec = hd % V == 0;
-  for (int c = threadIdx.x; c < rows * kChunks; c += NT) {
-    const int r = c / kChunks;
-    const int d = (c % kChunks) * V;
-    float v[V];
-    if (r < valid && vec && d < hd) {
-      load16(src + r * ld + d, v);
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j)
-        v[j] = r < valid && d + j < hd ? to_f32(src[r * ld + d + j]) : 0.f;
-    }
-    if constexpr (std::is_same<T, int8_t>::value) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) v[j] *= scale;
-    }
-#pragma unroll
-    for (int j = 0; j < V; j += 4) store16(dst + r * KS + d + j, v + j);
   }
 }
 
@@ -702,28 +671,24 @@ __host__ __device__ constexpr int min_blocks() {
 }
 
 // The kernel: one block per (64-row q tile, head, batch), grid (B*H, nq)
-// with the q tile counted from the last.  q/out of T, K/V of TKV (float,
-// bf16 or fp16 as q; int8 for K6, with one fp32 scale per KV head).
-// Query head h reads KV head h / (H/K).  DEPTH == 1 loads each live tile
-// and computes it (K2, K6); DEPTH >= 2 streams the live tiles through a
-// DEPTH-stage ring (K3): fill DEPTH-1 tiles, then at list position p wait
+// with the q tile counted from the last.  q, K, V and out of T (float,
+// bf16 or fp16).  Query head h reads KV head h / (H/K).  DEPTH == 1 loads
+// each live tile and computes it (K2); DEPTH >= 2 streams the live tiles
+// through a DEPTH-stage ring (K3): fill DEPTH-1 tiles, then at list position p wait
 // for tile p (cp.async.wait_group DEPTH-2), sync the block, start the copy
 // of tile p+DEPTH-1 into the slot that position p-1 just finished with, and
 // compute tile p while the later copies fly; one commit group per position
 // (empty past the end) keeps the wait count uniform.
-template <int HD, bool EXACT, typename T, typename TKV, int DEPTH>
-__global__ void __launch_bounds__(Layout<HD, TKV, DEPTH>::kThreads,
-                                  (min_blocks<HD, Layout<HD, TKV, DEPTH>, DEPTH>()))
-flash_kernel(const T* __restrict__ q, const TKV* __restrict__ k, const TKV* __restrict__ v,
-             const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+template <int HD, bool EXACT, typename T, int DEPTH>
+__global__ void __launch_bounds__(Layout<HD, T, DEPTH>::kThreads,
+                                  (min_blocks<HD, Layout<HD, T, DEPTH>, DEPTH>()))
+flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const uint8_t* __restrict__ mask, T* __restrict__ out, int S, int T_len, int H,
              int K, int hd_arg, int mask_b, float sm_scale, int* __restrict__ live) {
-  using L = Layout<HD, TKV, DEPTH>;
+  using L = Layout<HD, T, DEPTH>;
   using TS = typename L::TS;
   constexpr int NT = L::kThreads;
   constexpr int BKT = L::BKT;
-  static_assert(L::kMma ? std::is_same<T, TKV>::value : !uses_mma<TKV>(),
-                "16-bit K/V run on the tensor cores with q of their type");
   const int hd = EXACT ? HD : hd_arg;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   TS* q_s = reinterpret_cast<TS*>(smem_raw);
@@ -740,8 +705,6 @@ flash_kernel(const T* __restrict__ q, const TKV* __restrict__ k, const TKV* __re
   const int b = blockIdx.x / H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest q tile first
   const int kvh = h / (H / K);
-  const float ks = k_scale ? __ldg(k_scale + kvh) : 1.f;
-  const float vs = v_scale ? __ldg(v_scale + kvh) : 1.f;
   const uint8_t* mrow =
       mask + (mask_b > 1 ? static_cast<size_t>(b) * S * T_len : 0) + static_cast<size_t>(q0) * T_len;
   const int rows = S - q0;
@@ -751,11 +714,8 @@ flash_kernel(const T* __restrict__ q, const TKV* __restrict__ k, const TKV* __re
   const size_t kv_ld = static_cast<size_t>(K) * hd;
 
   const T* q_src = q + ((static_cast<size_t>(b) * S + q0) * H + h) * hd;
-  if constexpr (std::is_same<T, TS>::value)
-    copy_rows<NT, HD, L::KS>(q_s, BQ, q_src, static_cast<size_t>(H) * hd, rows, hd,
-                             hd % Vec16<T>::N == 0);
-  else
-    widen_rows<NT, HD, L::KS>(q_s, BQ, q_src, static_cast<size_t>(H) * hd, rows, hd, 1.f);
+  copy_rows<NT, HD, L::KS>(q_s, BQ, q_src, static_cast<size_t>(H) * hd, rows, hd,
+                           hd % Vec16<T>::N == 0);
   cp_async_commit();
 
   // fp32 rows start tile 0's copies before the scan, on the guess that the
@@ -763,10 +723,10 @@ flash_kernel(const T* __restrict__ q, const TKV* __restrict__ k, const TKV* __re
   // then overlap the copies.  Where the list says otherwise the copies are
   // drained before the fill.  (On the tensor cores the guess measured
   // slower: PERF.md.)
-  constexpr bool kGuess = !L::kMma && std::is_same<TKV, TS>::value;
+  constexpr bool kGuess = !L::kMma;
   if constexpr (kGuess) {
     const size_t base = (static_cast<size_t>(b) * T_len * K + kvh) * hd;
-    const bool vec = hd % Vec16<TKV>::N == 0;
+    const bool vec = hd % Vec16<T>::N == 0;
     copy_rows<NT, HD, L::KS>(k_slot(0), BKT, k + base, kv_ld, T_len, hd, vec);
     copy_rows<NT, HD, L::KS>(v_slot(0), BKT, v + base, kv_ld, T_len, hd, vec);
     copy_mask<NT, BKT, L::MS>(m_slot(0), mrow, T_len, rows, T_len, mvec);
@@ -794,14 +754,9 @@ flash_kernel(const T* __restrict__ q, const TKV* __restrict__ k, const TKV* __re
       const int k0 = (w0 + (e & ~kPartial)) * BKT;
       const int s = p % DEPTH;
       const size_t base = ((static_cast<size_t>(b) * T_len + k0) * K + kvh) * hd;
-      if constexpr (std::is_same<TKV, TS>::value) {
-        const bool vec = hd % Vec16<TKV>::N == 0;
-        copy_rows<NT, HD, L::KS>(k_slot(s), BKT, k + base, kv_ld, T_len - k0, hd, vec);
-        copy_rows<NT, HD, L::KS>(v_slot(s), BKT, v + base, kv_ld, T_len - k0, hd, vec);
-      } else {
-        widen_rows<NT, HD, L::KS>(k_slot(s), BKT, k + base, kv_ld, T_len - k0, hd, ks);
-        widen_rows<NT, HD, L::KS>(v_slot(s), BKT, v + base, kv_ld, T_len - k0, hd, vs);
-      }
+      const bool vec = hd % Vec16<T>::N == 0;
+      copy_rows<NT, HD, L::KS>(k_slot(s), BKT, k + base, kv_ld, T_len - k0, hd, vec);
+      copy_rows<NT, HD, L::KS>(v_slot(s), BKT, v + base, kv_ld, T_len - k0, hd, vec);
       if (e & kPartial)
         copy_mask<NT, BKT, L::MS>(m_slot(s), mrow + k0, T_len, rows, T_len - k0, mvec);
     };
@@ -843,41 +798,39 @@ flash_kernel(const T* __restrict__ q, const TKV* __restrict__ k, const TKV* __re
   tile.finalize(out, b, h, q0, S, H, hd);
 }
 
-template <int HD, typename T, typename TKV, int DEPTH>
+template <int HD, typename T, int DEPTH>
 auto kernel_for(int hd) {
-  return hd == HD ? flash_kernel<HD, true, T, TKV, DEPTH>
-                  : flash_kernel<HD, false, T, TKV, DEPTH>;
+  return hd == HD ? flash_kernel<HD, true, T, DEPTH> : flash_kernel<HD, false, T, DEPTH>;
 }
 
 // Launch at the padded width HD: cudaErrorInvalidConfiguration where the
 // block's shared memory passes the 227 KB a block may have.  Where `live`
 // is not null, each block adds to it the K/V tiles it computed.
-template <int HD, typename T, typename TKV, int DEPTH>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* k_scale,
-                   const float* v_scale, const void* mask, void* out, int B, int S, int T_len,
-                   int H, int K, int hd, int mask_b, float sm_scale, int* live,
-                   cudaStream_t stream) {
-  using L = Layout<HD, TKV, DEPTH>;
+template <int HD, typename T, int DEPTH>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
+                   int B, int S, int T_len, int H, int K, int hd, int mask_b, float sm_scale,
+                   int* live, cudaStream_t stream) {
+  using L = Layout<HD, T, DEPTH>;
   if (L::kBytes > 232448) return cudaErrorInvalidConfiguration;
-  auto kern = kernel_for<HD, T, TKV, DEPTH>(hd);
+  auto kern = kernel_for<HD, T, DEPTH>(hd);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(L::kBytes));
   if (e != cudaSuccess) return e;
   dim3 grid(B * H, (S + BQ - 1) / BQ);
   kern<<<grid, L::kThreads, L::kBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      k_scale, v_scale, static_cast<const uint8_t*>(mask), static_cast<T*>(out), S, T_len, H, K,
-      hd, mask_b, sm_scale, live);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<T*>(out), S, T_len, H, K, hd, mask_b,
+      sm_scale, live);
   return cudaGetLastError();
 }
 
 // Blocks of the width-HD kernel that are resident on one SM at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -error.
-template <int HD, typename T, typename TKV, int DEPTH>
+template <int HD, typename T, int DEPTH>
 int occupancy(int hd) {
-  using L = Layout<HD, TKV, DEPTH>;
+  using L = Layout<HD, T, DEPTH>;
   if (L::kBytes > 232448) return -static_cast<int>(cudaErrorInvalidConfiguration);
-  auto kern = kernel_for<HD, T, TKV, DEPTH>(hd);
+  auto kern = kernel_for<HD, T, DEPTH>(hd);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(L::kBytes));
   int n = 0;
@@ -908,15 +861,14 @@ __host__ inline int padded_head_dim(int hd) {
     }                                                                          \
   } while (0)
 
-// Launch K2 (TKV = T) or K6 (TKV = int8_t): a single K/V stage.
-template <typename T, typename TKV>
+// Launch K2: a single K/V stage.
+template <typename T>
 cudaError_t dispatch_baseline(int hd, const void* q, const void* k, const void* v,
-                              const float* k_scale, const float* v_scale, const void* mask,
-                              void* out, int B, int S, int T_len, int H, int K, int mask_b,
-                              float sm_scale, int* live, cudaStream_t stream) {
+                              const void* mask, void* out, int B, int S, int T_len, int H, int K,
+                              int mask_b, float sm_scale, int* live, cudaStream_t stream) {
   FLASH_DISPATCH_HD(hd, cudaErrorInvalidValue,
-                    (launch<W, T, TKV, 1>(q, k, v, k_scale, v_scale, mask, out, B, S, T_len, H,
-                                          K, hd, mask_b, sm_scale, live, stream)));
+                    (launch<W, T, 1>(q, k, v, mask, out, B, S, T_len, H, K, hd, mask_b, sm_scale,
+                                     live, stream)));
 }
 
 // K3: a `depth`-stage ring (2 <= depth <= 4) at the padded width HD.
@@ -927,7 +879,7 @@ cudaError_t dispatch_depth(int depth, const void* q, const void* k, const void* 
                            cudaStream_t stream) {
   switch (depth) {
 #define REPRO_DEPTH(D) \
-    case D: return launch<HD, T, T, D>(q, k, v, nullptr, nullptr, mask, out, B, S, T_len, H, K, hd, mask_b, sm_scale, live, stream);
+    case D: return launch<HD, T, D>(q, k, v, mask, out, B, S, T_len, H, K, hd, mask_b, sm_scale, live, stream);
     REPRO_DEPTH(2) REPRO_DEPTH(3) REPRO_DEPTH(4)
 #undef REPRO_DEPTH
     default: return cudaErrorInvalidValue;
@@ -937,9 +889,9 @@ cudaError_t dispatch_depth(int depth, const void* q, const void* k, const void* 
 template <int HD, typename T>
 int occupancy_depth(int depth, int hd) {
   switch (depth) {
-    case 2: return occupancy<HD, T, T, 2>(hd);
-    case 3: return occupancy<HD, T, T, 3>(hd);
-    case 4: return occupancy<HD, T, T, 4>(hd);
+    case 2: return occupancy<HD, T, 2>(hd);
+    case 3: return occupancy<HD, T, 3>(hd);
+    case 4: return occupancy<HD, T, 4>(hd);
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }

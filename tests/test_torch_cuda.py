@@ -16,6 +16,8 @@ atol of K ulps (2^-23) of their largest product |x|·|scale·wq| (see
 rtol 1e-4 in fp32 (tests/test_kernels.py:124).
 """
 
+import itertools
+
 import pytest
 import torch
 
@@ -1056,22 +1058,59 @@ def _int8kv_cuda(gen, B, S, H, K, T, hd, dtype):
 @pytest.mark.parametrize("dtype", FLOATS)
 @pytest.mark.parametrize("B,S,T,H,K,hd", FLASH)
 def test_flash_int8kv_kernel(gen, B, S, T, H, K, hd, dtype, mask_kind):
+    """K6 at its rule's plan and at every plan it takes (split 1/2/4, ring
+    depth 2/3), each with its live tiles counted."""
     q, kf, vf, k8, v8, ks, vs = _int8kv_cuda(gen, B, S, H, K, T, hd, dtype)
     mask = _mask(gen, mask_kind, B, S, T, hd)
     scale = hd ** -0.5
     want = ref.flash_attention_int8kv_ref(q, k8, v8, ks, vs, mask,
                                           sm_scale=scale)
-    got = _live_counted(
-        "flash_attention_int8kv", lambda n: flash_attention_int8kv(
-            q, k8, v8, ks, vs, mask, sm_scale=scale, live_count=n),
-        mask, B, H, hd)
     tol = (dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32
            else _tol(dtype))
-    torch.testing.assert_close(got, want, **tol)
-    _zero_where_no_key(got, mask)
-    if dtype == torch.float32:
-        fp = ref.flash_attention_ref(q, kf, vf, mask, sm_scale=scale)
-        assert float((got - fp).abs().max()) < 0.1
+    fp = ref.flash_attention_ref(q, kf, vf, mask, sm_scale=scale)
+    plans = [None, *pipeline.int8kv_plans(B, S, T, H, K, hd, dtype)]
+    assert len(plans) >= 4
+    for plan in plans:
+        got = _live_counted(
+            "flash_attention_int8kv", lambda n: flash_attention_int8kv(
+                q, k8, v8, ks, vs, mask, sm_scale=scale, live_count=n,
+                _plan=plan), mask, B, H, hd)
+        torch.testing.assert_close(got, want, **tol)
+        _zero_where_no_key(got, mask)
+        if dtype == torch.float32:
+            assert float((got - fp).abs().max()) < 0.1
+
+
+@pytest.mark.parametrize("dtype", FLOATS)
+@pytest.mark.parametrize("B,S,T,H,K,hd", [(1, 512, 512, 12, 12, 64),
+                                          (1, 256, 256, 8, 1, 256),
+                                          (2, 150, 333, 4, 4, 96)])
+def test_flash_int8kv_split_plans_repeat_their_bits(gen, B, S, T, H, K, hd,
+                                                    dtype):
+    """A q tile's keys split over a cluster are combined in rank order: 50
+    runs of each split plan give the first run's bits."""
+    q, _, _, k8, v8, ks, vs = _int8kv_cuda(gen, B, S, H, K, T, hd, dtype)
+    mask = _mask(gen, "causal", B, S, T, hd)
+    for plan in pipeline.int8kv_plans(B, S, T, H, K, hd, dtype):
+        if plan[0] == 1:
+            continue
+        def call():
+            return flash_attention_int8kv(q, k8, v8, ks, vs, mask,
+                                          sm_scale=hd ** -0.5, _plan=plan)
+        first = call()
+        assert all(torch.equal(call(), first) for _ in range(49)), plan
+
+
+def test_flash_int8kv_smem_mirror_matches_the_kernel(gen):
+    """``pipeline.int8kv_smem_bytes`` against the kernel's own count."""
+    from repro_torch.kernels.flash_attention import (DTYPE_CODES,
+                                                     FLASH_ATTENTION_INT8KV)
+    for hd, dtype, depth in itertools.product((6, 16, 32, 64, 80, 128, 256),
+                                              FLOATS, (2, 3)):
+        item = torch.empty((), dtype=dtype).element_size()
+        assert FLASH_ATTENTION_INT8KV.query(
+            "flash_attention_int8kv_smem", hd, depth, DTYPE_CODES[dtype]) \
+            == pipeline.int8kv_smem_bytes(hd, item, depth), (hd, dtype, depth)
 
 
 def test_flash_int8kv_wrapper_raises_on_what_the_kernel_does_not_take(gen):
@@ -1086,6 +1125,15 @@ def test_flash_int8kv_wrapper_raises_on_what_the_kernel_does_not_take(gen):
                  (q.double(), k8, v8, ks, vs, mask)):
         with pytest.raises(ValueError):
             flash_attention_int8kv(*args, sm_scale=0.125)
+    # plans it is not built for, and width 256 fp32 at depth 3 (237 KB)
+    for plan in ((3, 2), (8, 2), (2, 1), (2, 4)):
+        with pytest.raises(ValueError):
+            flash_attention_int8kv(q, k8, v8, ks, vs, mask, sm_scale=0.125,
+                                   _plan=plan)
+    wide = [t.repeat(1, 1, 1, 4) for t in (q, k8, v8)]
+    with pytest.raises(ValueError):
+        flash_attention_int8kv(*wide, ks, vs, mask, sm_scale=0.0625,
+                               _plan=(1, 3))
 
 
 # ---------------------------------------------------------------------------
