@@ -186,7 +186,7 @@ Phases (any failure exits non-zero; nothing is caught):
    at a grid of at least two blocks an SM, fp32/bf16/fp16: every run the
    first run's bits, the first within ``int8_tol``; blocks per SM printed.
 8d. int8kv sweep: K6 at every plan it takes (``pipeline.int8kv_plans``:
-   split 1/2/4 over a cluster, ring depth 2/3) at its ten rows, each held
+   split 1/2/4 over a cluster, a ring of 2) at its ten rows, each held
    to the plain version at INT8KV_TOL and timed warm; the rule's pick
    beside the fastest, timed in turns for their spread.
 8e. int8kv repeat: K6 at every split plan at the main case in fp32, bf16
@@ -2144,7 +2144,7 @@ def int8kv_case(S: int, H: int, K: int, dtype: str, gen,
                max_abs_err_vs_fp_oracle=fp_err,
                cold_ms=cold_ms(call, (q, k8, v8)),
                **int8kv_design(dtype, hd, pipeline.int8kv_plan(
-                   B, S, T, H, K, hd, dt)),
+                   B, S, T, H, K, hd, dt, pipeline.sm_count(q.device))),
                **flash_shape_fields(
                    "flash_attention_int8kv", dt, hd, mask, B, H,
                    lambda n: call(q, k8, v8, live_count=n)))
@@ -2181,7 +2181,8 @@ def int8kv_sweep_phase() -> None:
                    INT8KV_TOL)
             times[plan] = device_ms(lambda plan=plan: call(plan), 20,
                                     spin=4_000_000) * 1e3
-        pick = pl.int8kv_plan(1, S, S, H, K, hd, q.dtype)
+        pick = pl.int8kv_plan(1, S, S, H, K, hd, q.dtype,
+                              pl.sm_count(q.device))
         best = min(times, key=times.get)
         turns = {pick: [], best: []}
         for plan in (pick, best, best, pick) * 3:

@@ -19,15 +19,15 @@
 // fp32; mask: (mask_b,S,T) bool with mask_b in {1, B}; out: (B,S,H,hd) of
 // `dtype` (fp32, bf16, fp16); all contiguous, k8/v8 16-byte aligned.
 // 1 <= hd <= 256; H % K == 0.  The plan: `split` blocks of a cluster share
-// a q tile's keys (1, 2, 4) and the int8 ring has `depth` stages (2, 3).
+// a q tile's keys (1, 2, 4).
 // `live`: null, or one int to which every block adds the K/V tiles it
 // computed.  Returns cudaGetLastError() (cudaErrorInvalidValue without
 // launching for a plan the kernel does not take).
 REPRO_EXPORT int flash_attention_int8kv_launch(
     const void* q, const void* k8, const void* v8, const void* k_scale,
     const void* v_scale, const void* mask, void* out, int B, int S, int T_len, int H,
-    int K, int hd, int mask_b, float sm_scale, void* live, int split, int depth, int dtype,
-    int device, void* stream) {
+    int K, int hd, int mask_b, float sm_scale, void* live, int split, int dtype, int device,
+    void* stream) {
   cudaError_t e = repro_set_device(device);
   if (e != cudaSuccess) return e;
   if (B <= 0 || S <= 0 || T_len <= 0 || K <= 0 || H % K != 0 ||
@@ -40,27 +40,26 @@ REPRO_EXPORT int flash_attention_int8kv_launch(
   REPRO_DISPATCH_FLOAT(dtype, T, [&]() -> cudaError_t {
     FLASH_DISPATCH_HD(hd, cudaErrorInvalidValue,
                       (i8kv::launch<W, T>(q, k8, v8, ks, vs, mask, out, B, S, T_len, H, K, hd,
-                                          mask_b, sm_scale, split, depth, lv, s)));
+                                          mask_b, sm_scale, split, lv, s)));
   }());
 }
 
-// Blocks of K6 resident on one SM at head dim hd, ring depth and q
-// `dtype`, or -error.
-REPRO_EXPORT int flash_attention_int8kv_occupancy(int hd, int depth, int dtype, int device) {
+// Blocks of K6 resident on one SM at head dim hd and q `dtype`, or -error.
+REPRO_EXPORT int flash_attention_int8kv_occupancy(int hd, int dtype, int device) {
   cudaError_t e = repro_set_device(device);
   if (e != cudaSuccess) return -static_cast<int>(e);
   if (dtype < kFloat32 || dtype > kFloat16) return -static_cast<int>(cudaErrorInvalidValue);
   REPRO_DISPATCH_FLOAT(dtype, T, [&]() -> int {
     FLASH_DISPATCH_HD(hd, -static_cast<int>(cudaErrorInvalidValue),
-                      (i8kv::occupancy<W, T>(depth)));
+                      (i8kv::occupancy<W, T>()));
   }());
 }
 
-// Shared memory of one K6 block (bytes) at head dim hd, ring depth and q
-// `dtype`, or -1; kernels/pipeline.py int8kv_smem_bytes mirrors it.
-REPRO_EXPORT int flash_attention_int8kv_smem(int hd, int depth, int dtype) {
+// Shared memory of one K6 block (bytes) at head dim hd and q `dtype`, or
+// -1; kernels/pipeline.py int8kv_smem_bytes mirrors it.
+REPRO_EXPORT int flash_attention_int8kv_smem(int hd, int dtype) {
   if (dtype < kFloat32 || dtype > kFloat16) return -1;
   REPRO_DISPATCH_FLOAT(dtype, T, [&]() -> int {
-    FLASH_DISPATCH_HD(hd, -1, (i8kv::Layout<W, T>::bytes(depth)));
+    FLASH_DISPATCH_HD(hd, -1, (i8kv::Layout<W, T>::kBytes));
   }());
 }

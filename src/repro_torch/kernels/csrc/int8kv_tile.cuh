@@ -21,25 +21,21 @@
 //    split3), and so is p: S = Q K8^T and P V8 are then three passes of
 //    exact products, and only the fp32 sums round.  bf16 and fp16 q take
 //    one pass, with P rounded to q's type (as K2's MmaTile does).
-//    Instructions as tools/int8kv_mma_probe.py measured them (wgmma has
-//    twice mma.sync's rate on this tile alone, but wins in the kernel only
-//    at width 128; PERF.md): width 128 runs both products on wgmma
-//    m64n64k16, q and K held K-major in 128-byte-swizzled panels of 64
-//    columns (sw128), V transposed into the same form, P from registers,
-//    the next tile's widening issued while S's products run; the other
-//    widths run mma.sync m16n8k16 from padded rows by ldmatrix, which was
-//    faster at width 64 (a block is one warp an SM sub-partition there,
-//    and mma.sync lets softmax and widening interleave with the products).
+//    Every width runs mma.sync m16n8k16, its operands by ldmatrix from
+//    rows padded in shared memory.  wgmma has twice its rate on this tile
+//    alone, but in the kernel mma.sync was faster at width 64 and within
+//    5 % at width 128 (PERF.md): a block is one warp an SM sub-partition,
+//    and mma.sync lets softmax and widening interleave with the products.
 // 2. Promotion.  Each tile's P V8 is summed into a fresh accumulator (one
-//    pair of 8-column blocks, or on wgmma 64 columns, at a time) and added
-//    to the fp32 total on the CUDA cores, and at head widths above 64 each
-//    64-deep slice of Q K8^T likewise (kPromotePV, kPromoteQK; what that
-//    buys: tools/int8kv_accum_probe.py).
+//    pair of 8-column blocks at a time) and added to the fp32 total on the
+//    CUDA cores, and at head widths above 64 each 64-deep slice of Q K8^T
+//    likewise: without it the fp32 error at S = T = 4096 grows 15-25x
+//    (PERF.md).
 // 3. Copies.  The int8 K/V tiles, and a partial tile's mask bytes, arrive
-//    by 16-byte cp.async into a ring of `depth` (2 or 3) stages and stay
-//    int8 there.  Each tile is widened once, by the whole block, into one of
+//    by 16-byte cp.async into a ring of kDepth = 2 stages and stay int8
+//    there.  Each tile is widened once, by the whole block, into one of
 //    two 16-bit tiles: at list position i the block waits for tile i+1,
-//    syncs once, starts the copy of tile i+depth into tile i's stage,
+//    syncs once, starts the copy of tile i+2 into tile i's stage,
 //    widens tile i+1 into the other 16-bit tile and computes tile i, so
 //    one barrier a tile orders all of it.  Rows that are not whole 16-byte
 //    vectors are copied element by element.
@@ -59,7 +55,6 @@
 
 #include "flash_tile.cuh"
 #include "int8_tile.cuh"
-#include "wgmma.cuh"
 
 namespace i8kv {
 
@@ -72,21 +67,15 @@ using flash::LiveList;
 
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kMaxSmem = 232448;
-// Sum each tile's P V8, and each 64-deep slice of Q K8^T, into a fresh
-// accumulator added to the fp32 total on the CUDA cores.
-constexpr bool kPromotePV = true;
-constexpr bool kPromoteQK = true;
+constexpr int kDepth = 2;  // stages of the int8 ring
 
 // Shared memory of one block, in bytes and in order: the q tile (three
 // bf16 terms for fp32 q, else q's type); two 16-bit tiles of widened K, V
-// and mask bytes; `depth` stages of int8 K, int8 V and mask bytes; the live
+// and mask bytes; kDepth stages of int8 K, int8 V and mask bytes; the live
 // list.  After the sweep a split block reuses it from offset 0 for its
-// partial acc (fp32), m and l.  Width 128 (kWg) runs its products on
-// wgmma: q and K are held K-major in 128-byte-swizzled panels of 64
-// columns (sw128), V transposed the same way, from a 1024-byte-aligned
-// base.  The other widths run mma.sync on rows padded by 16 bytes (int8
-// rows too), so rows stay 16-byte aligned and neighbouring rows start in
-// other banks.  kernels/pipeline.int8kv_smem_bytes mirrors this.
+// partial acc (fp32), m and l.  Rows are padded by 16 bytes (int8 rows
+// too), so rows stay 16-byte aligned and neighbouring rows start in other
+// banks.  kernels/pipeline.int8kv_smem_bytes mirrors this.
 template <int HD, typename T>
 struct Layout {
   static constexpr bool kF32 = std::is_same<T, float>::value;
@@ -94,96 +83,62 @@ struct Layout {
   using W = typename std::conditional<kF16, __half, __nv_bfloat16>::type;
   static constexpr int kTerms = kF32 ? 3 : 1;
   static constexpr int BKT = HD > 128 ? 32 : 64;
-  static constexpr bool kWg = HD == 128;
-  static constexpr int kPanels = HD / 64;          // 64-column panels (kWg)
-  static constexpr int kPanel = BQ * 128;          // bytes of one (BQ = BKT = 64)
-  static constexpr int kSlack = kWg ? 1024 : 0;    // to align the base
   static constexpr int WS = HD + 8;    // 16-bit row, elements
   static constexpr int RS = HD + 16;   // int8 row, bytes
   static constexpr int MS = BKT + 16;  // mask row, bytes
   static constexpr int AS = HD + 4;    // partial acc row, floats
-  static constexpr int kQBytes = kWg ? kTerms * kPanels * kPanel : 2 * kTerms * BQ * WS;
-  static constexpr int kWideK = kWg ? kPanels * kPanel : 2 * BKT * WS;
+  static constexpr int kQBytes = 2 * kTerms * BQ * WS;
+  static constexpr int kWideK = 2 * BKT * WS;
   static constexpr int kWideV = kWideK;
   static constexpr int kMaskBytes = BQ * MS;
   static constexpr int kWideBytes = kWideK + kWideV + kMaskBytes;
   static constexpr int kRawKV = BKT * RS;
   static constexpr int kStageBytes = 2 * kRawKV + kMaskBytes;
   static constexpr int kPartBytes = 4 * BQ * AS + 2 * 4 * BQ;
+  static constexpr int kSweepBytes =
+      kQBytes + 2 * kWideBytes + kDepth * kStageBytes + static_cast<int>(sizeof(LiveList));
+  static constexpr int kBytes = kSweepBytes > kPartBytes ? kSweepBytes : kPartBytes;
   static_assert(4 * BQ * (HD + 4) <= 2 * kWideBytes, "q is staged in the 16-bit tiles");
-  static_assert(!kWg || (kQBytes % 1024 == 0 && kWideBytes % 1024 == 0),
-                "swizzled panels stay 1024-byte aligned");
-  __host__ __device__ static constexpr int bytes(int depth) {
-    const int sweep = kQBytes + 2 * kWideBytes + depth * kStageBytes +
-                      static_cast<int>(sizeof(LiveList));
-    return kSlack + (sweep > kPartBytes ? sweep : kPartBytes);
-  }
+  static_assert(kBytes <= kMaxSmem, "a block fits the 227 KB a block may have");
 };
-
-// Byte offset of 16-bit element (r, d) of a tile held K-major in
-// 128-byte-swizzled panels of 64 columns and `rows` rows, as TMA's 128-byte
-// swizzle writes a tile and wg::make_desc_sw128 describes it: panel d / 64,
-// row r of 128 bytes, its 16-byte chunk (d % 64) / 8 at chunk ^ (r % 8).
-__device__ __forceinline__ int sw128(int r, int d, int rows) {
-  return (d >> 6) * rows * 128 + r * 128 + ((((d >> 3) & 7) ^ (r & 7)) << 4) + ((d & 7) << 1);
-}
 
 // q rows q0 .. q0+63 of one head into shared memory by cp.async (element
 // copies where rows are not whole 16-byte vectors), rows at or past `rows`
-// and columns past hd 0: 16-bit q at widths that run mma.sync into its
-// tile, the rest into `stage` (rows of HD + 16 bytes) for prepare_q.
+// and columns past hd 0: 16-bit q into its tile, fp32 q into `stage`
+// (rows of HD + 4 floats) for split_q.
 template <int HD, typename T>
 __device__ __forceinline__ void copy_q(typename Layout<HD, T>::W* q_s, unsigned char* stage,
                                        const T* __restrict__ src, size_t ld, int rows, int hd) {
   using L = Layout<HD, T>;
   constexpr int V = Vec16<T>::N;
-  if constexpr (L::kF32 || L::kWg)
+  if constexpr (L::kF32)
     flash::copy_rows<kThreads, HD, HD + V>(reinterpret_cast<T*>(stage), BQ, src, ld, rows, hd,
                                            hd % V == 0);
   else
     flash::copy_rows<kThreads, HD, L::WS>(q_s, BQ, src, ld, rows, hd, hd % V == 0);
 }
 
-// The staged q into its tile: fp32 as three bf16 terms (term t's tile after
-// t - 1 others), swizzled at width 128, 16-bit q swizzled.  Ends
-// with the fence that shows generic writes to wgmma.
-template <int HD, typename T>
-__device__ __forceinline__ void prepare_q(typename Layout<HD, T>::W* q_s,
-                                          const unsigned char* stage) {
-  using L = Layout<HD, T>;
-  unsigned char* qb = reinterpret_cast<unsigned char*>(q_s);
-  if constexpr (L::kF32) {
-    constexpr int kChunks = HD / 4;
+// The staged fp32 q into its tile as three bf16 terms, term t's rows after
+// t others'.
+template <int HD>
+__device__ __forceinline__ void split_q(__nv_bfloat16* q_s, const float* stage) {
+  constexpr int WS = Layout<HD, float>::WS;
+  constexpr int kChunks = HD / 4;
 #pragma unroll 4
-    for (int j = 0; j < BQ * kChunks / kThreads; ++j) {
-      const int c = j * kThreads + threadIdx.x;
-      const int r = c / kChunks;
-      const int d = (c % kChunks) * 4;
-      const float4 x = *reinterpret_cast<const float4*>(stage + 4 * (r * (HD + 4) + d));
-      const float v[4] = {x.x, x.y, x.z, x.w};
-      uint32_t t[3][4];
+  for (int j = 0; j < BQ * kChunks / kThreads; ++j) {
+    const int c = j * kThreads + threadIdx.x;
+    const int r = c / kChunks;
+    const int d = (c % kChunks) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(stage + r * (HD + 4) + d);
+    const float v[4] = {x.x, x.y, x.z, x.w};
+    uint32_t t[3][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) i8mm::split3(v[e], t[0][e], t[1][e], t[2][e]);
+    for (int e = 0; e < 4; ++e) i8mm::split3(v[e], t[0][e], t[1][e], t[2][e]);
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const int off = L::kWg ? k * L::kQBytes / 3 + sw128(r, d, BQ)
-                               : 2 * (k * BQ * L::WS + r * L::WS + d);
-        *reinterpret_cast<uint2*>(qb + off) =
-            make_uint2(i8mm::pack_hi16(t[k][0], t[k][1]), i8mm::pack_hi16(t[k][2], t[k][3]));
-      }
-    }
-  } else {
-    constexpr int kChunks = HD / 8;
-#pragma unroll 4
-    for (int j = 0; j < BQ * kChunks / kThreads; ++j) {
-      const int c = j * kThreads + threadIdx.x;
-      const int r = c / kChunks;
-      const int d = (c % kChunks) * 8;
-      *reinterpret_cast<uint4*>(qb + sw128(r, d, BQ)) =
-          *reinterpret_cast<const uint4*>(stage + 2 * (r * (HD + 8) + d));
-    }
+    for (int k = 0; k < 3; ++k)
+      *reinterpret_cast<uint2*>(q_s + k * BQ * WS + r * WS + d) =
+          make_uint2(i8mm::pack_hi16(t[k][0], t[k][1]), i8mm::pack_hi16(t[k][2], t[k][3]));
   }
-  if constexpr (L::kWg) tma::fence_proxy_async();
 }
 
 // BKT rows of hd <= HD int8 values (row stride `ld`) into a ring stage (row
@@ -213,10 +168,9 @@ __device__ __forceinline__ void copy_raw(int8_t* dst, const int8_t* __restrict__
 }
 
 // A ring stage's int8 tile (BKT x HD, row stride RS bytes) widened exactly
-// into a 16-bit tile: rows of WS elements, or at width 128 (K only)
-// swizzled panels (sw128); 8 values a thread step.
+// into a 16-bit tile of rows of WS elements; 8 values a thread step.
 template <int HD, typename T>
-__device__ __forceinline__ void widen_tile(unsigned char* dst, const int8_t* src) {
+__device__ __forceinline__ void widen_tile(typename Layout<HD, T>::W* dst, const int8_t* src) {
   using L = Layout<HD, T>;
   constexpr int kChunks = HD / 8;
 #pragma unroll
@@ -228,36 +182,7 @@ __device__ __forceinline__ void widen_tile(unsigned char* dst, const int8_t* src
     uint4 o;
     i8mm::widen4<L::kF16>(w.x, o.x, o.y);
     i8mm::widen4<L::kF16>(w.y, o.z, o.w);
-    *reinterpret_cast<uint4*>(dst + (L::kWg ? sw128(r, d, L::BKT) : 2 * (r * L::WS + d))) = o;
-  }
-}
-
-// At width 128: a ring stage's int8 V tile (BKT = 64 keys x HD)
-// widened and transposed into swizzled panels of HD rows by 64 keys, the
-// B operand of P V.  A thread step takes keys 2l, 2l+1 (lane l) at 8 head
-// columns (one a warp): byte permutes pair the two keys' values of each
-// column, widen4 turns a pair into one 32-bit word of the column's row, and
-// a warp's 32 words fill one 128-byte row.
-template <int HD, typename T>
-__device__ __forceinline__ void widen_vt_sw(unsigned char* dst, const int8_t* src) {
-  using L = Layout<HD, T>;
-  static_assert(L::BKT == 64, "a 128-byte row of 64 keys");
-#pragma unroll
-  for (int j = 0; j < 32 * (HD / 8) / kThreads; ++j) {
-    const int u = j * kThreads + threadIdx.x;
-    const int k = 2 * (u % 32);
-    const int d0 = (u / 32) * 8;
-    const uint2 a = *reinterpret_cast<const uint2*>(src + k * L::RS + d0);
-    const uint2 b = *reinterpret_cast<const uint2*>(src + (k + 1) * L::RS + d0);
-    const uint32_t y[4] = {__byte_perm(a.x, b.x, 0x5140), __byte_perm(a.x, b.x, 0x7362),
-                           __byte_perm(a.y, b.y, 0x5140), __byte_perm(a.y, b.y, 0x7362)};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint32_t p0, p1;
-      i8mm::widen4<L::kF16>(y[i], p0, p1);
-      *reinterpret_cast<uint32_t*>(dst + sw128(d0 + 2 * i, k, HD)) = p0;
-      *reinterpret_cast<uint32_t*>(dst + sw128(d0 + 2 * i + 1, k, HD)) = p1;
-    }
+    *reinterpret_cast<uint4*>(dst + r * L::WS + d) = o;
   }
 }
 
@@ -295,12 +220,11 @@ struct Tile {
   static constexpr int KD = HD / 16;   // 16-dim steps of q.k
   static constexpr int KK = BKT / 16;  // 16-key steps of p.v
   static constexpr int NT = L::kTerms;
-  // 64-deep slices of q.k summed apart (one slice where not promoted)
-  static constexpr int kSliceKD = kPromoteQK && KD > 4 ? 4 : KD;
-  // mma.sync: q's fragments stay in registers while they take at most 16
-  // of them (16-bit q up to width 32); wider, they would crowd the
-  // accumulators
-  static constexpr bool kQRegs = !L::kWg && NT * KD <= 4;
+  // 64-deep slices of q.k, each summed apart (promotion)
+  static constexpr int kSliceKD = KD > 4 ? 4 : KD;
+  // q's fragments stay in registers while they take at most 16 of them
+  // (16-bit q up to width 32); wider, they would crowd the accumulators
+  static constexpr bool kQRegs = NT * KD <= 4;
   // Widths 128 and 256 also run head dims 80, 96, ...: skip the 16-column
   // steps past hd (a branch each, which splits the products' code).
   static constexpr bool kSkipPast = HD >= 128;
@@ -353,82 +277,47 @@ struct Tile {
     }
 
     float s[NB][4];
-    if constexpr (L::kWg) {
-      // S = Q K^T on wgmma, q and K from their swizzled panels, the
-      // smallest term first; panel p > 0 into a fresh accumulator
-      // (promotion).  The products run while between() widens.
+    // S = Q K^T, each 64-deep slice into a fresh accumulator (promotion):
+    // B fragments of 8-key blocks j, j+1 from K rows 8j + 8 (lane / 16) +
+    // lane % 8, columns 16kd + 8 ((lane / 8) % 2); the smallest term first.
+#pragma unroll
+    for (int kd0 = 0; kd0 < KD; kd0 += kSliceKD) {
       float f[NB][4];
 #pragma unroll
       for (int j = 0; j < NB; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = f[j][e] = 0.f;
-      const unsigned char* qb = reinterpret_cast<const unsigned char*>(q_s);
-      const unsigned char* kb = reinterpret_cast<const unsigned char*>(k_s);
-      wg::fence();
+        for (int e = 0; e < 4; ++e) f[j][e] = 0.f;
 #pragma unroll
-      for (int p = 0; p < L::kPanels; ++p) {
-        float* acc = kPromoteQK && p > 0 ? &f[0][0] : &s[0][0];
-        const uint64_t dk = wg::make_desc_sw128(kb + p * L::kPanel);
+      for (int kd = kd0; kd < kd0 + kSliceKD; ++kd) {
+        if (kSkipPast && 16 * kd >= hd) continue;  // columns past hd are 0
+        uint32_t a[NT][4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+        for (int tt = 0; tt < NT; ++tt) {
+          if constexpr (kQRegs) {
 #pragma unroll
-          for (int tt = NT - 1; tt >= 0; --tt)
-            wg::MmaSS64<L::kF16>::run(
-                acc, wg::make_desc_sw128(qb + (tt * L::kPanels + p) * L::kPanel) + 2 * kk,
-                dk + 2 * kk, 1);
-      }
-      wg::commit();
-      between();
-      wg::wait<0>();
-      if constexpr (kPromoteQK && L::kPanels > 1) {
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] += f[j][e];
-      }
-    } else {
-      // S = Q K^T on mma.sync: B fragments of 8-key blocks j, j+1 from K
-      // rows 8j + 8 (lane / 16) + lane % 8, columns 16kd + 8 ((lane / 8) %
-      // 2); the smallest term first.
-#pragma unroll
-      for (int kd0 = 0; kd0 < KD; kd0 += kSliceKD) {
-        float f[NB][4];
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) f[j][e] = 0.f;
-#pragma unroll
-        for (int kd = kd0; kd < kd0 + kSliceKD; ++kd) {
-          if (kSkipPast && 16 * kd >= hd) continue;  // columns past hd are 0
-          uint32_t a[NT][4];
-#pragma unroll
-          for (int tt = 0; tt < NT; ++tt) {
-            if constexpr (kQRegs) {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) a[tt][e] = qf[kd][tt][e];
-            } else {
-              q_frag(a[tt], q_s, tt, kd);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < NB; j += 2) {
-            uint32_t b[4];
-            flash::ldsm_x4(b, k_s + (8 * j + 8 * (lane / 16) + lane % 8) * L::WS + 16 * kd +
-                                  8 * ((lane / 8) % 2));
-#pragma unroll
-            for (int tt = NT - 1; tt >= 0; --tt) {
-              flash::mma16816<W>(f[j], a[tt], b[0], b[1]);
-              flash::mma16816<W>(f[j + 1], a[tt], b[2], b[3]);
-            }
+            for (int e = 0; e < 4; ++e) a[tt][e] = qf[kd][tt][e];
+          } else {
+            q_frag(a[tt], q_s, tt, kd);
           }
         }
 #pragma unroll
-        for (int j = 0; j < NB; ++j)
+        for (int j = 0; j < NB; j += 2) {
+          uint32_t b[4];
+          flash::ldsm_x4(b, k_s + (8 * j + 8 * (lane / 16) + lane % 8) * L::WS + 16 * kd +
+                                8 * ((lane / 8) % 2));
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] = kd0 == 0 ? f[j][e] : s[j][e] + f[j][e];
+          for (int tt = NT - 1; tt >= 0; --tt) {
+            flash::mma16816<W>(f[j], a[tt], b[0], b[1]);
+            flash::mma16816<W>(f[j + 1], a[tt], b[2], b[3]);
+          }
+        }
       }
-      between();
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = kd0 == 0 ? f[j][e] : s[j][e] + f[j][e];
     }
+    between();
 
     // Online softmax on the fragments: element e of block j is row
     // 16w + g + 8 (e / 2), key 8j + 2t + e % 2.
@@ -489,50 +378,19 @@ struct Tile {
         }
       }
 
-    if constexpr (L::kWg) {
-      // O += P V on wgmma: P from registers, V^T from its swizzled panels,
-      // 64 output columns a pass, each into a fresh accumulator added to
-      // the fp32 total (promotion).
-      const unsigned char* vb = reinterpret_cast<const unsigned char*>(v_s);
-#pragma unroll
-      for (int p = 0; p < L::kPanels; ++p) {
-        float f[32];
-#pragma unroll
-        for (int e = 0; e < 32; ++e) f[e] = 0.f;
-        float* acc = kPromotePV ? f : &o[8 * p][0];
-        const uint64_t dv = wg::make_desc_sw128(vb + p * L::kPanel);
-        wg::fence();
-#pragma unroll
-        for (int kk = 0; kk < KK; ++kk)
-#pragma unroll
-          for (int tt = NT - 1; tt >= 0; --tt)
-            wg::Mma<64, L::kF16>::run(acc, pa[kk][tt], dv + 2 * kk, 1);
-        wg::commit();
-        wg::wait<0>();
-        if constexpr (kPromotePV) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) o[8 * p + j][e] += f[4 * j + e];
-        }
-      }
-    } else {
-      pv_mma_sync(v_s, pa, hd);
-    }
+    pv(v_s, pa, hd);
   }
 
-  // O += P V on mma.sync: V's B fragments of 8-dim blocks n, n+1 come by
+  // O += P V, a pair of 8-dim blocks n, n+1 at a time into a fresh
+  // accumulator added to o (promotion): V's B fragments come by
   // ldmatrix.trans from V rows 16kk + 8 ((lane / 8) % 2) + lane % 8,
   // columns 8n + 8 (lane / 16).
-  __device__ __forceinline__ void pv_mma_sync(const W* v_s, const uint32_t (&pa)[KK][NT][4],
-                                              int hd) {
+  __device__ __forceinline__ void pv(const W* v_s, const uint32_t (&pa)[KK][NT][4], int hd) {
     const int lane = threadIdx.x % 32;
 #pragma unroll
     for (int n = 0; n < ND; n += 2) {
       if (kSkipPast && 8 * n >= hd) continue;
       float f0[4] = {0.f, 0.f, 0.f, 0.f}, f1[4] = {0.f, 0.f, 0.f, 0.f};
-      float* d0 = kPromotePV ? f0 : o[n];
-      float* d1 = kPromotePV ? f1 : o[n + 1];
 #pragma unroll
       for (int kk = 0; kk < KK; ++kk) {
         uint32_t b[4];
@@ -540,16 +398,14 @@ struct Tile {
                                     8 * n + 8 * (lane / 16));
 #pragma unroll
         for (int tt = NT - 1; tt >= 0; --tt) {
-          flash::mma16816<W>(d0, pa[kk][tt], b[0], b[1]);
-          flash::mma16816<W>(d1, pa[kk][tt], b[2], b[3]);
+          flash::mma16816<W>(f0, pa[kk][tt], b[0], b[1]);
+          flash::mma16816<W>(f1, pa[kk][tt], b[2], b[3]);
         }
       }
-      if constexpr (kPromotePV) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          o[n][e] += f0[e];
-          o[n + 1][e] += f1[e];
-        }
+      for (int e = 0; e < 4; ++e) {
+        o[n][e] += f0[e];
+        o[n + 1][e] += f1[e];
       }
     }
   }
@@ -684,30 +540,25 @@ int8kv_kernel(const T* __restrict__ q, const int8_t* __restrict__ k8,
               const int8_t* __restrict__ v8, const float* __restrict__ k_scale,
               const float* __restrict__ v_scale, const uint8_t* __restrict__ mask,
               T* __restrict__ out, int S, int T_len, int H, int K, int hd, int mask_b,
-              float sm_scale, int depth, int* __restrict__ live) {
+              float sm_scale, int* __restrict__ live) {
   using L = Layout<HD, T>;
   using W = typename L::W;
   constexpr int BKT = L::BKT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr uintptr_t kAlignMask = L::kSlack ? L::kSlack - 1 : 0;
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + L::kSlack) & ~kAlignMask);
+  extern __shared__ __align__(16) unsigned char smem[];
   W* q_s = reinterpret_cast<W*>(smem);
   unsigned char* wide = smem + L::kQBytes;
   unsigned char* ring = wide + 2 * L::kWideBytes;
-  LiveList& ll = *reinterpret_cast<LiveList*>(ring + depth * L::kStageBytes);
+  LiveList& ll = *reinterpret_cast<LiveList*>(ring + kDepth * L::kStageBytes);
   auto k_wide = [&](int i) { return reinterpret_cast<W*>(wide + (i & 1) * L::kWideBytes); };
   auto v_wide = [&](int i) {
     return reinterpret_cast<W*>(wide + (i & 1) * L::kWideBytes + L::kWideK);
   };
   auto m_wide = [&](int i) { return wide + (i & 1) * L::kWideBytes + L::kWideK + L::kWideV; };
   auto k_raw = [&](int i) {
-    return reinterpret_cast<int8_t*>(ring + (i % depth) * L::kStageBytes);
+    return reinterpret_cast<int8_t*>(ring + (i % kDepth) * L::kStageBytes);
   };
   auto v_raw = [&](int i) { return k_raw(i) + L::kRawKV; };
-  auto m_raw = [&](int i) {
-    return ring + (i % depth) * L::kStageBytes + 2 * L::kRawKV;
-  };
+  auto m_raw = [&](int i) { return ring + (i % kDepth) * L::kStageBytes + 2 * L::kRawKV; };
 
   const int split = gridDim.z;
   const int rank = blockIdx.z;  // the cluster spans grid z
@@ -735,7 +586,7 @@ int8kv_kernel(const T* __restrict__ q, const int8_t* __restrict__ k8,
   copy_q<HD, T>(q_s, stage, q + ((static_cast<size_t>(b) * S + q0) * H + h) * hd,
                 static_cast<size_t>(H) * hd, rows, hd);
   cp_async_commit();
-  // Copy tile `tile` (window-relative) into stage i % depth, with its mask
+  // Copy tile `t` (window-relative) into stage i % kDepth, with its mask
   // bytes where `partial`.
   auto copy_tile = [&](int i, int w0, int t, bool partial) {
     const int k0 = (w0 + t) * BKT;
@@ -761,18 +612,13 @@ int8kv_kernel(const T* __restrict__ q, const int8_t* __restrict__ k8,
       const int e = entry(i);
       copy_tile(i, w0, e & ~kPartial, e & kPartial);
     };
-    // Widen stage i % depth into 16-bit tile i % 2, mask bytes and all
+    // Widen stage i % kDepth into 16-bit tile i % 2, mask bytes and all
     // (a full tile's are not read); past this rank's last tile it widens
     // what the stage holds, which nothing reads.
     auto widen = [&](int i) {
-      widen_tile<HD, T>(reinterpret_cast<unsigned char*>(k_wide(i)), k_raw(i));
+      widen_tile<HD, T>(k_wide(i), k_raw(i));
+      widen_tile<HD, T>(v_wide(i), v_raw(i));
       copy_mask_bytes<BKT, L::MS>(m_wide(i), m_raw(i));
-      if constexpr (L::kWg) {
-        widen_vt_sw<HD, T>(reinterpret_cast<unsigned char*>(v_wide(i)), v_raw(i));
-        tma::fence_proxy_async();  // for wgmma's reads
-      } else {
-        widen_tile<HD, T>(reinterpret_cast<unsigned char*>(v_wide(i)), v_raw(i));
-      }
     };
     bool guessed = false;
     if (w0 == 0) {
@@ -782,16 +628,16 @@ int8kv_kernel(const T* __restrict__ q, const int8_t* __restrict__ k8,
         __syncthreads();  // no copy into stage 0 is still in flight
       }
     }
-    for (int i = 0; i < depth; ++i) {
+    for (int i = 0; i < kDepth; ++i) {
       if (i < mine && (i > 0 || !guessed)) issue(i);
       cp_async_commit();
     }
     if (mine > 0) {
-      if (depth == 3) cp_async_wait<2>(); else cp_async_wait<1>();  // q and tile 0
+      cp_async_wait<kDepth - 1>();  // q and tile 0
       __syncthreads();
       if (!q_ready) {
-        if constexpr (L::kF32 || L::kWg) {
-          prepare_q<HD, T>(q_s, stage);
+        if constexpr (L::kF32) {
+          split_q<HD>(q_s, reinterpret_cast<const float*>(stage));
           __syncthreads();  // the stage is read before tile 0 is widened over it
         }
         q_ready = true;
@@ -799,9 +645,9 @@ int8kv_kernel(const T* __restrict__ q, const int8_t* __restrict__ k8,
       widen(0);
     }
     for (int i = 0; i < mine; ++i) {
-      if (depth == 3) cp_async_wait<1>(); else cp_async_wait<0>();  // tile i + 1
+      cp_async_wait<kDepth - 2>();  // tile i + 1
       __syncthreads();  // ... everyone's; tile i's stage and 16-bit tile i - 1 are free
-      if (i + depth < mine) issue(i + depth);
+      if (i + kDepth < mine) issue(i + kDepth);
       cp_async_commit();
       tile.step(q_s, k_wide(i), v_wide(i), (entry(i) & kPartial) ? m_wide(i) : nullptr, hd, c,
                 [&] { widen(i + 1); });
@@ -827,35 +673,24 @@ int8kv_kernel(const T* __restrict__ q, const int8_t* __restrict__ k8,
   cooperative_groups::this_cluster().sync();  // no rank's partial is still read
 }
 
-// The host side has internal linkage: each library that includes this
-// header (the probes build variants of it) keeps its own `attr_set`.
-namespace {
+__host__ inline bool plan_ok(int split) { return split == 1 || split == 2 || split == 4; }
 
-__host__ inline bool plan_ok(int split, int depth) {
-  return (split == 1 || split == 2 || split == 4) && (depth == 2 || depth == 3);
-}
-
-// Launch at the padded width HD; cudaErrorInvalidValue for a plan the
-// kernel does not take or whose block passes the 227 KB a block may have.
+// Launch at the padded width HD; cudaErrorInvalidValue for a split the
+// kernel does not take.
 template <int HD, typename T>
 cudaError_t launch(const void* q, const void* k8, const void* v8, const float* k_scale,
                    const float* v_scale, const void* mask, void* out, int B, int S, int T_len,
-                   int H, int K, int hd, int mask_b, float sm_scale, int split, int depth,
-                   int* live, cudaStream_t stream) {
-  const int smem = Layout<HD, T>::bytes(depth);
-  if (!plan_ok(split, depth) || smem > kMaxSmem) return cudaErrorInvalidValue;
+                   int H, int K, int hd, int mask_b, float sm_scale, int split, int* live,
+                   cudaStream_t stream) {
+  if (!plan_ok(split)) return cudaErrorInvalidValue;
   auto kern = int8kv_kernel<HD, T>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * H, (S + BQ - 1) / BQ, split);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = Layout<HD, T>::kBytes;
   cfg.stream = stream;
   cudaLaunchAttribute at[1];
   at[0].id = cudaLaunchAttributeClusterDimension;
@@ -864,25 +699,23 @@ cudaError_t launch(const void* q, const void* k8, const void* v8, const float* k
   at[0].val.clusterDim.z = split;
   cfg.attrs = at;
   cfg.numAttrs = split > 1 ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kern, static_cast<const T*>(q), static_cast<const int8_t*>(k8),
-      static_cast<const int8_t*>(v8), k_scale, v_scale, static_cast<const uint8_t*>(mask),
-      static_cast<T*>(out), S, T_len, H, K, hd, mask_b, sm_scale, depth, live);
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q), static_cast<const int8_t*>(k8),
+                         static_cast<const int8_t*>(v8), k_scale, v_scale,
+                         static_cast<const uint8_t*>(mask), static_cast<T*>(out), S, T_len, H, K,
+                         hd, mask_b, sm_scale, live);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// Blocks resident on one SM at ring `depth` (the occupancy query), or -error.
+// Blocks resident on one SM (the occupancy query), or -error.
 template <int HD, typename T>
-int occupancy(int depth) {
-  const int smem = Layout<HD, T>::bytes(depth);
-  if (!plan_ok(1, depth) || smem > kMaxSmem) return -static_cast<int>(cudaErrorInvalidValue);
+int occupancy() {
   auto kern = int8kv_kernel<HD, T>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   int n = 0;
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kThreads, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kThreads, Layout<HD, T>::kBytes);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
-
-}  // namespace
 
 }  // namespace i8kv

@@ -141,7 +141,7 @@ FLASH_ATTENTION_INT8KV = _build.CudaKernel(
     "flash_attention_int8kv", lib="flash_attention_int8kv",
     symbol="flash_attention_int8kv_launch",
     argtypes=[ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 4
+    + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
     replaces="src/repro/kernels/flash_attention.py:113")
 
@@ -153,8 +153,8 @@ def flash_attention_int8kv(q, k8, v8, k_scale, v_scale, mask, *,
     (1|B,S,T) bool → (B,S,H,hd) of q's dtype.
 
     ``_plan`` (split, depth) replaces ``pipeline.int8kv_plan``'s pick; for
-    the plan sweep and the card's tests only, and a plan the kernel does
-    not take raises."""
+    the plan sweep and the card's tests only, and a plan the kernel is not
+    built for (``pipeline.int8kv_plan_legal``) raises."""
     from repro_torch.kernels import pipeline  # it imports this module
     live = live_count_ptr("flash_attention_int8kv", live_count, q)
     if q.device.type == "cpu":
@@ -170,34 +170,28 @@ def flash_attention_int8kv(q, k8, v8, k_scale, v_scale, mask, *,
             raise ValueError(f"flash_attention_int8kv: {name} must be a "
                              f"contiguous fp32 ({K},) on {q.device}")
     if _plan is None:
-        plan = pipeline.int8kv_plan(B, S, T, H, K, hd, q.dtype)
+        plan = pipeline.int8kv_plan(B, S, T, H, K, hd, q.dtype,
+                                    pipeline.sm_count(q.device))
     elif pipeline.int8kv_plan_legal(_plan, B, S, T, H, K, hd, q.dtype):
         plan = tuple(_plan)
     else:
-        raise ValueError(f"flash_attention_int8kv: plan {_plan} is not built "
-                         f"or does not fit for hd={hd}, {q.dtype}")
+        raise ValueError(f"flash_attention_int8kv: K6 is not built for plan "
+                         f"{_plan}")
     out = torch.empty_like(q)
     FLASH_ATTENTION_INT8KV.launch(
         _build.ptr(q), _build.ptr(k8), _build.ptr(v8), _build.ptr(k_scale),
         _build.ptr(v_scale), _build.ptr(mask), _build.ptr(out), B, S, T, H, K,
-        hd, mask.shape[0], float(sm_scale), live, *plan, DTYPE_CODES[q.dtype],
+        hd, mask.shape[0], float(sm_scale), live, plan[0], DTYPE_CODES[q.dtype],
         q.device.index, _build.stream_of(q))
     return out
 
 
-#: K6's ring depth where ``blocks_per_sm`` is given none.
-INT8KV_DEPTH = 2
-
-
 def blocks_per_sm(kernel: str, dtype: torch.dtype, hd: int,
                   depth: int | None = None) -> int:
-    """Blocks of ``kernel`` ("flash_attention", or "flash_attention_int8kv"
-    or "flash_attention_pipelined" at ring ``depth``; K6's
-    ``INT8KV_DEPTH`` where none is given) resident on one SM of the
-    current card at head dim ``hd`` and q ``dtype``, as
+    """Blocks of ``kernel`` ("flash_attention", "flash_attention_int8kv",
+    or "flash_attention_pipelined" at ring ``depth``) resident on one SM of
+    the current card at head dim ``hd`` and q ``dtype``, as
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports it."""
-    if kernel == "flash_attention_int8kv" and depth is None:
-        depth = INT8KV_DEPTH
     kern = _build.KERNELS[kernel]
     args = [hd] + ([depth] if depth is not None else [])
     n = kern.query(kern.symbol.replace("_launch", "_occupancy"), *args,

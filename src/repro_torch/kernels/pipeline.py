@@ -759,77 +759,69 @@ def group_plan(B: int, N: int, M: int, k: int, C: int, itemsize: int,
 # ---------------------------------------------------------------------------
 
 #: What csrc/flash_attention_int8kv.cu (K6) is built for: blocks of a
-#: cluster that share a q tile's live K/V tiles, and stages of the int8 ring.
+#: cluster that share a q tile's live K/V tiles, and the stages of its int8
+#: ring (``kDepth`` in csrc/int8kv_tile.cuh; 3 was never faster by more than
+#: 1 % in the card's sweep, PERF.md).
 INT8KV_SPLITS = (1, 2, 4)
-INT8KV_DEPTHS = (2, 3)
+INT8KV_RING = 2
 
 
-def int8kv_smem_bytes(hd: int, itemsize: int, depth: int) -> int:
+def int8kv_smem_bytes(hd: int, itemsize: int) -> int:
     """Shared memory of one K6 block (csrc/int8kv_tile.cuh ``Layout``): the
     q tile (three bf16 terms for fp32 q), two 16-bit tiles of widened K, V
-    and mask bytes, ``depth`` stages of int8 K, int8 V and mask bytes, and
-    the live list; at least a split block's partial acc, m and l.  At width
-    128, which runs on wgmma, q, K and V are 8 KB swizzled panels of 64
-    columns, behind 1024 bytes of slack that align them; elsewhere rows of
-    16 bits are padded by 16 bytes."""
+    and mask bytes, ``INT8KV_RING`` stages of int8 K, int8 V and mask
+    bytes, and the live list; at least a split block's partial acc, m and
+    l.  Rows are padded by 16 bytes."""
     w, bk = padded_head_dim(hd), block_k(hd)
     terms = 3 if itemsize == 4 else 1
     mask_tile = BLOCK_Q * (bk + 16)
-    if w == 128:
-        slack, q_tile, kv_tile = 1024, terms * w * 128, w * 128
-    else:
-        slack, q_tile, kv_tile = 0, terms * BLOCK_Q * 2 * (w + 8), bk * 2 * (w + 8)
-    wide = 2 * kv_tile + mask_tile
+    wide = 2 * bk * 2 * (w + 8) + mask_tile
     stage = 2 * bk * (w + 16) + mask_tile
-    sweep = q_tile + 2 * wide + depth * stage + LIST_BYTES
-    return slack + max(sweep, 4 * BLOCK_Q * (w + 4) + 8 * BLOCK_Q)
+    sweep = (terms * BLOCK_Q * 2 * (w + 8) + 2 * wide + INT8KV_RING * stage
+             + LIST_BYTES)
+    return max(sweep, 4 * BLOCK_Q * (w + 4) + 8 * BLOCK_Q)
 
 
 def int8kv_plan_legal(plan, B: int, S: int, T: int, H: int, K: int, hd: int,
                       dtype: torch.dtype) -> bool:
-    """True iff K6 is built for ``plan`` = (split, depth) and its block fits
-    at this head dim and q dtype.  A split may leave a rank without a live
-    tile (it then adds nothing)."""
+    """True iff K6 is built for ``plan`` = (split, depth) at this shape.  A
+    split may leave a rank without a live tile (it then adds nothing)."""
     split, depth = plan
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return (split in INT8KV_SPLITS and depth in INT8KV_DEPTHS
+    return (split in INT8KV_SPLITS and depth == INT8KV_RING
             and 1 <= hd <= MAX_HEAD_DIM and -(-S // BLOCK_Q) <= 65535
-            and min(B, S, T, H, K) >= 1
-            and int8kv_smem_bytes(hd, itemsize, depth) <= MAX_SMEM)
+            and min(B, S, T, H, K) >= 1)
 
 
 def int8kv_plans(B: int, S: int, T: int, H: int, K: int, hd: int,
                  dtype: torch.dtype) -> list[tuple[int, int]]:
     """Every plan K6 takes at this shape (``int8kv_plan_legal``)."""
-    return [p for p in itertools.product(INT8KV_SPLITS, INT8KV_DEPTHS)
-            if int8kv_plan_legal(p, B, S, T, H, K, hd, dtype)]
+    return [(s, INT8KV_RING) for s in INT8KV_SPLITS
+            if int8kv_plan_legal((s, INT8KV_RING), B, S, T, H, K, hd, dtype)]
 
 
-def int8kv_blocks_per_sm(hd: int, itemsize: int, depth: int) -> int:
+def int8kv_blocks_per_sm(hd: int, itemsize: int) -> int:
     """K6 blocks one SM holds: by shared memory (``blocks_fit``) and by
     registers (``__launch_bounds__``: two blocks at widths up to 64, one
     above)."""
     regs = 2 if padded_head_dim(hd) <= 64 else 1
-    return min(regs, blocks_fit(int8kv_smem_bytes(hd, itemsize, depth)))
+    return min(regs, blocks_fit(int8kv_smem_bytes(hd, itemsize)))
 
 
 @functools.lru_cache(maxsize=None)
 def int8kv_plan(B: int, S: int, T: int, H: int, K: int, hd: int,
                 dtype: torch.dtype, sms: int = SMS) -> tuple[int, int]:
     """The plan (split, depth) of K6 for q (B, S, H, hd) of ``dtype`` over
-    T keys, on a card of ``sms`` SMs: a ring of 2 stages (3 was never
-    faster by more than 1 % in the sweep in PERF.md, and costs fp32
-    blocks their second slot on an SM); a q tile's keys split over a
-    cluster of 2, then 4 blocks while the grid of q tiles (B · H · ⌈S/64⌉
-    blocks) leaves SMs idle, the split grid stays within one wave of
-    resident blocks, and each rank keeps a tile of the longest sweep."""
+    T keys, on a card of ``sms`` SMs (the wrapper passes its card's): a q
+    tile's keys split over a cluster of 2, then 4 blocks while the grid of
+    q tiles (B · H · ⌈S/64⌉ blocks) leaves SMs idle, the split grid stays
+    within one wave of resident blocks, and each rank keeps a tile of the
+    longest sweep."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    depth = 2
-    per_sm = int8kv_blocks_per_sm(hd, itemsize, depth)
+    per_sm = int8kv_blocks_per_sm(hd, itemsize)
     blocks = B * H * -(-S // BLOCK_Q)
     tiles = -(-T // block_k(hd))
     split = 1
     while (2 * split in INT8KV_SPLITS and blocks * split < sms
            and blocks * 2 * split <= per_sm * sms and tiles >= 2 * split):
         split *= 2
-    return split, depth
+    return split, INT8KV_RING

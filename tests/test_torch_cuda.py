@@ -1058,8 +1058,8 @@ def _int8kv_cuda(gen, B, S, H, K, T, hd, dtype):
 @pytest.mark.parametrize("dtype", FLOATS)
 @pytest.mark.parametrize("B,S,T,H,K,hd", FLASH)
 def test_flash_int8kv_kernel(gen, B, S, T, H, K, hd, dtype, mask_kind):
-    """K6 at its rule's plan and at every plan it takes (split 1/2/4, ring
-    depth 2/3), each with its live tiles counted."""
+    """K6 at its rule's plan and at every plan it takes (split 1/2/4), each
+    with its live tiles counted."""
     q, kf, vf, k8, v8, ks, vs = _int8kv_cuda(gen, B, S, H, K, T, hd, dtype)
     mask = _mask(gen, mask_kind, B, S, T, hd)
     scale = hd ** -0.5
@@ -1105,12 +1105,11 @@ def test_flash_int8kv_smem_mirror_matches_the_kernel(gen):
     """``pipeline.int8kv_smem_bytes`` against the kernel's own count."""
     from repro_torch.kernels.flash_attention import (DTYPE_CODES,
                                                      FLASH_ATTENTION_INT8KV)
-    for hd, dtype, depth in itertools.product((6, 16, 32, 64, 80, 128, 256),
-                                              FLOATS, (2, 3)):
+    for hd, dtype in itertools.product((6, 16, 32, 64, 80, 128, 256), FLOATS):
         item = torch.empty((), dtype=dtype).element_size()
         assert FLASH_ATTENTION_INT8KV.query(
-            "flash_attention_int8kv_smem", hd, depth, DTYPE_CODES[dtype]) \
-            == pipeline.int8kv_smem_bytes(hd, item, depth), (hd, dtype, depth)
+            "flash_attention_int8kv_smem", hd, DTYPE_CODES[dtype]) \
+            == pipeline.int8kv_smem_bytes(hd, item), (hd, dtype)
 
 
 def test_flash_int8kv_wrapper_raises_on_what_the_kernel_does_not_take(gen):
@@ -1125,15 +1124,11 @@ def test_flash_int8kv_wrapper_raises_on_what_the_kernel_does_not_take(gen):
                  (q.double(), k8, v8, ks, vs, mask)):
         with pytest.raises(ValueError):
             flash_attention_int8kv(*args, sm_scale=0.125)
-    # plans it is not built for, and width 256 fp32 at depth 3 (237 KB)
-    for plan in ((3, 2), (8, 2), (2, 1), (2, 4)):
+    # plans it is not built for: splits other than 1/2/4, rings other than 2
+    for plan in ((3, 2), (8, 2), (2, 1), (2, 3), (2, 4)):
         with pytest.raises(ValueError):
             flash_attention_int8kv(q, k8, v8, ks, vs, mask, sm_scale=0.125,
                                    _plan=plan)
-    wide = [t.repeat(1, 1, 1, 4) for t in (q, k8, v8)]
-    with pytest.raises(ValueError):
-        flash_attention_int8kv(*wide, ks, vs, mask, sm_scale=0.0625,
-                               _plan=(1, 3))
 
 
 # ---------------------------------------------------------------------------

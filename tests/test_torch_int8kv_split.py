@@ -265,39 +265,40 @@ def test_int8kv_plan_is_legal_and_fits():
         assert pipeline.int8kv_plan_legal(plan, *shape), (shape, plan)
         assert plan in pipeline.int8kv_plans(*shape)
         item = torch.empty((), dtype=shape[-1]).element_size()
-        assert pipeline.int8kv_smem_bytes(shape[5], item, plan[1]) \
+        assert pipeline.int8kv_smem_bytes(shape[5], item) \
             <= pipeline.MAX_SMEM
 
 
-def test_every_plan_fits_and_only_fp32_width_256_loses_depth_3():
+def test_every_split_is_a_plan_at_every_width():
+    """Every split at every width and dtype, on the one ring of 2 stages
+    (the kernel's static_assert: its block fits in 227 KB)."""
     for hd, dtype in itertools.product(PLAN_HD, DTYPES):
         plans = pipeline.int8kv_plans(1, 512, 512, 12, 12, hd, dtype)
-        depths = {d for _, d in plans}
-        want = {2} if (padded_head_dim(hd) == 256
-                       and dtype == torch.float32) else {2, 3}
-        assert depths == want and {s for s, _ in plans} == {1, 2, 4}
+        assert plans == [(1, 2), (2, 2), (4, 2)], (hd, dtype)
+        item = torch.empty((), dtype=dtype).element_size()
+        assert pipeline.int8kv_smem_bytes(hd, item) <= pipeline.MAX_SMEM
 
 
 def test_int8kv_plan_splits_only_where_sms_idle():
     """A split only where the q tiles alone leave SMs idle; the split grid
     stays within the blocks the SMs hold at once."""
     for B, S, T, H, K, hd, dtype in _plan_shapes():
-        split, depth = pipeline.int8kv_plan(B, S, T, H, K, hd, dtype)
+        split, _ = pipeline.int8kv_plan(B, S, T, H, K, hd, dtype)
         blocks = B * H * -(-S // BLOCK_Q)
         item = torch.empty((), dtype=dtype).element_size()
         if split > 1:
             assert blocks < pipeline.SMS
             assert blocks * split <= pipeline.SMS * \
-                pipeline.int8kv_blocks_per_sm(hd, item, depth)
+                pipeline.int8kv_blocks_per_sm(hd, item)
             assert -(-T // block_k(hd)) >= split
 
 
 def test_int8kv_plans_refuse_what_the_kernel_does_not_take():
     shape = (1, 512, 512, 12, 12, 64, torch.float32)
-    for plan in ((3, 2), (8, 2), (2, 1), (2, 4), (0, 2)):
+    for plan in ((3, 2), (8, 2), (2, 1), (2, 3), (2, 4), (0, 2)):
         assert not pipeline.int8kv_plan_legal(plan, *shape)
     assert not pipeline.int8kv_plan_legal((1, 3), 1, 64, 64, 8, 1, 256,
-                                          torch.float32)   # 237 KB
+                                          torch.float32)   # no ring of 3
     assert not pipeline.int8kv_plan_legal((1, 2), 1, 64, 64, 2, 2, 320,
                                           torch.float32)   # no width 320
 
@@ -323,3 +324,11 @@ K6_PICKS = {
 def test_int8kv_plan_picks_at_the_swept_shapes(key):
     S, H, K, hd, dtype = key
     assert pipeline.int8kv_plan(1, S, S, H, K, hd, dtype) == K6_PICKS[key]
+
+
+@pytest.mark.parametrize("sms,split", [(66, 1), (132, 2), (264, 4)])
+def test_int8kv_plan_follows_the_card_s_sms(sms, split):
+    """The main case's 96 q tiles: no split on a card they fill, 2 on an
+    H100's 132 SMs, 4 where twice as many SMs idle."""
+    assert pipeline.int8kv_plan(1, 512, 512, 12, 12, 64, torch.float32,
+                                sms) == (split, 2)

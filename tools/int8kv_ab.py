@@ -153,7 +153,8 @@ def main() -> int:
             _check(f"int8kv_ab {side} {case}", fn(q, k8, v8), want, dtype,
                    INT8KV_TOL)
         row = {"kernel": "flash_attention_int8kv", "case": case,
-               "plan": pipeline.int8kv_plan(1, S, S, H, K, hd, q.dtype),
+               "plan": pipeline.int8kv_plan(1, S, S, H, K, hd, q.dtype,
+                                            pipeline.sm_count(q.device)),
                "card": card}
         row.update(turns({"old": old, "new": new}, (q, k8, v8)))
         print(json.dumps(row))

@@ -17,14 +17,12 @@ accumulators, two ways:
 Each runs ``ITERS`` tiles a block on 132, 264 and 396 blocks (1-3 an SM);
 CUDA events around one launch give TFLOP/s (2 · 64 · 64 · 64 · 3 flops a
 tile).  Then K6 itself at the main case, with the time its 2 products
-would take at each instruction's best rate beside it.  Then the choice in
-the kernel: K6 as committed (``wgmma`` at width 128, ``mma.sync`` below)
-against two copies built by a text edit of ``Layout::kWg``, ``wgmma`` at
-widths 64 and 128 and ``mma.sync`` at every width, at the main case in
-fp32 and bf16 (width 64) and at hd 80 fp32 and hd 96 bf16 (width 128),
-each held to the plain version and timed warm and cold in turns.  Needs a
-Hopper card and nvcc; the probe builds into
-``src/repro_torch/kernels/_build/``.
+would take at each instruction's best rate beside it.  Needs a Hopper card
+and nvcc; the probe builds into ``src/repro_torch/kernels/_build/``.
+
+K6 built with wgmma in the kernel (at widths 64 and 128) was compared with
+mma.sync by this probe's version at commit f754d01, whose K6 still had a
+wgmma path; PERF.md gives the numbers.
 
     PYTHONPATH=src python tools/int8kv_mma_probe.py
 """
@@ -39,40 +37,6 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ITERS = 4096
-KWG = "  static constexpr bool kWg = HD == 128;"
-VARIANTS = {"committed": KWG,
-            "wgmma at 64 and 128": "  static constexpr bool kWg = HD == 64 || HD == 128;",
-            "mma.sync everywhere": "  static constexpr bool kWg = false;"}
-#: (S = T, H, K, q dtype, head dim): the main case and the width-128 rows
-CHOICE_ROWS = ((512, 12, 12, "float32", 64), (512, 12, 12, "bfloat16", 64),
-               (256, 12, 12, "float32", 80), (256, 12, 12, "bfloat16", 96))
-
-
-def build_k6_variants(nvcc, flags, out_dir):
-    """K6's launch entry point built with each VARIANTS line, by name."""
-    import shutil
-    from repro_torch.kernels import _build
-    fns = {}
-    for name, line in VARIANTS.items():
-        d = out_dir / name.replace(" ", "_").replace(".", "")
-        if d.exists():
-            shutil.rmtree(d)
-        shutil.copytree(_build.CSRC, d)
-        header = (d / "int8kv_tile.cuh").read_text()
-        if header.count(KWG) != 1:
-            raise SystemExit(f"int8kv_mma_probe: {KWG.strip()!r} not in the header")
-        (d / "int8kv_tile.cuh").write_text(header.replace(KWG, line))
-        so = d / "libk6.so"
-        subprocess.run([nvcc, *flags, "-shared", "-o", str(so),
-                        str(d / "flash_attention_int8kv.cu")], check=True,
-                       capture_output=True)
-        fn = ctypes.CDLL(str(so)).flash_attention_int8kv_launch
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_void_p]
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
 
 SOURCE = r"""
 #include "flash_tile.cuh"
@@ -209,47 +173,6 @@ def main() -> int:
         "us_at_best_rate": {n: tc_flops / (t * 1e12) * 1e6
                             for n, t in best.items()},
         "card": card}))
-
-    # the choice in the kernel
-    import statistics
-    from chip_smoke import INT8KV_TOL, _check, device_ms
-    from repro_torch.kernels import pipeline, ref
-    from repro_torch.kernels.flash_attention import DTYPE_CODES
-    k6 = build_k6_variants(_build.find_nvcc(), _build.NVCC_FLAGS[:-1],
-                           out_dir / "int8kv_choice")
-    for S, H, K, dtype, hd in CHOICE_ROWS:
-        q, _, _, k8, v8, ks, vs, mask = int8kv_inputs(S, H, K, dtype, gen,
-                                                      "causal", hd)
-        plan = pipeline.int8kv_plan(1, S, S, H, K, hd, q.dtype)
-        want = ref.flash_attention_int8kv_ref(q, k8, v8, ks, vs, mask,
-                                              sm_scale=hd ** -0.5)
-
-        def call(fn, q, k8, v8):
-            out = torch.empty_like(q)
-            err = fn(q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(),
-                     vs.data_ptr(), mask.data_ptr(), out.data_ptr(), 1, S, S, H,
-                     K, hd, 1, hd ** -0.5, None, *plan, DTYPE_CODES[q.dtype], 0,
-                     ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-            if err:
-                raise RuntimeError(f"K6 variant: CUDA error {err}")
-            return out
-        us = {n: {"warm": [], "cold": []} for n in k6}
-        for name, fn in k6.items():
-            _check(f"int8kv_mma_probe {name} hd={hd} {dtype}",
-                   call(fn, q, k8, v8), want, dtype, INT8KV_TOL)
-        for _ in range(3):
-            for name, fn in list(k6.items()) + list(reversed(k6.items())):
-                us[name]["warm"].append(device_ms(
-                    lambda: call(fn, q, k8, v8), 20, spin=20_000_000) * 1e3)
-                us[name]["cold"].append(cold_ms(
-                    lambda a, b, c: call(fn, a, b, c), (q, k8, v8)) * 1e3)
-        print(json.dumps({
-            "choice": f"S={S} T={S} H={H} K={K} hd={hd} {dtype} causal",
-            "plan": plan,
-            "us_warm_cold_median": {n: [statistics.median(v["warm"]),
-                                        statistics.median(v["cold"])]
-                                    for n, v in us.items()},
-            "card": card}))
     return 0
 
 

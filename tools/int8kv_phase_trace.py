@@ -10,7 +10,7 @@ kernel start, q's and the guessed tile's copies issued, the mask scan, the
 prologue (tile 0 landed, q split, tile 0 widened), each K/V tile of the
 block, and, under a split, the partial state stored, the first cluster
 barrier, the combine and the last barrier.  It runs the instrumented K6 on
-``chip_smoke.py``'s rows at every split plan (ring depth 2) and prints,
+``chip_smoke.py``'s rows at every split plan and prints,
 for the slowest block of each launch, the cycles of each phase.  The
 readings are taken without a barrier, so a phase's cycles are those of
 warp 0; the extra stores cost a few cycles a point.
@@ -77,7 +77,7 @@ def build(out_dir: pathlib.Path):
     lib = ctypes.CDLL(str(so))
     fn = lib.flash_attention_int8kv_launch
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.k6_trace_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -104,14 +104,12 @@ def main() -> int:
         q, _, _, k8, v8, ks, vs, mask = int8kv_inputs(S, H, K, dtype, gen,
                                                       kind, hd)
         for plan in pipeline.int8kv_plans(1, S, S, H, K, hd, q.dtype):
-            if plan[1] != 2:
-                continue
             out = torch.empty_like(q)
             stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
             for _ in range(3):
                 if fn(q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(),
                       vs.data_ptr(), mask.data_ptr(), out.data_ptr(), 1, S, S, H,
-                      K, hd, 1, hd ** -0.5, None, *plan, DTYPE_CODES[q.dtype], 0,
+                      K, hd, 1, hd ** -0.5, None, plan[0], DTYPE_CODES[q.dtype], 0,
                       stream):
                     raise RuntimeError("instrumented K6 refused the launch")
             torch.cuda.synchronize()
