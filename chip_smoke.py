@@ -5,8 +5,10 @@ serves full-width llama110m through the continuous-batching engine, runs
 the point-cloud set-abstraction stage, serves full-width mamba2-2.7b
 through the static-batch engine, serves llama110m on int8 weights through
 ``StaticBatchEngine`` and sends its quantized projections through the
-quantized-GEMM entry point, and checks that each path went through every
-one of its kernels.
+quantized-GEMM entry point, checks that each path went through the
+kernels its compile records name, then prints the compile cache, runs the
+e-graph's offloaded programs on the kernels, and times both kernels of
+each baseline/pipelined pair where the cost model picks between them.
 
     python3 chip_smoke.py
 
@@ -28,7 +30,9 @@ Phases (any failure exits non-zero; nothing is caught):
    TB/s, flops / peak), with fp32 work on the 67 TFLOP/s CUDA-core rate
    and bf16/fp16 on the 989 TFLOP/s tensor cores.  K1 rows also time the
    first design's two-pass loop shape (``loop_ms``, ``loop_cold_ms``) and
-   ``F.rms_norm`` cold; K1 fp16 rows; K2/K3 at head dims 80, 96 and 256
+   ``F.rms_norm`` cold; K1 fp16 rows; K2 at (i1)'s groups (B = 8, S = T
+   = 64, 128, 512; the last K2's main case, the largest shape the main
+   path gives it); K2/K3 at head dims 80, 96 and 256
    (one KV head) and in fp16; K3 at (i1)'s B = 8, S = T = 512 at ring
    depths 2, 3 and 4 in fp32 and bf16 (the sweep ``choose_depth``'s rule
    rests on); a local + strided block-sparse mask (K2, K3); a long T in
@@ -49,8 +53,10 @@ Phases (any failure exits non-zero; nothing is caught):
 4. serve: llama110m (12 layers, d 768, 12 heads, vocab 32000, fp32, random
    weights from seed 0) through ``ContinuousEngine`` on backend "cuda":
    16 Poisson requests, prompts up to 512, buckets 16..512, 8 slots, pages
-   of 16.  Launch counts are zeroed just before the run and read just after;
-   each of K1-K3 must have launched.  First-token logits of one request per
+   of 16.  Launch counts are zeroed just before the run and read just after
+   and must be exactly what the compile records name: K1 at every norm,
+   and per prefill layer the attention kernel (K2 or K3) of its bucket's
+   record.  First-token logits of one request per
    bucket are held against backend "torch" on the same card (atol = rtol =
    1e-4: twelve full-width fp32 layers, where the reference's 1e-5 is for
    two narrow ones).
@@ -71,14 +77,15 @@ Phases (any failure exits non-zero; nothing is caught):
    card's L2 read rate, ``l2_read_rate``: the floor of a gather from L2,
    K12's design), and the pointcloud phase prints that rate.  Then the set-abstraction stage (fps → gather
    → ball query → group aggregate) through ``LoweringConfig("cuda")``,
-   held exactly against backend "torch", in three runs, each with launch
+   held exactly against backend "torch", in four runs, each with launch
    counts zeroed just before and read just after: (a) the bench's full size
    (B=2, N=4096, M=512, k=16, C=64, r=0.9, normal(0,1) from seed 0);
    (b) PointNet++ SSG ModelNet40 SA1 (Qi et al., NeurIPS 2017: 1024 points,
    512 centers, r=0.2, 32 samples) at batch 16, C=64, points uniform in
-   the unit ball; (c) run (a) with ``pipelined=False``.  Across the three,
-   every one of K9-K13 must have launched: (a) and (b) K9, K11, K13 (K13's
-   plan copies 16 and 4 feature tiles), (c) K9, K10, K12.  The kernel rows include fp16
+   the unit ball; (c) run (a) with ``pipelined=False``; (d) run (a) with
+   ``pipelined=True``.  (a) and (b) launch K9 and the ball-query and
+   aggregation kernels their records name (the cost model's picks), (c)
+   K9, K10, K12, (d) K9, K11, K13.  The kernel rows include fp16
    at (a)'s shape (distances in fp32, exact as bf16's).  Each K9 row
    carries its µs a step (ms·1e3 / (S - 1)), its plan (``fps_plan``:
    cluster, threads, points a thread), the SMs it runs on and its
@@ -119,7 +126,7 @@ Phases (any failure exits non-zero; nothing is caught):
    phase 3), then K7 ssd_scan and K8 ssd_scan_pipelined (every ring depth
    that fits) against the plain recurrence ``ssd_scan_ref`` on the card,
    fp32, atol 5e-4 / rtol 1e-3 (the reference's tests/test_kernels.py:86):
-   K7 at the 40-token prefill of run (s3) (BT=4, H=80, S=40, P=64, N=128:
+   K7 at the one-chunk prefill of run (s3) (BT=4, H=80, S=16, P=64, N=128:
    the one shape the path gives it), both kernels at the 512-token serving
    shape (BT=4, H=80, S=512: four prompts through mamba2-2.7b, each batch
    row with its own B and C), K8 at every depth that fits; S=1, S below
@@ -136,15 +143,16 @@ Phases (any failure exits non-zero; nothing is caught):
 7. ssm serve: mamba2-2.7b (64 layers, d 2560, 80 heads of 64, state 128,
    vocab 50280; random weights from seed 0), each run with launch counts
    zeroed just before and read just after and required exact: every
-   prefill launches K8 (512 tokens) or K7 (40 tokens) once a layer and K1
-   2·64+1 times, every decode step K1 2·64+1 times, nothing else.
+   prefill launches the scan kernel its record names (K8 at 512 tokens,
+   K7 for one 16-position chunk) once a layer and K1 2·64+1 times, every
+   decode step K1 2·64+1 times, nothing else.
    (s1) fp32, 4 prompts of 512 tokens then 4 teacher-forced decode steps,
    logits of backend "cuda" within 1e-3·max|logit| of backend "torch";
    (s2) bf16 (the config as it stands) through ``ServeEngine.generate``,
    4 × 512 tokens, 32 new: TTFT, ITL, tokens/s, then the prefill logits of
    the first 1, 2, 4, ..., 64 blocks on backends "cuda" and "torch" in
    bf16, each against backend "torch" in fp32 on the same weights
-   (``bf16_depth_sweep``); (s3) the same engine, 4 × 40 tokens, 8 new (one
+   (``bf16_depth_sweep``); (s3) the same engine, 4 × 16 tokens, 8 new (one
    chunk: K7).
 8. int8 kernels: K4 int8_matmul and K5 int8_matmul_pipelined, each forced,
    at llama110m's four projection shapes (K, N) in {(768, 768), (768,
@@ -196,16 +204,37 @@ Phases (any failure exits non-zero; nothing is caught):
    seed 0) through ``StaticBatchEngine(quantize=True)`` on backend "cuda":
    the serve phase's 16 Poisson requests in static groups of 8 padded to
    buckets 16..512.  Launch counts zeroed just before and read just after,
-   exact: K1 25 per prefill and per decode step, K2 (buckets <= 64) or K3
-   12 per prefill, nothing else.  Each group's first-token logits against
+   exact: K1 25 per prefill and per decode step, the attention kernel its
+   group's record names (K2 or K3) 12 per prefill, nothing else.  Each group's first-token logits against
    backend "torch" on the same dequantized weights (atol = rtol = 1e-4).
 10. int8 GEMM (i2): every projection of the 12 layers (wq, wk, wv, wo,
    wi_gate, wi_up, mlp wo) and the unembedding, from (i1)'s int8 tree laid
    out as (N, K), through ``LoweringConfig("cuda").int8_matmul`` at M = 512
-   and M = 8: exactly 85 K4 launches at M = 512 and 85 K5 launches at M = 8,
-   each output against the plain version at phase 8's fp32 tolerance;
-   the card's µs for the 85 calls back to back and the host's µs a call
-   (queued behind a GPU spin), and their wall time.
+   and M = 8: exactly one launch a projection of the kernel its record
+   names (the cost model: K4 at M = 512, K5 at M = 8), each output against
+   the plain version at phase 8's fp32 tolerance; the card's µs for the
+   85 calls back to back and the host's µs a call (queued behind a GPU
+   spin), and their wall time.
+11. dispatch: the process-wide compile cache after the path phases
+   (``Dispatcher.stats``: keys, matched, isax, pipelined, hit rate; each
+   record's kernel, plan, ring depth and the model's gain); the 11 golden
+   keys of ``tests/golden/dispatch_records.json`` on backend cuda, each
+   with the golden impl, matched ISAXes and target; each trace spec's
+   e-graph saturation in host ms (a fresh dispatcher); the median host µs
+   of a cached ``lower()`` at the serve phase's keys (``SERVE_KEYS``).
+12. evaluate: each of the seven target ISAXes' trace programs compiled
+   (``compile_program``) and the offloaded program evaluated with the
+   intrinsics bound to the CUDA kernels, against the software program
+   under the numpy evaluators (``targets/cases.py``: exact for indices
+   and the max-pool, atol 1e-5 / rtol 1e-4 for floats), with the kernels
+   each launched.
+13. route: at ROUTE_CASES (the shapes where K2/K3, K10/K11, K12/K13,
+   K7/K8 and K4/K5 were measured against each other, the serve buckets at
+   batch 1 and 8, (i2)'s projections), both kernels of the pair at their
+   plans, each output held to the plain version, then timed cold in turns
+   (A B B A, twice): the model's pick, its predicted µs of each, both
+   medians, ``pick_is_faster`` and ``pick_within_3pct``.  A timing
+   disagreement is printed, not raised.
 
 Prints the seconds each phase took (``{"phase": "wall", ...}``), a
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -232,7 +261,6 @@ PEAK_FLOPS = {"float32": 67e12,      # fp32 on the CUDA cores
 TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2e-2, 2e-2),
        "float16": (2e-2, 2e-2)}
 BUCKETS = (16, 32, 64, 128, 256, 512)
-SERVE_KERNELS = ("rmsnorm", "flash_attention", "flash_attention_pipelined")
 SSD_TOL = (5e-4, 1e-3)
 # the reference's int8 GEMM tolerance (tests/test_kernels.py:69); the
 # kernels' fp32 rows are held tighter, see int8_tol
@@ -251,6 +279,13 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def scheduled(lw, op: str, shape, dtype):
+    """The kernel the compile record of one op instance names (its
+    schedule's), or None where the record keeps the plain version."""
+    rec = lw.lower(op, shape, dtype)
+    return rec.schedule["kernel"] if rec.impl == "isax" else None
 
 
 def device_ms(fn, iters: int, spin: int = 200_000_000) -> float:
@@ -522,8 +557,11 @@ def kernel_phase() -> list[dict]:
                            "fully_masked_rows"))
     rows.append(flash_case("flash_attention", 256, 256, 12, 12, "bfloat16",
                            gen))
-    rows.append(flash_case("flash_attention", 64, 64, 12, 12, "float32", gen,
-                           B=8))             # a static group of 8 at 64
+    # (i1)'s static groups of 8 at buckets 64, 128 and 512: K2's since the
+    # cost model; at 512 its largest shape on the main path
+    for S in (64, 128, 512):
+        rows.append(flash_case("flash_attention", S, S, 12, 12, "float32",
+                               gen, B=8))
     for S in (256, 512):
         for depth in (2, 3, 4):
             rows.append(flash_case("flash_attention_pipelined", S, S, 12, 12,
@@ -536,7 +574,8 @@ def kernel_phase() -> list[dict]:
                            "float32", gen, "fully_masked_rows", depth=2))
     rows.append(flash_case("flash_attention_pipelined", 256, 256, 12, 12,
                            "bfloat16", gen, depth=4))
-    # run (i1)'s static groups of 8 at buckets 128 (depth 2) and 512 (4)
+    # (i1)'s static groups of 8 at buckets 128 and 512, where K3 ran
+    # before the cost model sent them to K2
     rows.append(flash_case("flash_attention_pipelined", 128, 128, 12, 12,
                            "float32", gen, depth=2, B=8))
     rows.append(flash_case("flash_attention_pipelined", 512, 512, 12, 12,
@@ -585,7 +624,6 @@ def serve_phase() -> dict:
     from repro_torch.compile.config import LoweringConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import BLOCK_K
     from repro_torch.models.registry import get_model
     from repro_torch.serve.engine import ContinuousEngine
     from repro_torch.serve.scheduler import (make_poisson_workload,
@@ -610,22 +648,20 @@ def serve_phase() -> dict:
     torch.cuda.synchronize()
     launches = _build.launch_counts()
 
-    for name in SERVE_KERNELS:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} never launched on the main "
-                                 f"path: {launches}")
     # every norm of every prefill and decode step is K1; each prefill layer
-    # runs K2 when its bucket is one 64-key tile and K3 when it is more;
-    # no other kernel runs
+    # runs the attention kernel its bucket's compile record names (K2 or
+    # K3); no other kernel runs
     L = cfg.n_layers
-    n_k3 = sum(-(-pick_bucket(r.prompt_len, BUCKETS) // BLOCK_K) >= 2
-               for r in reqs)
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
     want = {n: 0 for n in launches}
-    want.update({"rmsnorm": (2 * L + 1) * (len(reqs) + stats.decode_steps),
-                 "flash_attention": L * (len(reqs) - n_k3),
-                 "flash_attention_pipelined": L * n_k3})
+    want["rmsnorm"] = (2 * L + 1) * (len(reqs) + stats.decode_steps)
+    for r in reqs:
+        b = pick_bucket(r.prompt_len, BUCKETS)
+        want[scheduled(eng.lowering, "attention", (1, b, H, K, b, hd),
+                       torch.float32)] += L
     if launches != want:
-        raise AssertionError(f"launch counts {launches} != expected {want}")
+        raise AssertionError(f"launch counts {launches} != the records' "
+                             f"{want}")
     for r in reqs:
         if (len(r.out_tokens) != r.max_new_tokens
                 or not all(0 <= t < cfg.vocab for t in r.out_tokens)):
@@ -828,7 +864,7 @@ def fps_design(B: int, N: int, dtype: str, sms: int, plan=None) -> dict:
     registers and spills (its build log)."""
     from repro_torch.kernels.pipeline import fps_plan
     cluster, threads, ppt = plan or fps_plan(B, N)
-    tag = (f"fps_kernelI{_MANGLED_T[dtype]}Li{threads}ELi{ppt}"
+    tag = (f"fps_kernelI{mangled_t(dtype)}Li{threads}ELi{ppt}"
            f"ELb{int(cluster > 1)}EE")
     hits = [v for k, v in ptxas_report("fps").items() if tag in k]
     if len(hits) != 1:
@@ -867,7 +903,7 @@ def ball_design(xyz, centers, k: int, r: float, idx, depth: int = 0,
         B, N, M, k, xyz.element_size(), depth)
     lib = "ball_query_pipelined" if depth else "ball_query"
     tag = (f"{'ball_pipelined_kernel' if depth else 'ball_query_kernel'}"
-           f"I{_MANGLED_T[dtype]}Li{cpw}EE")
+           f"I{mangled_t(dtype)}Li{cpw}EE")
     hits = [v for name, v in ptxas_report(lib).items() if tag in name]
     if len(hits) != 1:
         raise AssertionError(f"{tag}: {len(hits)} kernels in the build log")
@@ -939,19 +975,8 @@ def group_library_ms(f, idx, want, case: str) -> float:
 def group_ptxas(kernel: str, dtype: str, plan, C: int) -> tuple[int, int]:
     """Registers and spill-store bytes of the K12 or K13 instantiation
     that ``plan`` launches, from the build log."""
-    import torch
-    itemsize = torch.empty((), dtype=getattr(torch, dtype)).element_size()
-    if kernel == "group_aggregate":
-        from repro_torch.kernels.pipeline import group_lanes
-        vec = (C * itemsize) % 16 == 0
-        tag = (f"group_kernelI{_MANGLED_T[dtype]}Lb{int(vec)}E"
-               f"Li{group_lanes(C, itemsize)}EE")
-    else:
-        tag = f"group_tiled_kernelI{_MANGLED_T[dtype]}Li{plan[1] * itemsize // 16}EE"
-    hits = [v for name, v in ptxas_report(kernel).items() if tag in name]
-    if len(hits) != 1:
-        raise AssertionError(f"{tag}: {len(hits)} kernels in the build log")
-    return hits[0]
+    from repro_torch.pointcloud.kernels import group_ptxas as ptxas
+    return ptxas(kernel, dtype, C, plan)
 
 
 def group_design(kernel: str, f, idx, plan=None) -> dict:
@@ -1161,7 +1186,6 @@ def ball_sweep_phase() -> None:
     import torch
     from repro_torch.kernels import pipeline as pl
     from repro_torch.pointcloud import kernels as pck
-    from repro_torch.pointcloud import ops as pcops
     from repro_torch.pointcloud import ref as pcref
     for name, (B, N, M, k, r) in BALL_SWEEP.items():
         xyz, centers = ball_sweep_inputs(name)
@@ -1176,7 +1200,7 @@ def ball_sweep_phase() -> None:
                 return pck.ball_query_pipelined(xyz, centers, r, k,
                                                 depth=plan[3], _plan=plan)
             route = (0 if kernel == "ball_query"
-                     else min(max(pl.DEPTHS), pcops.ball_steps(N)))
+                     else min(max(pl.DEPTHS), -(-N // pl.BALL_TILE)))
             times = {}
             for depth in ((0,) if route == 0 else pl.DEPTHS):
                 for plan in pl.ball_plans(B, N, M, k, 4, depth):
@@ -1266,9 +1290,8 @@ def group_sweep_phase() -> None:
     import numpy as np
     import torch
     from repro_torch.kernels import pipeline as pl
-    from repro_torch.kernels.pipeline import use_pipeline
+    from repro_torch.kernels import schedule
     from repro_torch.pointcloud import kernels as pck
-    from repro_torch.pointcloud import ops as pcops
     from repro_torch.pointcloud import ref as pcref
     kernels = (("group_aggregate", 0, pck.group_aggregate),
                ("group_aggregate_pipelined", None,
@@ -1322,9 +1345,7 @@ def group_sweep_phase() -> None:
                              if p[1] * it == sb), default=None)
                     for sb in pl.GROUP_SLICE_BYTES}
             print(json.dumps(line))
-        routed = ("group_aggregate_pipelined"
-                  if use_pipeline(pcops.group_steps(f, idx))
-                  else "group_aggregate")
+        routed = schedule.group_schedule(B, N, M, k, C, it, sms)["kernel"]
         print(json.dumps({"phase": "group_sweep", "shape": name,
                           "fastest_us": fastest, "routed": routed,
                           "routed_is_faster": fastest[routed]
@@ -1362,20 +1383,17 @@ def group_sweep_phase() -> None:
 
 
 def pointcloud_path_phase() -> dict:
-    """Runs (a), (b), (c) of the set-abstraction stage; returns the launch
-    counts summed over the three."""
+    """Runs (a)-(d) of the set-abstraction stage; returns the launch counts
+    summed over the four."""
     import torch
     from repro_torch.compile.config import LoweringConfig
     from repro_torch.kernels import _build
     from repro_torch.launch.pointcloud import set_abstraction
 
-    runs = (("a", "a", None), ("b", "b", None), ("c", "a", False))
-    # K13 where its plan copies two feature tiles or more: (a) 16 tiles of
-    # 256 rows, (b) 4; (c) forces the baselines
-    want_kernels = {
-        "a": {"fps", "ball_query_pipelined", "group_aggregate_pipelined"},
-        "b": {"fps", "ball_query_pipelined", "group_aggregate_pipelined"},
-        "c": {"fps", "ball_query", "group_aggregate"}}
+    # (a) and (b) run the kernels their compile records name; (c) forces
+    # the baselines (K10, K12), (d) the pipelined kernels (K11, K13)
+    runs = (("a", "a", None), ("b", "b", None), ("c", "a", False),
+            ("d", "a", True))
     cuda, plain = LoweringConfig("cuda"), LoweringConfig("torch")
     total = {n: 0 for n in _build.KERNELS}
     for label, shape, pipelined in runs:
@@ -1406,7 +1424,15 @@ def pointcloud_path_phase() -> dict:
                                      f"differs from backend torch")
         if not torch.isfinite(got[3]).all():
             raise AssertionError(f"pointcloud run ({label}): non-finite")
-        expect = {n: int(n in want_kernels[label]) for n in _build.KERNELS}
+        if pipelined is None:
+            kernels = {"fps", scheduled(cuda, "ball_query", (B, N, M, k),
+                                        xyz.dtype),
+                       scheduled(cuda, "group_aggregate", (B, N, M, k, C),
+                                 feats.dtype)}
+        else:
+            kernels = {"fps", "ball_query" + "_pipelined" * pipelined,
+                       "group_aggregate" + "_pipelined" * pipelined}
+        expect = {n: int(n in kernels) for n in _build.KERNELS}
         if launches != expect:
             raise AssertionError(f"pointcloud run ({label}): launch counts "
                                  f"{launches} != expected {expect}")
@@ -1423,8 +1449,7 @@ def pointcloud_path_phase() -> dict:
         if total[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"point-cloud path: {total}")
-    print(f"pointcloud: runs (a), (b), (c) match backend torch; launches "
-          f"{total}")
+    print(f"pointcloud: runs (a)-(d) match backend torch; launches {total}")
     return total
 
 
@@ -1442,7 +1467,7 @@ SSD_FORMULA = ("bytes = itemsize*(2*BT*H*S*P + BT*H*S + 2*BT*S*N) + 4*H "
                "output (the chunked form does both and its causal Q x Q "
                "products on top); one bound for K7 and K8")
 SSD_MAIN = (4, 80, 512, 64, 128)     # BT, H, S, P, N of the serving prefill
-SSD_SHORT = (4, 80, 40, 64, 128)     # the 40-token prefill of run (s3): K7
+SSD_SHORT = (4, 80, 16, 64, 128)     # run (s3): a one-chunk prompt, K7
 
 
 def ssd_inputs(BT, H, S, P, N, seed, strong=False, dtype="float32"):
@@ -1463,33 +1488,18 @@ def ssd_inputs(BT, H, S, P, N, seed, strong=False, dtype="float32"):
         torch.float32 if i == 2 else dt) for i, a in enumerate(arrays)]
 
 
-_PTXAS: dict = {}
-
-
 def ptxas_report(lib: str) -> dict:
     """Registers and spill-store bytes of every kernel of library ``lib``,
-    by mangled name, from its build log (nvcc -Xptxas -v)."""
-    if lib not in _PTXAS:
-        from repro_torch.kernels import _build
-        log = _build._lib_path(lib).with_suffix(".log").read_text()
-        out, name, spill = {}, None, 0
-        for line in log.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                name = m.group(1)
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m:
-                spill = int(m.group(1))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and name:
-                out[name] = (int(m.group(1)), spill)
-                name, spill = None, 0
-        _PTXAS[lib] = out
-    return _PTXAS[lib]
+    by mangled name, from its build log (``_build.ptxas_report``)."""
+    from repro_torch.kernels import _build
+    return _build.ptxas_report(lib)
 
 
-_MANGLED_T = {"float32": "f", "bfloat16": "13__nv_bfloat16",
-              "float16": "6__half"}
+def mangled_t(dtype: str) -> str:
+    """How a kernel template's type argument ``dtype`` is spelt in ptxas's
+    mangled names."""
+    from repro_torch.kernels import _build
+    return _build.MANGLED_T[dtype]
 
 
 def ssd_design(kernel: str, dtype: str, P: int, N: int,
@@ -1499,7 +1509,7 @@ def ssd_design(kernel: str, dtype: str, P: int, N: int,
     (its build log)."""
     import torch
     from repro_torch.kernels.ssd_scan import CHUNK, blocks_per_sm
-    tag = f"{kernel}_kernelI{_MANGLED_T[dtype]}E"
+    tag = f"{kernel}_kernelI{mangled_t(dtype)}E"
     hits = [v for k, v in ptxas_report(kernel).items() if tag in k]
     if len(hits) != 1:
         raise AssertionError(f"{tag}: {len(hits)} kernels in the build log")
@@ -1609,6 +1619,16 @@ def ssm_kernel_phase() -> list[dict]:
     return rows
 
 
+def ssd_kernel(lw, cfg, S: int, BT: int = 4) -> str:
+    """The scan kernel (K7 or K8) the compile record of a prefill of BT
+    prompts of S tokens names (the model lowers the scan in fp32)."""
+    import torch
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    return scheduled(lw, "ssd_scan", (BT, S, d_in // s.head_dim, s.head_dim,
+                                      s.d_state), torch.float32)
+
+
 def _ssm_launches_ok(run: str, launches: dict, scan: str, n_prefills: int,
                      n_steps: int, L: int) -> None:
     want = {n: 0 for n in launches}
@@ -1707,8 +1727,9 @@ def ssm_serve_phase() -> dict:
     got = teacher_forced(cuda_m)
     torch.cuda.synchronize()
     launches = _build.launch_counts()
-    _ssm_launches_ok("s1", launches, "ssd_scan_pipelined", 1,
-                     forced.shape[1], L)
+    _ssm_launches_ok("s1", launches, ssd_kernel(LoweringConfig("cuda"), cfg,
+                                                512),
+                     1, forced.shape[1], L)
     for n, c in launches.items():
         total[n] += c
     want = teacher_forced(plain_m)
@@ -1730,15 +1751,15 @@ def ssm_serve_phase() -> dict:
     eng = ServeEngine(cfg, seed=0, lowering=LoweringConfig("cuda"),
                       device="cuda", max_len=512 + 32)
     eng.generate({"tokens": prompts}, 2)                            # warm
-    for run, (plen, n_new, scan) in (("s2", (512, 32, "ssd_scan_pipelined")),
-                                     ("s3", (40, 8, "ssd_scan"))):
+    for run, (plen, n_new) in (("s2", (512, 32)), ("s3", (SSD_SHORT[2], 8))):
         p = prompts[:, :plen]
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         toks, stats = eng.generate({"tokens": p}, n_new)
         torch.cuda.synchronize()
         launches = _build.launch_counts()
-        _ssm_launches_ok(run, launches, scan, 1, n_new - 1, L)
+        _ssm_launches_ok(run, launches, ssd_kernel(eng.lowering, cfg, plen),
+                         1, n_new - 1, L)
         for n, c in launches.items():
             total[n] += c
         if toks.shape != (4, n_new) or not ((toks >= 0)
@@ -1841,7 +1862,7 @@ def int8_design(kernel: str, dtype: str, plan) -> dict:
     spill bytes (the build log)."""
     fmt, fields = _INT8_TEMPLATE[kernel]
     tile_m, tile_n, split, depth = plan
-    tag = fmt.format(t=_MANGLED_T[dtype], **fields(tile_m, tile_n))
+    tag = fmt.format(t=mangled_t(dtype), **fields(tile_m, tile_n))
     hits = [v for k, v in ptxas_report(kernel).items() if tag in k]
     if len(hits) != 1:
         raise AssertionError(f"{tag}: {len(hits)} kernels in the build log")
@@ -2080,7 +2101,7 @@ def int8kv_design(dtype: str, hd: int, plan) -> dict:
     """The plan fields of a K6 row and its instantiation's registers and
     spill bytes (the build log)."""
     from repro_torch.kernels.flash_attention import padded_head_dim
-    tag = f"int8kv_kernelILi{padded_head_dim(hd)}E{_MANGLED_T[dtype]}E"
+    tag = f"int8kv_kernelILi{padded_head_dim(hd)}E{mangled_t(dtype)}E"
     hits = [v for k, v in ptxas_report("flash_attention_int8kv").items()
             if tag in k]
     if len(hits) != 1:
@@ -2307,9 +2328,12 @@ def int8_serve_phase():
 
     buckets = [t.shape[1] for t, _ in prefills]
     want = {n: 0 for n in launches}
-    want.update({"rmsnorm": (2 * L + 1) * (len(prefills) + stats.decode_steps),
-                 "flash_attention": L * sum(b <= 64 for b in buckets),
-                 "flash_attention_pipelined": L * sum(b > 64 for b in buckets)})
+    want["rmsnorm"] = (2 * L + 1) * (len(prefills) + stats.decode_steps)
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+    for tokens, _ in prefills:
+        B, b = tokens.shape
+        want[scheduled(eng.lowering, "attention", (B, b, H, K, b, hd),
+                       torch.float32)] += L
     if launches != want:
         raise AssertionError(f"int8 run (i1): launch counts {launches} != "
                              f"expected {want}")
@@ -2389,7 +2413,7 @@ def int8_gemm_phase(qtree) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     total = {n: 0 for n in _build.KERNELS}
-    for M, kernel in ((512, "int8_matmul"), (8, "int8_matmul_pipelined")):
+    for M in (512, 8):
         xs = {K: torch.randn((M, K), generator=gen, device="cuda")
               for K in {w.shape[1] for _, w, _ in projections}}
         for name, wq, scale in projections:       # warm: first-call set-up
@@ -2417,10 +2441,12 @@ def int8_gemm_phase(qtree) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         want = {n: 0 for n in launches}
-        want[kernel] = len(projections)
+        for _, wq, _ in projections:
+            want[scheduled(lw, "int8_matmul", (M, wq.shape[1], wq.shape[0]),
+                           torch.float32)] += 1
         if launches != want:
             raise AssertionError(f"int8 run (i2) M={M}: launch counts "
-                                 f"{launches} != expected {want}")
+                                 f"{launches} != the records' {want}")
         worst = 0.0
         for (name, wq, scale), got in zip(projections, outs):
             N, K = wq.shape
@@ -2437,21 +2463,275 @@ def int8_gemm_phase(qtree) -> dict:
                           "device_us_85_gemms": device_us,
                           "host_us_a_call": host_us,
                           "max_abs_err_vs_plain": worst}))
-    print(f"int8 gemm (i2): 85 projections at M=512 through K4 and at M=8 "
-          f"through K5 match the plain version; launches {total}")
+    print(f"int8 gemm (i2): 85 projections at M=512 and M=8 through the "
+          f"kernels their records name match the plain version; launches "
+          f"{total}")
     return total
+
+
+# -- the compiler's phases: dispatch, evaluate, route ---------------------------
+
+GOLDEN_RECORDS = ROOT / "tests" / "golden" / "dispatch_records.json"
+#: Lowering keys the serve phase's engine looks up (llama110m: 12 heads of
+#: 64, d 768, 8 slots, pages of 16, buckets 16..512): a decode step's norms,
+#: its paged attention and its GEMMs, and a bucket's prefill.
+SERVE_KEYS = (("rmsnorm", (8, 768)), ("attention_paged", (8, 1, 12, 12, 544, 64)),
+              ("matmul", (8, 768, 2048)), ("attention", (1, 128, 12, 12, 128, 64)),
+              ("rmsnorm", (128, 768)))
+
+
+def dispatch_phase() -> None:
+    """The compile cache after the path phases: its stats (keys, matched,
+    isax, pipelined, hit rate) and records (each key's kernel, plan and
+    ring depth); the 11 golden keys on backend cuda against their golden
+    impl, matched and target; each trace spec's saturation (host ms, a
+    fresh dispatcher); the median host µs of a cached lookup at the serve
+    phase's keys."""
+    import torch
+    from repro_torch.compile import (Dispatcher, LoweringConfig, OpKey,
+                                     get_dispatcher)
+    from repro_torch.targets import default_registry
+    st = get_dispatcher().stats()
+    records = [{k: r[k] for k in ("op", "shape", "dtype", "backend", "impl",
+                                  "hits")}
+               | ({k: r["schedule"][k] for k in ("kernel", "pipelined",
+                                                 "plan", "depth",
+                                                 "pipeline_gain")}
+                  if r["schedule"] and "kernel" in r["schedule"] else {})
+               for r in st["ops"]]
+    print(json.dumps({"phase": "dispatch",
+                      **{k: v for k, v in st.items() if k != "ops"},
+                      "records": records}))
+    golden = json.loads(GOLDEN_RECORDS.read_text())
+    disp = Dispatcher()
+    for g in golden:
+        rec = disp.lower(OpKey(g["op"], tuple(g["shape"]), g["dtype"], "cuda"))
+        got = (rec.impl, list(rec.matched), rec.target)
+        if got != (g["impl"], g["matched"], g["target"]):
+            raise AssertionError(f"golden key {g['op']}{tuple(g['shape'])}: "
+                                 f"{got} != the golden record's")
+    saturation_ms = {}
+    fresh = Dispatcher()
+    for spec in default_registry().specs():
+        if spec.ops:
+            t0 = time.perf_counter()
+            fresh.match_outcome(spec)
+            saturation_ms[spec.name] = (time.perf_counter() - t0) * 1e3
+    lw = LoweringConfig("cuda")
+    lookup_us, key_us = {}, {}
+    for op, shape in SERVE_KEYS:
+        lw.lower(op, shape, torch.float32)
+        runs, kruns = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                lw.lower(op, shape, torch.float32)
+            runs.append((time.perf_counter() - t0) * 1e6 / 2000)
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                lw.dispatcher.lower(OpKey(op, shape, "float32", "cuda"))
+            kruns.append((time.perf_counter() - t0) * 1e6 / 2000)
+        lookup_us[f"{op}{shape}"] = sorted(runs)[2]
+        key_us[f"{op}{shape}"] = sorted(kruns)[2]
+    print(json.dumps({"phase": "dispatch", "golden_keys": len(golden),
+                      "golden_ok": True, "saturation_host_ms": saturation_ms,
+                      "cached_lookup_host_us": lookup_us,
+                      "cached_lookup_host_us_median":
+                          sorted(lookup_us.values())[len(lookup_us) // 2],
+                      "opkey_lookup_host_us": key_us}))
+    print(f"dispatch: {st['n_keys']} keys, {st['matched_keys']} matched, "
+          f"{st['isax_keys']} isax, {st['pipelined_keys']} pipelined, hit "
+          f"rate {st['hit_rate']:.4f}; golden keys OK; a cached lookup "
+          f"{sorted(lookup_us.values())[len(lookup_us) // 2]:.3f} µs")
+
+
+#: The kernels an ISAX's intrinsic may reach on the card (one of a pair).
+EVAL_KERNELS = {
+    "flash_attention": {"flash_attention", "flash_attention_pipelined"},
+    "int8_matvec": {"int8_matmul", "int8_matmul_pipelined"},
+    "ssd_step": {"ssd_scan", "ssd_scan_pipelined"},
+    "rmsnorm": {"rmsnorm"}, "fps": {"fps"},
+    "ball_query": {"ball_query", "ball_query_pipelined"},
+    "group_agg": {"group_aggregate", "group_aggregate_pipelined"}}
+
+
+def evaluate_phase() -> None:
+    """Each of the seven target ISAXes behind the e-graph's extraction on
+    the card: its trace program compiled (``compile_program``), the
+    offloaded program evaluated with the intrinsics bound to the CUDA
+    kernels, held to the software program under the numpy evaluators
+    (``targets/cases.py``: exact for indices and the max-pool, the
+    reference's atol 1e-5 / rtol 1e-4 for floats); the kernels it ran."""
+    import torch
+    from repro_torch.core.offload import compile_program, evaluate
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import kernel_intrinsics
+    from repro_torch.pointcloud.ops import pointcloud_intrinsics
+    from repro_torch.targets import cases, default_registry
+    reg = default_registry()
+    intrinsics = {**kernel_intrinsics("cuda"), **pointcloud_intrinsics("cuda")}
+    for kind, (isax, _, _) in cases.CASES.items():
+        prog = reg.spec_for_kind(kind).trace_program()
+        res = compile_program(prog, reg.isaxes(), case=kind)
+        if isax not in res.stats.matched_isaxes:
+            raise AssertionError(f"evaluate {kind}: {isax} not matched")
+        sw = cases.environment(kind)
+        hw = cases.copy_env(sw)
+        evaluate(prog, sw)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        evaluate(res.program, hw, intrinsics=intrinsics)
+        torch.cuda.synchronize()
+        ran = {n: c for n, c in _build.launch_counts().items() if c}
+        if not ran or not set(ran) <= EVAL_KERNELS[isax]:
+            raise AssertionError(f"evaluate {kind}: launches {ran}, want "
+                                 f"one of {EVAL_KERNELS[isax]}")
+        print(json.dumps({"phase": "evaluate", "trace": kind, "isax": isax,
+                          "matched": res.stats.matched_isaxes,
+                          "launches": ran,
+                          "max_abs_err": cases.compare(kind, sw, hw)}))
+
+
+#: Shapes at which the route phase times both kernels of a pair: the
+#: Motivation's (K2/K3 at batch 1, K10/K11 and K12/K13 at (a), (b), (b)
+#: bf16 and an SA2-like stage, K7/K8 at the SSM prefill), the serve buckets
+#: at batch 1 and 8, (i2)'s projections at both row counts, the 40-token
+#: prefill (the model moved it from K7 to K8) and K5/K4 at M = 8 in bf16.
+ROUTE_CASES = (
+    *[("attention", (B, S, 12, 12, S, 64), "float32")
+      for B in (1, 8) for S in (128, 256, 512)],
+    ("ball_query", "a", "float32"), ("ball_query", "b", "float32"),
+    ("group_aggregate", "a", "float32"), ("group_aggregate", "b", "float32"),
+    ("group_aggregate", "b-bf16", "bfloat16"),
+    ("group_aggregate", "sa2", "float32"),
+    ("ssd_scan", (4, 512, 80, 64, 128), "float32"),
+    ("ssd_scan", (4, 40, 80, 64, 128), "float32"),
+    *[("int8_matmul", (M, K, N), "float32")
+      for M in (8, 512) for K, N in ((768, 2048), (768, 32000))],
+    ("int8_matmul", (8, 768, 2048), "bfloat16"),
+)
+
+
+def route_inputs(op: str, shape, dtype: str, gen):
+    """(key shape, inputs, route call f(*inputs, pipelined=...), plain
+    version g(*inputs)) of one route case on the card."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.pointcloud import ops as pcops
+    from repro_torch.pointcloud import ref as pcref
+    dt = getattr(torch, dtype)
+    if op == "attention":
+        B, S, H, K, T, hd = shape
+        ins = [torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt),
+               *[torch.randn((B, T, K, hd), generator=gen,
+                             device="cuda").to(dt) for _ in range(2)],
+               flash_mask("causal", S, T)]
+        return (shape, ins,
+                lambda q, k, v, m, **kw: kops.flash_attention_gqa(
+                    q, k, v, m, sm_scale=hd ** -0.5, **kw),
+                lambda q, k, v, m: kref.flash_attention_ref(
+                    q, k, v, m, sm_scale=hd ** -0.5))
+    if op == "ball_query":
+        B, N, M, k, r = BALL_SWEEP[shape]
+        return ((B, N, M, k), list(ball_sweep_inputs(shape)),
+                lambda x, c, **kw: pcops.kernel_ball_query(x, c, r, k, **kw),
+                lambda x, c: pcref.ball_query_ref(x, c, r, k))
+    if op == "group_aggregate":
+        B, N, M, k, C, _, _ = GROUP_SWEEP[shape]
+        return ((B, N, M, k, C), list(group_sweep_inputs(shape)),
+                pcops.kernel_group_aggregate, pcref.group_aggregate_ref)
+    if op == "ssd_scan":
+        BT, S, H, P, N = shape
+        return (shape, ssd_inputs(BT, H, S, P, N, seed=1, dtype=dtype),
+                kops.ssd_scan, kref.ssd_scan_ref)
+    M, K, N = shape
+    ins = [torch.randn((M, K), generator=gen, device="cuda").to(dt),
+           torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
+                         dtype=torch.int8),
+           torch.rand((N,), generator=gen, device="cuda") * 0.01 + 0.001]
+    return shape, ins, kops.int8_matmul, kref.int8_matmul_ref
+
+
+def route_phase() -> None:
+    """At each ROUTE_CASES shape, both kernels of the pair at their plans
+    (the route forced each way), each output held to the plain version,
+    then timed cold in turns (A B B A, twice): the model's pick, its
+    predicted µs for each kernel, both medians, and whether the pick is the
+    faster (or within 3 %).  A timing disagreement is printed, not raised;
+    a wrong output fails."""
+    import numpy as np
+    import torch
+    from repro_torch.compile import LoweringConfig
+    from repro_torch.core.interface_model import H100_CLOCK_HZ
+    lw = LoweringConfig("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    summary = []
+    for op, shape, dtype in ROUTE_CASES:
+        key, ins, route, plain = route_inputs(op, shape, dtype, gen)
+        rec = lw.lower(op, key, getattr(torch, dtype))
+        sched = rec.schedule
+        want = plain(*ins)
+        flags = (False, True) if sched["pipe"] else (False,)
+        for flag in flags:
+            got = route(*ins, schedule=sched, pipelined=flag)
+            if op in ("ball_query", "group_aggregate"):
+                if not torch.equal(got, want):
+                    raise AssertionError(f"route {op} {shape} pipelined="
+                                         f"{flag}: differs from the plain "
+                                         f"version")
+                continue
+            tol = (int8_tol(*ins) if op == "int8_matmul" else
+                   {dtype: SSD_TOL} if op == "ssd_scan" else None)
+            _check(f"route {op} {shape} pipelined={flag}", got, want, dtype,
+                   tol)
+        times = {f: [] for f in flags}
+        for flag in (flags + flags[::-1]) * 2:
+            times[flag].append(cold_ms(
+                lambda *a, f=flag: route(*a, schedule=sched, pipelined=f),
+                ins) * 1e3)
+        med = {f: float(np.median(v)) for f, v in times.items()}
+        pick = sched["pipelined"]
+        line = {"phase": "route", "op": op, "shape": list(key),
+                "case": shape if isinstance(shape, str) else None,
+                "dtype": dtype, "pick": sched["kernel"],
+                "base": sched["base"]["kernel"],
+                "pipe": sched["pipe"] and sched["pipe"]["kernel"],
+                "plans": {"base": sched["base"]["plan"],
+                          "pipe": sched["pipe"] and sched["pipe"]["plan"]},
+                "predicted_us": {
+                    "base": sched["est_serial_cycles"] / H100_CLOCK_HZ * 1e6,
+                    "pipe": (sched["est_pipe_cycles"] / H100_CLOCK_HZ * 1e6
+                             if sched["pipe"] else None)},
+                "pipeline_gain": sched["pipeline_gain"],
+                "cold_us": {"base": med[False], "pipe": med.get(True)},
+                "cold_us_runs": {"base": times[False],
+                                 "pipe": times.get(True)}}
+        if sched["pipe"]:
+            line["pick_is_faster"] = med[pick] <= med[not pick]
+            line["pick_within_3pct"] = med[pick] <= 1.03 * med[not pick]
+        print(json.dumps(line))
+        summary.append((op, shape, dtype, line.get("pick_within_3pct")))
+    missed = [s for s in summary if s[3] is False]
+    print(f"route: {len(summary)} shapes, the pick within 3 % of the faster "
+          f"kernel at {len(summary) - len(missed)}; missed {missed}")
 
 
 def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
     """One entry per kernel: its main-path representative case (the
-    largest shape the main path gives it) and the largest fp32 error over
-    all its cases."""
+    largest shape the main path gives it; for K3 and K6, which no path
+    launches, their former or the reference's main case) and the largest
+    fp32 error over all its cases."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.pipeline import choose_depth, ssd_depth
     i1_depth = choose_depth(64, 4, 512 // 64)
     main_case = {"rmsnorm": "R=2048 d=5120 bfloat16",   # (s2)'s gate_norm
-                 "flash_attention": "S=64 T=64 H=12 K=12 hd=64 float32 causal",
                  # (i1)'s largest group: 8 prompts at bucket 512
+                 "flash_attention":
+                     "B=8 S=512 T=512 H=12 K=12 hd=64 float32 causal",
+                 # off the main path since the cost model: the
+                 # same group at choose_depth's ring, where it ran before
                  "flash_attention_pipelined":
                      "B=8 S=512 T=512 H=12 K=12 hd=64 float32 causal "
                      f"depth={i1_depth}",
@@ -2462,7 +2742,7 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                  "ball_query_pipelined": "a float32 depth=4",
                  "group_aggregate": "a float32",
                  "group_aggregate_pipelined": "b float32",
-                 "ssd_scan": "BT=4 H=80 S=40 P=64 N=128",
+                 "ssd_scan": "BT=4 H=80 S=16 P=64 N=128",
                  "ssd_scan_pipelined": "BT=4 H=80 S=512 P=64 N=128 "
                                        f"depth={ssd_depth(64, 128, 512)}",
                  # (i2)'s largest GEMM: the unembedding at each row count
@@ -2542,6 +2822,9 @@ def main() -> int:
     timed("int8kv_repeat", int8kv_repeat_phase)
     i1_launches, qtree = timed("int8_serve", int8_serve_phase)
     i2_launches = timed("int8_gemm", int8_gemm_phase, qtree)
+    timed("dispatch", dispatch_phase)
+    timed("evaluate", evaluate_phase)
+    timed("route", route_phase)
     runs = (launches, pc_launches, ssm_launches, i1_launches, i2_launches)
     launches = {n: sum(d.get(n, 0) for d in runs)
                 for n in set().union(*runs)}

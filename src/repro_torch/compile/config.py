@@ -1,172 +1,139 @@
-"""``LoweringConfig``: which implementation each hot op of the model runs.
+"""``LoweringConfig``: the backend/dispatch handle threaded through models
+and engines.
 
-Two backends:
+Backends (the reference's in brackets):
 
-* ``"torch"`` — the plain PyTorch versions everywhere (the counterpart of
-  the reference's ``xla`` backend);
-* ``"cuda"`` — the hand-written kernels wherever the reference extracts an
-  ISAX (the counterpart of ``pallas``).  On CPU tensors the kernel wrappers
-  compute their plain versions, so this backend also runs on the CPU.
+* ``"torch"`` (``xla``) — the plain PyTorch versions everywhere;
+* ``"torch_chunked"`` (``xla_chunked``) — the attention family's online
+  softmax over key chunks in plain torch ops (``layers._sdpa_chunked``);
+* ``"cuda"`` (``pallas``, the default) — the hand-written kernels wherever
+  the e-graph engine extracts an ISAX and the op's scheduler takes the
+  shape.  On CPU tensors the kernel routes compute their plain versions,
+  so this backend also runs on the CPU.
 
-Until the reference's e-graph dispatch engine is ported, ``lower`` is a
-fixed table that reproduces the reference's decisions for the dense, the
-SSM and the point-cloud ops:
+The backend states a preference; the dispatcher (``compile/dispatch.py``)
+decides per (op, shape, dtype) whether the e-graph pipeline matched the
+op's ISAX and what the H100 schedule is, and records it.  The environment
+(``REPRO_ATTENTION_IMPL``, else ``REPRO_BACKEND``) is read in exactly one
+place — this constructor — and only when no backend is given; it may name
+a port backend or the reference's (``xla`` → torch, ``xla_chunked`` →
+torch_chunked, ``pallas`` and ``pallas_interpret`` → cuda).
 
-Every kernel takes fp32, bf16 and fp16, as the reference's do:
-
-* ``rmsnorm`` → the kernel at every shape;
-* ``attention`` / ``attention_decode`` / ``attention_paged`` with S ≥ 8 →
-  the flash kernel, for H a multiple of K and any head dim up to 256 (the
-  widest instantiation); a head dim above 256 takes the reference, a
-  stated deviation (the reference's kernel takes any);
-* any of them with S < 8 (a degenerate query tile: decode) → the reference;
-* ``matmul`` → the reference (the negative control: no ISAX for a GEMM);
-* ``int8_matmul`` (M, K, N) → the kernel at every shape (the reference's
-  ``down_pow2`` always finds a dividing tile; the port's kernels take any
-  M, N, K);
-* ``ssd_scan`` → the kernel at every sequence length (the reference rounds
-  its chunk down to a power of two that divides S; the port's kernels take
-  any S) and at any P and N whose (N, P) fp32 state and chunk fit one
-  block's shared memory (``ssd_tileable``; P = N = 256 does not);
-* ``fps`` → the kernel unless asked for more samples than points;
-* ``ball_query`` / ``group_aggregate`` → the kernel unless the reference
-  cannot tile the shape (``pointcloud.ops.tileable``).
-
-The point-cloud fallbacks are ``pointcloud.ops.fallback``, which the
-point-cloud entry points read too; where ``lower`` says ``isax`` the
-``LoweringConfig`` methods call the kernel routes directly.
-
-The reference also sends FPS to its plain version when the cloud exceeds
-the TPU's VMEM; the port's FPS kernel has no such ceiling.
+Deviations from the reference, stated by the schedulers as ``(None,
+why)``: a head dim above 256 (the widest flash kernel) and an SSD state
+that does not fit one block's shared memory take the plain version; FPS
+has no capacity ceiling (the reference's VMEM fallback does not apply).
 """
 
 from __future__ import annotations
 
-import dataclasses
+import os
+from typing import Optional
 
-from repro_torch.kernels import ops as kernel_ops
+from repro_torch.compile.dispatch import (CompileRecord, Dispatcher,
+                                          get_dispatcher)
 from repro_torch.kernels import ref as kernel_ref
-from repro_torch.kernels.flash_attention import DTYPE_CODES as FLASH_DTYPES
-from repro_torch.kernels.flash_attention import MAX_HEAD_DIM
-from repro_torch.kernels.int8_matmul import DTYPE_CODES as INT8_DTYPES
-from repro_torch.kernels.ops import flash_tileable
-from repro_torch.kernels.rmsnorm import DTYPE_CODES as RMSNORM_DTYPES
-from repro_torch.kernels.ssd_scan import DTYPE_CODES as SSD_DTYPES
-from repro_torch.kernels.ssd_scan import ssd_tileable
-from repro_torch.pointcloud import ops as pc_ops
 from repro_torch.pointcloud import ref as pc_ref
+from repro_torch.targets.registry import TargetRegistry
 
-VALID_BACKENDS = ("torch", "cuda")
-#: Fewest query rows the reference gives a flash kernel (targets/llm.py).
-MIN_QUERY_TILE = 8
-ATTENTION_OPS = ("attention", "attention_decode", "attention_paged")
-POINTCLOUD_TARGETS = {"fps": "fps", "ball_query": "ball_query",
-                      "group_aggregate": "group_agg"}
-#: Activation dtypes each op's kernels take (the point-cloud kernels share
-#: the flash kernels' codes).
-KERNEL_DTYPES = {"rmsnorm": RMSNORM_DTYPES, "int8_matmul": INT8_DTYPES,
-                 "ssd_scan": SSD_DTYPES,
-                 **{op: FLASH_DTYPES for op in (*ATTENTION_OPS,
-                                                *POINTCLOUD_TARGETS)}}
+VALID_BACKENDS = ("torch", "torch_chunked", "cuda")
+
+#: First env var set wins; read only by the LoweringConfig constructor.
+_ENV_VARS = ("REPRO_ATTENTION_IMPL", "REPRO_BACKEND")
+#: The reference's backend names, as the environment may give them.
+_REFERENCE_NAMES = {"xla": "torch", "xla_chunked": "torch_chunked",
+                    "pallas": "cuda", "pallas_interpret": "cuda"}
 
 
-@dataclasses.dataclass(frozen=True)
-class Lowering:
-    """One lowering decision: ``impl`` is ``"isax"`` (the kernel) or
-    ``"reference"`` (the plain version); ``note`` says why."""
+#: dtype (a ``torch.dtype`` or its name) → the name a key carries
+_DTYPE_NAMES: dict = {}
 
-    impl: str
-    note: str
+
+def dtype_name(dtype) -> str:
+    """``"float32"`` for ``torch.float32``, ``"float32"`` itself, ... (the
+    name a compile-cache key carries, as the reference's keys do)."""
+    name = _DTYPE_NAMES.get(dtype)
+    if name is None:
+        name = _DTYPE_NAMES[dtype] = str(dtype).removeprefix("torch.")
+    return name
 
 
 class LoweringConfig:
-    """Per-model/engine lowering policy; ``backend`` is ``"torch"`` or
-    ``"cuda"`` (the default)."""
+    """Per-model/engine lowering policy over the compile cache."""
 
-    def __init__(self, backend: str = "cuda"):
+    def __init__(self, backend: Optional[str] = None,
+                 dispatcher: Optional[Dispatcher] = None):
+        if backend is None:
+            for name in _ENV_VARS:
+                backend = os.environ.get(name)
+                if backend:
+                    break
+            backend = _REFERENCE_NAMES.get(backend, backend) or "cuda"
         if backend not in VALID_BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; "
                              f"valid: {VALID_BACKENDS}")
         self.backend = backend
-        # int8_matmul's lowering by (M, K, N, dtype): the decision is fixed
-        # for a shape, and the entry point is called once a projection
-        self._int8_isax: dict = {}
+        self.dispatcher = dispatcher or get_dispatcher()
+
+    @classmethod
+    def from_registry(cls, backend: Optional[str] = None, *,
+                      registry: Optional[TargetRegistry] = None,
+                      dispatcher: Optional[Dispatcher] = None
+                      ) -> "LoweringConfig":
+        """Build a lowering policy over an ISAX/domain registry: the global
+        one through the process-wide cache by default; ``registry=`` an
+        isolated one with a fresh cache; ``dispatcher=`` a given cache."""
+        if dispatcher is None:
+            dispatcher = (Dispatcher(registry) if registry is not None
+                          else get_dispatcher())
+        elif registry is not None and dispatcher.registry is not registry:
+            raise ValueError("pass either registry= or dispatcher=, not "
+                             "disagreeing both")
+        return cls(backend=backend, dispatcher=dispatcher)
+
+    @property
+    def registry(self) -> TargetRegistry:
+        """The ISAX/domain registry this policy dispatches against."""
+        return self.dispatcher.registry
 
     def __repr__(self):
         return f"LoweringConfig(backend={self.backend!r})"
 
-    def lower(self, op: str, shape, dtype) -> Lowering:
-        """The decision for one op instance.
+    def lower(self, op: str, shape, dtype) -> CompileRecord:
+        """The compile-cache record for one op instance.
 
         Shapes follow the reference's keys: ``rmsnorm`` (rows, d);
         attention ops (B, S, H, K, T, hd); ``matmul`` and ``int8_matmul``
-        (M, K, N); ``fps``
-        (B, N, S); ``ball_query`` (B, N, M, k); ``group_aggregate``
-        (B, N, M, k, C); ``ssd_scan`` (b, s, H, P, N).
-        """
-        if op == "rmsnorm":
-            target = "rmsnorm"
-        elif op in ATTENTION_OPS:
-            target = "flash_attention"
-        elif op in POINTCLOUD_TARGETS:
-            target = POINTCLOUD_TARGETS[op]
-        elif op in ("ssd_scan", "int8_matmul"):
-            target = op
-        elif op == "matmul":
-            return Lowering("reference", "no ISAX for a GEMM; torch.matmul")
-        else:
-            raise ValueError(f"unknown op {op!r}")
-        if self.backend == "torch":
-            return Lowering("reference", "backend 'torch'")
-        if dtype not in KERNEL_DTYPES[op]:
-            return Lowering("reference", f"no {target} kernel for {dtype}")
-        if op == "ssd_scan" and not ssd_tileable(shape[3], shape[4]):
-            return Lowering("reference", f"state P={shape[3]} N={shape[4]} "
-                                         f"does not fit one block's shared "
-                                         f"memory")
-        if op in ATTENTION_OPS:
-            B, S, H, K, T, hd = shape
-            if S < MIN_QUERY_TILE:
-                return Lowering("reference", f"degenerate query tile (S={S} "
-                                             f"< {MIN_QUERY_TILE})")
-            if hd > MAX_HEAD_DIM:
-                return Lowering("reference", f"head dim {hd} > "
-                                             f"{MAX_HEAD_DIM}, the widest "
-                                             f"flash kernel")
-            if not flash_tileable(H, K, hd, dtype):
-                return Lowering("reference", f"untileable shape H={H} K={K} "
-                                             f"hd={hd}")
-        if op in POINTCLOUD_TARGETS:
-            reason = pc_ops.fallback(op, shape)
-            if reason:
-                return Lowering("reference", reason)
-        return Lowering("isax", f"kernel {target}")
+        (M, K, N); ``ssd_scan`` (b, s, H, P, N); ``fps`` (B, N, S);
+        ``ball_query`` (B, N, M, k); ``group_aggregate`` (B, N, M, k, C).
+        ``dtype`` is a ``torch.dtype`` or its name.  A repeated lookup is
+        one probe of the dispatcher's records with the raw key tuple."""
+        return self.dispatcher.lower(
+            (op, shape if type(shape) is tuple else tuple(shape),
+             dtype_name(dtype), self.backend))
 
     # -- standalone op entry points (ops with no model host function) -----
 
     def int8_matmul(self, x, wq, scale):
-        """Quantized GEMM: x (M,K) float, wq (N,K) int8, scale (N,) fp32 →
-        (M,N) of x's dtype; K4/K5 where ``lower`` says ``isax`` (routed by
-        ``kernels.ops.int8_matmul``), the plain version where it says
-        ``reference``."""
-        key = (*x.shape, wq.shape[0], x.dtype)
-        isax = self._int8_isax.get(key)
-        if isax is None:
-            isax = self._int8_isax[key] = self.lower(
-                "int8_matmul", key[:3], x.dtype).impl == "isax"
-        if isax:
-            return kernel_ops.int8_matmul(x, wq, scale)
+        """Quantized GEMM: x (M,K) fp32/bf16/fp16, wq (N,K) int8, scale (N,)
+        fp32 → (M,N) of x's dtype: K4 or K5 as the record's schedule says
+        where ``lower`` says ``isax``, else the plain version."""
+        M, K = x.shape
+        rec = self.lower("int8_matmul", (M, K, wq.shape[0]), x.dtype)
+        if rec.impl == "isax":
+            return rec.kernel_fn(x, wq, scale, schedule=rec.schedule)
         return kernel_ref.int8_matmul_ref(x, wq, scale)
 
     # -- point-cloud vertical (fps → ball_query → group_aggregate) ---------
-    # ``pipelined`` overrides the baseline/pipelined choice where the
-    # kernel runs (None: the port's rule, ``kernels.pipeline.use_pipeline``).
+    # ``pipelined`` overrides the record's baseline/pipelined choice where
+    # the kernel runs (for tests and sweeps only).
 
     def fps(self, xyz, n_samples: int):
         """Farthest-point sampling: xyz (B,N,3) → indices (B,n_samples) i32."""
         B, N, _ = xyz.shape
-        if self.lower("fps", (B, N, n_samples), xyz.dtype).impl == "isax":
-            return pc_ops.kernel_fps(xyz, n_samples)
+        rec = self.lower("fps", (B, N, n_samples), xyz.dtype)
+        if rec.impl == "isax":
+            return rec.kernel_fn(xyz, n_samples)
         return pc_ref.fps_ref(xyz, n_samples)
 
     def ball_query(self, xyz, centers, radius: float, k: int, *,
@@ -175,9 +142,10 @@ class LoweringConfig:
         indices (B,M,k) i32."""
         B, N, _ = xyz.shape
         M = centers.shape[1]
-        if self.lower("ball_query", (B, N, M, k), xyz.dtype).impl == "isax":
-            return pc_ops.kernel_ball_query(xyz, centers, radius, k,
-                                            pipelined=pipelined)
+        rec = self.lower("ball_query", (B, N, M, k), xyz.dtype)
+        if rec.impl == "isax":
+            return rec.kernel_fn(xyz, centers, radius, k,
+                                 schedule=rec.schedule, pipelined=pipelined)
         return pc_ref.ball_query_ref(xyz, centers, radius, k)
 
     def group_aggregate(self, features, idx, *, pipelined: bool | None = None):
@@ -185,14 +153,57 @@ class LoweringConfig:
         (B,M,C)."""
         B, N, C = features.shape
         M, k = idx.shape[1], idx.shape[2]
-        if self.lower("group_aggregate", (B, N, M, k, C),
-                      features.dtype).impl == "isax":
-            return pc_ops.kernel_group_aggregate(features, idx,
-                                                 pipelined=pipelined)
+        rec = self.lower("group_aggregate", (B, N, M, k, C), features.dtype)
+        if rec.impl == "isax":
+            return rec.kernel_fn(features, idx, schedule=rec.schedule,
+                                 pipelined=pipelined)
         return pc_ref.group_aggregate_ref(features, idx)
 
 
-def lower(op: str, *, shape, dtype, backend: str = "cuda") -> Lowering:
-    """One-shot lowering decision (see ``LoweringConfig.lower``)."""
-    return LoweringConfig(backend).lower(op, tuple(int(s) for s in shape),
-                                         dtype)
+# ---------------------------------------------------------------------------
+# Process default (what model functions use when no LoweringConfig is
+# threaded in)
+# ---------------------------------------------------------------------------
+
+_DEFAULT: Optional[LoweringConfig] = None
+
+
+def default_lowering() -> LoweringConfig:
+    """The process-default LoweringConfig (created lazily from the env,
+    bound to the global registry)."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = LoweringConfig.from_registry()
+    return _DEFAULT
+
+
+def lower(op: str, *, shape, dtype, backend: Optional[str] = None
+          ) -> CompileRecord:
+    """Public one-shot lowering through the process-default policy's
+    compile cache; an explicit ``backend`` reuses that policy's dispatcher
+    (its registry and cache)."""
+    dflt = default_lowering()
+    if backend is None:
+        return dflt.lower(op, shape, dtype)
+    return LoweringConfig(backend=backend,
+                          dispatcher=dflt.dispatcher).lower(op, shape, dtype)
+
+
+def set_default_lowering(lowering: LoweringConfig) -> Optional[LoweringConfig]:
+    """Install a new process-default; returns the prior one (for restore)."""
+    global _DEFAULT
+    prior = _DEFAULT
+    _DEFAULT = lowering
+    return prior
+
+
+def set_default_backend(backend: str) -> str:
+    """Swap the default backend, returning the prior backend name."""
+    prior = default_lowering().backend
+    set_default_lowering(LoweringConfig.from_registry(backend))
+    return prior
+
+
+def get_default_backend() -> str:
+    """Backend name of the process-default LoweringConfig."""
+    return default_lowering().backend

@@ -21,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -133,6 +134,35 @@ def build(names=None) -> dict[str, pathlib.Path]:
     if failed:
         raise KernelBuildError("\n".join(failed))
     return paths
+
+
+#: How a kernel template's type argument is spelt in its mangled name.
+MANGLED_T = {"float32": "f", "bfloat16": "13__nv_bfloat16",
+             "float16": "6__half"}
+_PTXAS: dict[str, dict] = {}
+
+
+def ptxas_report(name: str) -> dict[str, tuple[int, int]]:
+    """(registers a thread, spill-store bytes) of every kernel of library
+    ``name``, by mangled name, as ptxas reported them when the library was
+    built (its ``-Xptxas -v`` log); builds it first if needed."""
+    report = _PTXAS.get(name)
+    if report is None:
+        log = build([name])[name].with_suffix(".log").read_text()
+        report, kernel, spill = {}, None, 0
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kernel = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                report[kernel] = (int(m.group(1)), spill)
+                kernel, spill = None, 0
+        _PTXAS[name] = report
+    return report
 
 
 def load(name: str) -> ctypes.CDLL:

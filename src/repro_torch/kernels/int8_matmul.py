@@ -64,10 +64,12 @@ def current_stream(device: int) -> int:
     return torch._C._cuda_getCurrentRawStream(device)
 
 
-def int8_matmul(x, wq, scale, *, _plan=None):
+def int8_matmul(x, wq, scale, *, plan=None, _plan=None):
     """K4 on CUDA tensors, the plain version on CPU tensors.
 
-    ``_plan`` (tile_m, tile_n, split, depth) replaces ``int8_plan``'s pick;
+    ``plan`` (tile_m, tile_n, split, depth) is the plan a schedule holds
+    (``kernels/schedule.py`` checked it when it made the schedule) and runs
+    as given; without it, ``int8_plan``'s pick.  ``_plan`` forces another,
     for the plan sweep and the card's tests only, and a plan the kernel
     does not take raises."""
     if x.device.type == "cpu":
@@ -75,14 +77,16 @@ def int8_matmul(x, wq, scale, *, _plan=None):
     device = check_int8_args("int8_matmul", x, wq, scale)
     M, K = x.shape
     N = wq.shape[0]
-    if _plan is None:
-        plan = _pl.int8_plan(M, N, K, x.element_size(), pipelined=False)
-    elif _pl.int8_plan_legal(_plan, M, N, K, x.element_size(),
-                             pipelined=False):
+    if _plan is not None:
+        if not _pl.int8_plan_legal(_plan, M, N, K, x.element_size(),
+                                   pipelined=False):
+            raise ValueError(f"int8_matmul: plan {_plan} is not built or "
+                             f"does not fit for M={M}, N={N}, K={K}, "
+                             f"{x.dtype}")
         plan = tuple(_plan)
-    else:
-        raise ValueError(f"int8_matmul: plan {_plan} is not built or does "
-                         f"not fit for M={M}, N={N}, K={K}, {x.dtype}")
+    elif plan is None:
+        plan = _pl.int8_plan(M, N, K, x.element_size(), pipelined=False,
+                             sms=_pl.sm_count(x.device))
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     INT8_MATMUL.launch(x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
                        out.data_ptr(), M, N, K, *plan, DTYPE_CODES[x.dtype],

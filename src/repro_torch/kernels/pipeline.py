@@ -3,15 +3,14 @@ through a ``depth``-stage ``cp.async`` ring
 (``csrc/flash_attention_pipelined.cu``), K5, the int8-weight GEMM with its
 x and wq tiles streamed the same way (``csrc/int8_matmul_pipelined.cu``),
 and K8, the SSD scan with its x/B/C chunks streamed
-(``csrc/ssd_scan_pipelined.cu``); the rule that routes between a kernel and
-its pipelined variant, the ring depths, and the plans of the kernels that
-take one (K4/K5, K6, K9-K13).
+(``csrc/ssd_scan_pipelined.cu``); the ring depths, and the plans of the
+kernels that take one (K4/K5, K6, K9-K13).
 
-The port of ``repro/kernels/pipeline.py``: ``use_pipeline`` keeps the
-reference's rule that a single streamed tile never pipelines.  The
-reference decides the rest from a TPU DMA cost model that says nothing of
-this card and is not ported yet, so here the pipeline is taken whenever
-the K/V sweep has two tiles or more.
+The port of ``repro/kernels/pipeline.py``.  Which kernel of a pair runs —
+baseline or pipelined — is not decided here: the H100 instance of the cost
+model (``core/kernel_synth.decide_hopper``) weighs the two under these
+plans, through ``kernels/schedule.py``, which both the dispatcher's
+schedulers and the kernel routes call.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ import itertools
 
 import torch
 
+from repro_torch.core.interface_model import H100_L2_BYTES
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import int8_matmul as _i8
 from repro_torch.kernels.flash_attention import (BLOCK_Q, DTYPE_CODES,
@@ -45,14 +45,6 @@ FLASH_ATTENTION_PIPELINED = _build.CudaKernel(
     + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
        ctypes.c_int, ctypes.c_void_p],
     replaces="src/repro/kernels/pipeline.py:163")
-
-
-def use_pipeline(n_steps: int, override: bool | None = None) -> bool:
-    """Burst-pipeline routing rule: never for a single streamed tile;
-    otherwise the caller's ``override``, and by default yes."""
-    if n_steps < 2:
-        return False
-    return True if override is None else bool(override)
 
 
 #: Shared memory of one SM on sm_90, and what the SM keeps back for each
@@ -209,13 +201,14 @@ def int8_ring_takes(x, wq) -> bool:
 
 
 def int8_matmul_pipelined(x, wq, scale, *, depth: int | None = None,
-                          _plan=None):
+                          plan=None, _plan=None):
     """K5 on CUDA tensors, the plain version on CPU tensors.
 
-    The plan is ``int8_plan``'s; ``depth`` replaces its ring depth, and
-    ``_plan`` (tile_m, tile_n, split, depth) the whole plan, for the plan
-    sweep and the card's tests only.  A plan or depth the kernel does not
-    take raises."""
+    ``plan`` (tile_m, tile_n, split, depth) is the plan a schedule holds
+    (``kernels/schedule.py`` checked it when it made the schedule) and runs
+    as given; without it, ``int8_plan``'s.  ``depth`` replaces the ring
+    depth, and ``_plan`` the whole plan, for the plan sweep and the card's
+    tests only.  A plan or depth the kernel does not take raises."""
     if x.device.type == "cpu":
         return ref.int8_matmul_ref(x, wq, scale)
     device = _i8.check_int8_args("int8_matmul_pipelined", x, wq, scale)
@@ -227,7 +220,8 @@ def int8_matmul_pipelined(x, wq, scale, *, depth: int | None = None,
         raise ValueError(f"depth {depth} not in {DEPTHS}")
     M, K = x.shape
     N = wq.shape[0]
-    plan = _plan or int8_plan(M, N, K, x.element_size(), pipelined=True)
+    plan = _plan or plan or int8_plan(M, N, K, x.element_size(),
+                                      pipelined=True, sms=sm_count(x.device))
     if depth is not None:
         plan = (*plan[:3], depth)
     if (_plan is not None or depth is not None) and not int8_plan_legal(
@@ -247,7 +241,8 @@ def int8_matmul_pipelined(x, wq, scale, *, depth: int | None = None,
 # K4's and K5's plan
 # ---------------------------------------------------------------------------
 
-#: SMs of an H100 SXM.
+#: SMs of an H100 SXM: the plans' default where no card is at hand (the
+#: wrappers and schedules pass their card's count, ``sm_count``).
 SMS = 132
 #: What csrc/int8_matmul.cu (K4) is built for: rows of the output tile (64
 #: a consumer warpgroup), its columns by x's itemsize (256 only for bf16
@@ -304,9 +299,10 @@ def int8_plans(M: int, N: int, K: int, itemsize: int, *,
 
 @functools.lru_cache(maxsize=None)
 def int8_plan(M: int, N: int, K: int, itemsize: int, *,
-              pipelined: bool) -> tuple[int, int, int, int]:
+              pipelined: bool, sms: int = SMS) -> tuple[int, int, int, int]:
     """The plan (tile_m, tile_n, split, depth) of K5 (``pipelined``) or K4
-    for an (M, K) x (N, K) int8 GEMM with x of ``itemsize`` bytes.
+    for an (M, K) x (N, K) int8 GEMM with x of ``itemsize`` bytes, on a
+    card of ``sms`` SMs.
 
     K4: 128 rows a tile (two consumer warpgroups) above 64 rows, else 64;
     the widest tile whose grid reaches 7/8 of the SMs, else 128 columns;
@@ -319,7 +315,7 @@ def int8_plan(M: int, N: int, K: int, itemsize: int, *,
 
     K5: ``_k5_plan``."""
     if pipelined:
-        return _k5_plan(M, N, K, itemsize)
+        return _k5_plan(M, N, K, itemsize, sms)
     nk = -(-K // K4_STAGE_K)
     tile_m = 128 if M > 64 else 64
     widths = K4_TILE_N[itemsize]
@@ -327,16 +323,16 @@ def int8_plan(M: int, N: int, K: int, itemsize: int, *,
     def tiles(tn):
         return -(-M // tile_m) * -(-N // tn)
     tile_n = next((tn for tn in reversed(widths)
-                   if 8 * tiles(tn) >= 7 * SMS), 128)
+                   if 8 * tiles(tn) >= 7 * sms), 128)
     split = 1
-    while (2 * split in INT8_SPLITS and tiles(tile_n) * 2 * split <= SMS
+    while (2 * split in INT8_SPLITS and tiles(tile_n) * 2 * split <= sms
            and nk >= 4 * split):
         split *= 2
     depth = min(3, max(2, -(-nk // split)))
     return tile_m, tile_n, split, depth
 
 
-def _k5_plan(M: int, N: int, K: int, itemsize: int):
+def _k5_plan(M: int, N: int, K: int, itemsize: int, sms: int):
     """K5's plan: the fewest rows of x a block (8, 16 or 32) that hold M,
     else 32 and more blocks; 128 rows of wq a block where the blocks reach
     the SMs, else 64; K split over a cluster of 2, 4 or 8 blocks while the
@@ -346,10 +342,10 @@ def _k5_plan(M: int, N: int, K: int, itemsize: int):
     nk = -(-K // K5_STAGE_K)
     tile_m = next((t for t in K5_TILE_M if t >= M), max(K5_TILE_M))
     rows = -(-M // tile_m)
-    tile_n = 128 if rows * -(-N // 128) >= SMS else 64
+    tile_n = 128 if rows * -(-N // 128) >= sms else 64
     blocks = rows * -(-N // tile_n)
     split = 1
-    while (2 * split in INT8_SPLITS and blocks * 2 * split <= 2 * SMS
+    while (2 * split in INT8_SPLITS and blocks * 2 * split <= 2 * sms
            and 2 * split <= nk):
         split *= 2
     return tile_m, tile_n, split, 2
@@ -564,11 +560,12 @@ def ball_plans(B: int, N: int, M: int, k: int, itemsize: int,
         if ball_plan_legal((c, w, s, depth), B, N, M, k, itemsize)]
 
 
+@functools.lru_cache(maxsize=None)
 def ball_plan(B: int, N: int, M: int, k: int, itemsize: int,
-              depth: int = 0) -> tuple[int, int, int, int]:
+              depth: int = 0, sms: int = SMS) -> tuple[int, int, int, int]:
     """The plan (cpw, warps, split, depth) of K10 (``depth`` 0) or of K11
     at ring ``depth`` for B clouds of N points and M centers of k
-    neighbours.
+    neighbours, on a card of ``sms`` SMs.
 
     K11: 4 centers a warp, 4 warps a block.  K10: 8 warps a block (each
     K10 block copies its whole part into shared memory, so fewer, wider
@@ -587,12 +584,12 @@ def ball_plan(B: int, N: int, M: int, k: int, itemsize: int,
     if depth:
         cpw, warps = 4, 4
     else:
-        cpw = 1 if B * M <= 8 * SMS and N <= BALL_RESIDENT else 2
+        cpw = 1 if B * M <= 8 * sms and N <= BALL_RESIDENT else 2
         warps = 8
     walks = B * -(-M // cpw)
     split = 1
     while (2 * split in BALL_SPLITS
-           and (walks * split < 12 * SMS
+           and (walks * split < 12 * sms
                 or (depth == 0
                     and ball_part_points(N, split) > BALL_RESIDENT))
            and ball_plan_legal((cpw, warps, 2 * split, depth), B, N, M, k,
@@ -700,7 +697,28 @@ def sm_count(device=None) -> int:
     if device.type != "cuda":
         return SMS
     index = torch.cuda.current_device() if device.index is None else device.index
+    return _sms_of(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def current_sm_count() -> int:
+    """SMs of the current CUDA device, or ``SMS`` where there is none: the
+    card the dispatcher's schedules are for."""
+    return sm_count("cuda") if torch.cuda.is_available() else SMS
+
+
+@functools.lru_cache(maxsize=None)
+def current_l2_bytes() -> int:
+    """L2 bytes of the current CUDA device, or an H100's 50 MB where there
+    is none."""
+    if not torch.cuda.is_available():
+        return H100_L2_BYTES
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).L2_cache_size
 
 
 #: K13's plan rule (``group_plan``), from the card's sweep (PERF.md): a

@@ -16,12 +16,12 @@ registers.  The rules are measured ones (PERF.md §6).
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.pipeline import SMS, sm_count
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -34,9 +34,8 @@ MAX_ROWS_VPT = 4
 MAX_ROW_THREADS = 1024
 #: Threads a row of the two-pass loop kernel.
 LOOP_THREADS = 128
-#: Threads an SM keeps resident, and the H100 SXM's SMs (``plan``'s default).
+#: Threads an SM keeps resident.
 SM_THREADS = 2048
-H100_SMS = 132
 
 RMSNORM = _build.CudaKernel(
     "rmsnorm", lib="rmsnorm", symbol="rmsnorm_launch",
@@ -54,7 +53,7 @@ class Plan(NamedTuple):
     threads: int
 
 
-def plan(R: int, d: int, itemsize: int, sms: int = H100_SMS) -> Plan:
+def plan(R: int, d: int, itemsize: int, sms: int = SMS) -> Plan:
     """K1's launch shape for R rows of ``d`` elements of ``itemsize`` bytes
     that start 16-byte aligned, on a card of ``sms`` SMs."""
     V = 16 // itemsize
@@ -70,11 +69,6 @@ def plan(R: int, d: int, itemsize: int, sms: int = H100_SMS) -> Plan:
     if vpt > MAX_VPT:
         return Plan(LOOP, 0, LOOP_THREADS)
     return Plan(ROW, vpt, warps(vpt))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def rows_grid(R: int, threads: int, sms: int) -> int:
@@ -105,7 +99,7 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, *, eps: float = 1e-6,
     out = torch.empty_like(x)
     if R == 0:
         return out
-    sms = _sm_count(x.device.index)
+    sms = sm_count(x.device)
     if shape is None:
         aligned = (x.data_ptr() | out.data_ptr() | g.data_ptr()) % 16 == 0
         shape = plan(R, d, x.element_size(), sms) if aligned \

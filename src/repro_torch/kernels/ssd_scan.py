@@ -22,9 +22,6 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-#: The chunk of K7's first design: ``ops.ssd_scan`` sends a sweep of two
-#: such chunks or more to K8, a rule kept as it is.
-SSD_CHUNK = 64
 #: Positions a chunk of K7 and K8 (csrc/ssd_tile.cuh ``Q``).
 CHUNK = 16
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

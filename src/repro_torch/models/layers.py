@@ -3,10 +3,12 @@ SwiGLU MLP, embeddings.
 
 Parameters are plain nested dicts of tensors with the reference's names,
 shapes and layouts, so a ``repro`` param tree bridges over as it is
-(``repro_torch.bridge``).  Kernel choice is a ``LoweringConfig`` decision:
-RMSNorm and prefill attention run the hand-written kernels on the
-``"cuda"`` backend; decode attention (a one-row query) and every GEMM stay
-plain torch ops, as the reference leaves them to XLA.
+(``repro_torch.bridge``).  Kernel choice is a ``LoweringConfig`` decision
+(the compile cache's record): RMSNorm and prefill attention run the
+hand-written kernels on the ``"cuda"`` backend, with the record's
+schedule; ``"torch_chunked"`` runs attention as an online softmax over key
+chunks; decode attention (a one-row query) and every GEMM stay plain torch
+ops, as the reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -17,11 +19,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.compile.config import LoweringConfig
+from repro_torch.compile.config import LoweringConfig, default_lowering
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops as kops
-
-_DEFAULT_LOWERING = LoweringConfig()
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -46,12 +45,13 @@ def init_rmsnorm(d: int, dtype, device) -> dict:
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6, *,
             lowering: Optional[LoweringConfig] = None) -> torch.Tensor:
-    lw = lowering or _DEFAULT_LOWERING
+    lw = lowering or default_lowering()
     d = x.shape[-1]
     rows = math.prod(x.shape[:-1])
     rec = lw.lower("rmsnorm", (rows, d), x.dtype)
     if rec.impl == "isax":
-        out = kops.rmsnorm(x.reshape(rows, d), params["scale"], eps=eps)
+        out = rec.kernel_fn(x.reshape(rows, d), params["scale"], eps=eps,
+                            schedule=rec.schedule)
         return out.reshape(x.shape)
     xf = x.float()
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -150,22 +150,60 @@ def _sdpa_xla(q, k, v, mask, head_dim: int):
     return out.reshape(B, S, H, hd)
 
 
+def _sdpa_chunked(q, k, v, mask, head_dim: int, chunk: int = 1024):
+    """Online-softmax (flash) attention in plain torch ops: walks K/V in
+    chunks with a running max and denominator, never materializing the
+    (S, T) score matrix (the reference's ``layers._sdpa_chunked``).  A
+    fully-masked row outputs 0, as the kernels do; a T the chunk does not
+    divide takes ``_sdpa_xla``, as in the reference."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    c = min(chunk, T)
+    if T % c:
+        return _sdpa_xla(q, k, v, mask, head_dim)
+    scale = head_dim ** -0.5
+    qg = q.reshape(B, S, K, G, hd)
+    mask_b = mask.expand(mask.shape[0], S, T)
+    m = torch.full((B, K, G, S), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, K, G, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, S, K, G, hd), dtype=torch.float32, device=q.device)
+    for t0 in range(0, T, c):
+        kc, vc = k[:, t0:t0 + c], v[:, t0:t0 + c]
+        mc = mask_b[:, None, None, :, t0:t0 + c]
+        s = torch.einsum("bskgd,btkd->bkgst", qg, kc).float() * scale
+        s = torch.where(mc, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mc, torch.exp(s - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bkgst,btkd->bskgd", p.to(q.dtype), vc).float()
+        acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + pv
+        m = m_new
+    denom = torch.clamp(l.permute(0, 3, 1, 2), min=1e-30)[..., None]
+    return (acc / denom).to(q.dtype).reshape(B, S, H, hd)
+
+
 def sdpa(q, k, v, mask, head_dim: int, lowering: LoweringConfig,
          kind: str = "attention"):
-    """Lowering-routed scaled-dot-product attention."""
+    """Lowering-routed scaled-dot-product attention: the record's kernel
+    route at its schedule, the chunked online softmax, or the plain
+    version."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     rec = lowering.lower(kind, (B, S, H, K, T, hd), q.dtype)
     if rec.impl == "isax":
-        return kops.flash_attention_gqa(q, k, v, mask,
-                                        sm_scale=head_dim ** -0.5)
+        return rec.kernel_fn(q, k, v, mask, sm_scale=head_dim ** -0.5,
+                             schedule=rec.schedule)
+    if rec.impl == "chunked":
+        return _sdpa_chunked(q, k, v, mask, head_dim)
     return _sdpa_xla(q, k, v, mask, head_dim)
 
 
 def attention(params, x, cfg: ModelConfig, mask, positions,
               lowering: Optional[LoweringConfig] = None):
     """Full-sequence attention (prefill).  Returns (out, (k, v))."""
-    lw = lowering or _DEFAULT_LOWERING
+    lw = lowering or default_lowering()
     hd = cfg.resolved_head_dim()
     q, k, v = _qkv(params, x, cfg, positions)
     out = sdpa(q, k, v, mask, hd, lw, kind="attention")
@@ -181,7 +219,7 @@ def attention_decode(params, x, cfg: ModelConfig, k_cache, v_cache, pos: int,
     The caches are updated in place at ``pos`` (the reference returns new
     ones).  Returns (out, k_cache, v_cache).
     """
-    lw = lowering or _DEFAULT_LOWERING
+    lw = lowering or default_lowering()
     hd = cfg.resolved_head_dim()
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
@@ -218,7 +256,7 @@ def attention_decode_paged(params, x, cfg: ModelConfig, k_pages, v_pages,
     never read unmasked.
     The pools are updated in place.  Returns (out (B,1,d), k_pages, v_pages).
     """
-    lw = lowering or _DEFAULT_LOWERING
+    lw = lowering or default_lowering()
     hd = cfg.resolved_head_dim()
     B = x.shape[0]
     page = k_pages.shape[1]

@@ -26,13 +26,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.compile.config import LoweringConfig
+from repro_torch.compile.config import LoweringConfig, default_lowering
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import layer_params
 
-_DEFAULT_LOWERING = LoweringConfig()
 
 
 def _dims(cfg: ModelConfig):
@@ -187,7 +185,7 @@ def _final_state(x, dt, A, B, chunk: int):
 def ssm_block(params, u, cfg: ModelConfig, collect_cache: bool = False,
               lowering: Optional[LoweringConfig] = None):
     """Full-sequence SSD block.  u: (b,s,d).  Returns (out, cache|None)."""
-    lw = lowering or _DEFAULT_LOWERING
+    lw = lowering or default_lowering()
     s_cfg = cfg.ssm
     d_in, H, N, P = _dims(cfg)
     cd = L.dtype_of(cfg.compute_dtype)
@@ -206,8 +204,8 @@ def ssm_block(params, u, cfg: ModelConfig, collect_cache: bool = False,
     rec = lw.lower("ssd_scan", (b, s, H, P, N), torch.float32)
     if rec.impl == "isax":
         # kernel layout is (b, H, s, P) / (b, H, s); transpose in and out
-        y = kops.ssd_scan(xh.transpose(1, 2), dt.transpose(1, 2), A, Bf,
-                          Cf).transpose(1, 2)
+        y = rec.kernel_fn(xh.transpose(1, 2), dt.transpose(1, 2), A, Bf,
+                          Cf, schedule=rec.schedule).transpose(1, 2)
     else:
         y = ssd_chunked(xh, dt, A, Bf, Cf, s_cfg.chunk)
     y = y + params["D"][None, None, :, None] * xh
@@ -235,7 +233,7 @@ def ssm_block_decode(params, u, cfg: ModelConfig, cache,
     u: (b,1,d); cache: {'conv': (b,w-1,ch), 'state': (b,H,N,P)}, both
     updated in place.  Returns (out, cache).
     """
-    lw = lowering or _DEFAULT_LOWERING
+    lw = lowering or default_lowering()
     d_in, H, N, P = _dims(cfg)
     cd = L.dtype_of(cfg.compute_dtype)
     x_res = u

@@ -146,10 +146,11 @@ def fps(xyz: torch.Tensor, n_samples: int, *, sm_ids=None,
     return out
 
 
-def _ball_args(name, xyz, centers, k, plan, depth):
-    """Check the inputs; return (B, N, M, out, plan): ``plan`` as given if
-    the kernel takes it (else raise), or ``ball_plan``'s at ring ``depth``
-    (0: K10)."""
+def _ball_args(name, xyz, centers, k, plan, forced, depth):
+    """Check the inputs; return (B, N, M, out, plan): ``plan`` (a
+    schedule's, checked when the schedule was made) as given; else
+    ``forced`` if the kernel takes it (else raise); else ``ball_plan``'s at
+    ring ``depth`` (0: K10)."""
     _check(name, xyz, centers)
     _check_points(name, xyz, centers)
     if k < 1:
@@ -157,26 +158,32 @@ def _ball_args(name, xyz, centers, k, plan, depth):
     B, N, _ = xyz.shape
     M = centers.shape[1]
     itemsize = xyz.element_size()
-    plan = (_pl.ball_plan(B, N, M, k, itemsize, depth) if plan is None
-            else tuple(plan))
-    if (plan[3] == 0) != (depth == 0) or not (
-            B * N * M == 0
-            or _pl.ball_plan_legal(plan, B, N, M, k, itemsize)):
-        raise ValueError(f"{name}: no kernel for plan {plan} at B={B}, "
-                         f"N={N}, M={M}, k={k}, {xyz.dtype}")
+    if forced is not None:
+        plan = tuple(forced)
+        if (plan[3] == 0) != (depth == 0) or not (
+                B * N * M == 0
+                or _pl.ball_plan_legal(plan, B, N, M, k, itemsize)):
+            raise ValueError(f"{name}: no kernel for plan {plan} at B={B}, "
+                             f"N={N}, M={M}, k={k}, {xyz.dtype}")
+    elif plan is None:
+        plan = _pl.ball_plan(B, N, M, k, itemsize, depth,
+                             _pl.sm_count(xyz.device))
     out = torch.empty((B, M, k), dtype=torch.int32, device=xyz.device)
     return B, N, M, out, plan
 
 
 def ball_query(xyz, centers, radius: float, k: int, *,
-               radius_sq: float | None = None, _plan=None) -> torch.Tensor:
+               radius_sq: float | None = None, plan=None,
+               _plan=None) -> torch.Tensor:
     """K10: xyz (B, N, 3), centers (B, M, 3) → indices (B, M, k) i32.
 
-    The plan is ``ball_plan(B, N, M, k, itemsize)``; ``_plan`` forces
-    another (cpw, warps, split, 0), for the sweep and tests only."""
+    ``plan`` (cpw, warps, split, 0) is a schedule's (``kernels/schedule.py``
+    checked it), run as given; without it, ``ball_plan(B, N, M, k,
+    itemsize)``.  ``_plan`` forces another, for the sweep and tests only."""
     if xyz.device.type == "cpu":
         return ref.ball_query_ref(xyz, centers, radius, k, radius_sq=radius_sq)
-    B, N, M, out, plan = _ball_args("ball_query", xyz, centers, k, _plan, 0)
+    B, N, M, out, plan = _ball_args("ball_query", xyz, centers, k, plan,
+                                    _plan, 0)
     if out.numel():
         BALL_QUERY.launch(
             _build.ptr(xyz), _build.ptr(centers), _build.ptr(out), B, N, M, k,
@@ -187,23 +194,44 @@ def ball_query(xyz, centers, radius: float, k: int, *,
 
 def ball_query_pipelined(xyz, centers, radius: float, k: int, *,
                          depth: int = 2, radius_sq: float | None = None,
-                         _plan=None) -> torch.Tensor:
+                         plan=None, _plan=None) -> torch.Tensor:
     """K11: K10 with the X tiles streamed through a ``depth``-stage ring.
 
-    The plan is ``ball_plan(B, N, M, k, itemsize, depth)``; ``_plan``
-    forces another (cpw, warps, split, depth), whose depth then replaces
-    ``depth``, for the sweep and tests only."""
+    ``plan`` (cpw, warps, split, depth) is a schedule's
+    (``kernels/schedule.py`` checked it), run as given; without it,
+    ``ball_plan(B, N, M, k, itemsize, depth)``.  ``_plan`` forces another,
+    whose depth then replaces ``depth``, for the sweep and tests only."""
     if xyz.device.type == "cpu":
         return ref.ball_query_ref(xyz, centers, radius, k, radius_sq=radius_sq)
     _check_depth("ball_query_pipelined", depth)
     B, N, M, out, plan = _ball_args("ball_query_pipelined", xyz, centers, k,
-                                    _plan, depth)
+                                    plan, _plan, depth)
     if out.numel():
         BALL_QUERY_PIPELINED.launch(
             _build.ptr(xyz), _build.ptr(centers), _build.ptr(out), B, N, M, k,
             ref.squared_radius(radius, radius_sq), *plan,
             DTYPE_CODES[xyz.dtype], xyz.device.index, _build.stream_of(xyz))
     return out
+
+
+def group_ptxas(kernel: str, dtype: str, C: int, plan) -> tuple[int, int]:
+    """(registers a thread, spill-store bytes) of the K12 or K13
+    instantiation that ``plan`` launches for rows of C channels of
+    ``dtype`` (a name), as ptxas reported them when the kernel's library
+    was built (``_build.ptxas_report``; builds it if needed)."""
+    t = _build.MANGLED_T[dtype]
+    itemsize = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    if kernel == "group_aggregate":
+        vec = (C * itemsize) % 16 == 0
+        tag = (f"group_kernelI{t}Lb{int(vec)}E"
+               f"Li{_pl.group_lanes(C, itemsize)}EE")
+    else:
+        tag = f"group_tiled_kernelI{t}Li{plan[1] * itemsize // 16}EE"
+    hits = [v for name, v in _build.ptxas_report(kernel).items()
+            if tag in name]
+    if len(hits) != 1:
+        raise RuntimeError(f"{tag}: {len(hits)} kernels in the build log")
+    return hits[0]
 
 
 def _group_args(name, features, idx):
@@ -222,11 +250,15 @@ def _group_args(name, features, idx):
     return B, N, M, k, C, out
 
 
-def _group_plan(name, features, shape, plan, depth):
-    """``plan`` as given if the kernel (K12 at ``depth`` 0, else K13) takes
-    it at ``shape`` = (B, N, M, k, C), else raise; None: ``group_plan``'s
-    on features' card."""
+def _group_plan(name, features, shape, plan, forced, depth):
+    """``plan`` (a schedule's, checked when the schedule was made) as
+    given; else ``forced``, or where that is None ``group_plan``'s on
+    features' card, if the kernel (K12 at ``depth`` 0, else K13) takes it
+    at ``shape`` = (B, N, M, k, C), else raise."""
+    if plan is not None:
+        return plan
     itemsize = features.element_size()
+    plan = forced
     if plan is None:
         plan = _pl.group_plan(*shape, itemsize, depth,
                               _pl.sm_count(features.device))
@@ -238,17 +270,19 @@ def _group_plan(name, features, shape, plan, depth):
     return plan
 
 
-def group_aggregate(features, idx, *, _plan=None) -> torch.Tensor:
+def group_aggregate(features, idx, *, plan=None, _plan=None) -> torch.Tensor:
     """K12: features (B, N, C), idx (B, M, k) i32 → max-pooled (B, M, C).
 
-    The plan is ``group_plan(B, N, M, k, C, itemsize, 0)``; ``_plan``
-    forces another (cpw, 0, 0, 0), for the sweep and tests only."""
+    ``plan`` (cpw, 0, 0, 0) is a schedule's (``kernels/schedule.py``
+    checked it), run as given; without it, ``group_plan(B, N, M, k, C,
+    itemsize, 0)``.  ``_plan`` forces another, for the sweep and tests
+    only."""
     if features.device.type == "cpu":
         return ref.group_aggregate_ref(features, idx)
     B, N, M, k, C, out = _group_args("group_aggregate", features, idx)
     if out.numel():
         plan = _group_plan("group_aggregate", features, (B, N, M, k, C),
-                           _plan, 0)
+                           plan, _plan, 0)
         GROUP_AGGREGATE.launch(
             _build.ptr(features), _build.ptr(idx), _build.ptr(out), B, N, M, k,
             C, plan[0], DTYPE_CODES[features.dtype], features.device.index,
@@ -256,12 +290,15 @@ def group_aggregate(features, idx, *, _plan=None) -> torch.Tensor:
     return out
 
 
-def group_aggregate_pipelined(features, idx, *, _plan=None) -> torch.Tensor:
+def group_aggregate_pipelined(features, idx, *, plan=None,
+                              _plan=None) -> torch.Tensor:
     """K13: K12 with a channel slice of the cloud copied whole into shared
     memory, one slot a feature tile.
 
-    The plan (bn, cs, split, depth = tiles) is ``group_plan(B, N, M, k, C,
-    itemsize)``; ``_plan`` forces another, for the sweep and tests only.
+    ``plan`` (bn, cs, split, depth = tiles) is a schedule's
+    (``kernels/schedule.py`` checked it), run as given; without it,
+    ``group_plan(B, N, M, k, C, itemsize)``.  ``_plan`` forces another,
+    for the sweep and tests only.
     Rows that are not whole 16-byte chunks, a cloud whose narrowest slice
     does not fit a block, and a plan the kernel is not built for or whose
     block does not fit, raise."""
@@ -271,7 +308,7 @@ def group_aggregate_pipelined(features, idx, *, _plan=None) -> torch.Tensor:
                                      idx)
     if out.numel():
         plan = _group_plan("group_aggregate_pipelined", features,
-                           (B, N, M, k, C), _plan, None)
+                           (B, N, M, k, C), plan, _plan, None)
         GROUP_AGGREGATE_PIPELINED.launch(
             _build.ptr(features), _build.ptr(idx), _build.ptr(out), B, N, M, k,
             C, *plan, DTYPE_CODES[features.dtype], features.device.index,

@@ -1,29 +1,36 @@
 """Public point-cloud entry points: route between the kernels and their
-plain versions.
+plain versions, and the e-graph evaluator's point-cloud intrinsics.
 
-The port of ``repro/pointcloud/ops.py`` (its wrappers; the e-graph
-intrinsics wait for the port of the dispatch engine).  ``fallback`` holds
-the reference's fallbacks, and ``LoweringConfig.lower`` reads it too:
+The port of ``repro/pointcloud/ops.py``.  ``fallback`` holds the
+reference's fallbacks, which the dispatcher's schedulers
+(``targets/pointcloud.py``) and the wrappers below read:
 
 * FPS takes the plain version when asked for more samples than points;
 * ball query and grouped aggregation take it on shapes the reference cannot
   tile (``tileable``, the counterpart of ``pc_tiles``).
 
-Everything else goes to a kernel wrapper (``kernel_*``), which raises on
-CUDA tensors the kernel does not take (points other than 3-d, dtypes other
-than fp32/bf16/fp16).  Baseline or pipelined follows the port's rule
-(``kernels.pipeline.use_pipeline``): pipeline from two streamed tiles up,
-or as ``pipelined`` says.  The streamed tiles are K11's 256-point X tiles
-and the feature tiles of K13's plan (``kernels.pipeline.group_plan``).
+Everything else goes to a kernel route (``kernel_*``), which runs the
+kernel its schedule names — the record's, or where none is passed the one
+``kernels/schedule.py`` computes (K10 or K11, K12 or K13, each at its
+plan; the cost model's choice, ``core/kernel_synth.decide_hopper``) — and
+raises on CUDA tensors the kernel does not take (points other than 3-d,
+dtypes other than fp32/bf16/fp16).  ``pipelined`` overrides the choice
+between the two kernels of a pair, for tests and sweeps only.
+
+``pointcloud_intrinsics`` / ``register_pointcloud_intrinsics`` bind the
+routes to the ``isax:`` e-nodes of ``core/offload.evaluate``: plain
+versions on ``device="cpu"``, the kernels on ``"cuda"``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.tiling import down_pow2
-from repro_torch.kernels.pipeline import (group_plan, group_tiles, sm_count,
-                                          use_pipeline)
+from repro_torch.kernels import schedule as ks
+from repro_torch.kernels.ops import chosen
+from repro_torch.kernels.pipeline import sm_count
 from repro_torch.pointcloud import kernels as pck
 from repro_torch.pointcloud import ref
 
@@ -62,7 +69,8 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_fps(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
-    """K9, with no fallback."""
+    """K9 at ``pipeline.fps_plan``'s plan (the one its schedule records),
+    with no fallback."""
     return pck.fps(_aligned(xyz), n_samples)
 
 
@@ -74,23 +82,24 @@ def farthest_point_sample(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
     return kernel_fps(xyz, n_samples)
 
 
-def ball_steps(N: int) -> int:
-    """X tiles of one ball-query sweep."""
-    return -(-N // pck.BALL_TILE)
-
-
 def kernel_ball_query(xyz, centers, radius: float, k: int, *,
+                      schedule: dict | None = None,
                       pipelined: bool | None = None,
                       radius_sq: float | None = None) -> torch.Tensor:
-    """K11 when the sweep has two X tiles or more (``pipelined``
-    overrides), else K10; no fallback."""
+    """K10 or K11 (and its ring depth) at its plan, as the schedule says;
+    no fallback."""
     xyz, centers = _aligned(xyz), _aligned(centers)
-    n_steps = ball_steps(xyz.shape[1])
-    if use_pipeline(n_steps, pipelined):
+    B, N, _ = xyz.shape
+    if schedule is None:
+        schedule = ks.ball_schedule(B, N, centers.shape[1], k,
+                                    xyz.element_size(), sm_count(xyz.device))
+    run = chosen(schedule, pipelined)
+    if run["depth"]:
         return pck.ball_query_pipelined(xyz, centers, radius, k,
-                                        depth=min(max(pck.DEPTHS), n_steps),
-                                        radius_sq=radius_sq)
-    return pck.ball_query(xyz, centers, radius, k, radius_sq=radius_sq)
+                                        depth=run["depth"],
+                                        radius_sq=radius_sq, plan=run["plan"])
+    return pck.ball_query(xyz, centers, radius, k, radius_sq=radius_sq,
+                          plan=run["plan"])
 
 
 def ball_query(xyz, centers, radius: float, k: int, *,
@@ -107,26 +116,21 @@ def ball_query(xyz, centers, radius: float, k: int, *,
                              radius_sq=radius_sq)
 
 
-def group_steps(features, idx) -> int:
-    """Feature tiles K13 copies under its plan (``group_plan``): the
-    reference's ``N // bn``; 0 where K13 takes no plan."""
-    B, N, C = features.shape
-    M, k = idx.shape[1], idx.shape[2]
-    plan = group_plan(B, N, M, k, C, features.element_size(), None,
-                      sm_count(features.device))
-    return 0 if plan is None else group_tiles(N, plan[0])
-
-
-def kernel_group_aggregate(features, idx, *,
+def kernel_group_aggregate(features, idx, *, schedule: dict | None = None,
                            pipelined: bool | None = None) -> torch.Tensor:
-    """K13 when its plan copies two feature tiles or more (``pipelined``
-    overrides), else K12 (also where no slice of the cloud fits a K13
-    block); no fallback."""
+    """K12 or K13 at its plan, as the schedule says (K12 where no slice of
+    the cloud fits a K13 block); no fallback."""
     features = _aligned(features)
     idx = _aligned(idx.to(torch.int32))
-    if use_pipeline(group_steps(features, idx), pipelined):
-        return pck.group_aggregate_pipelined(features, idx)
-    return pck.group_aggregate(features, idx)
+    B, N, C = features.shape
+    if schedule is None:
+        schedule = ks.group_schedule(B, N, idx.shape[1], idx.shape[2], C,
+                                     features.element_size(),
+                                     sm_count(features.device))
+    run = chosen(schedule, pipelined)
+    if run["depth"]:
+        return pck.group_aggregate_pipelined(features, idx, plan=run["plan"])
+    return pck.group_aggregate(features, idx, plan=run["plan"])
 
 
 def group_aggregate(features, idx, *,
@@ -136,3 +140,52 @@ def group_aggregate(features, idx, *,
     if fallback("group_aggregate", (B, N, *idx.shape[1:], C)):
         return ref.group_aggregate_ref(features, idx)
     return kernel_group_aggregate(features, idx, pipelined=pipelined)
+
+
+# ---------------------------------------------------------------------------
+# E-graph intrinsics: the isax: e-nodes of core/offload.evaluate run the
+# kernel routes on float32 tensors of ``device``
+# ---------------------------------------------------------------------------
+
+def pointcloud_intrinsics(device: str = "cpu") -> dict:
+    """Intrinsics for fps, ball_query and group_agg that compute through
+    the kernel routes on ``device`` (plain versions on the CPU, the kernels
+    on a CUDA device)."""
+
+    def points(a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=device)[None]
+
+    def fps(Xp, n_s, Dp, Sp):
+        """Valid for the canonical start (Dp uniform → start at point 0)."""
+        sel = kernel_fps(points(Xp), int(n_s))
+        Sp[:] = sel[0].cpu().numpy().astype(Sp.dtype)
+        # D (the running min-distance) is ISAX-internal state; materialize
+        # it for evaluator parity with the software program
+        d = np.asarray(Dp[0], np.float64)
+        X = np.asarray(Xp, np.float64)
+        for s in np.asarray(Sp, np.int64):
+            diff = X - X[s]
+            d = np.minimum(d, (diff * diff).sum(-1))
+        Dp[0] = d.astype(Dp.dtype)
+
+    def ball(Xp, Cn, r2, kk, n_c, Gq):
+        # the ISAX contract is in r²: pass it exactly (radius_sq)
+        sel = kernel_ball_query(points(Xp), points(Cn), float(np.sqrt(r2)),
+                                int(kk), radius_sq=float(r2))
+        Gq[:] = sel[0].cpu().numpy().astype(Gq.dtype)
+
+    def group(Fg, Gq, n_c, Ag):
+        idx = torch.as_tensor(np.asarray(Gq), dtype=torch.int32,
+                              device=device)[None]
+        Ag[:] = kernel_group_aggregate(points(Fg), idx)[0].cpu().numpy()
+
+    return {"fps": fps, "ball_query": ball, "group_agg": group}
+
+
+def register_pointcloud_intrinsics(device: str = "cpu") -> None:
+    """Register ``pointcloud_intrinsics(device)`` as the e-graph
+    evaluator's overrides (``core.offload.register_intrinsic``)."""
+    from repro_torch.core import offload
+    for name, fn in pointcloud_intrinsics(device).items():
+        offload.register_intrinsic(name, fn)

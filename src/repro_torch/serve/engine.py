@@ -263,8 +263,26 @@ class ContinuousEngine:
             return nxt, kp, vp, sl + act.to(sl.dtype)
 
         self._decode = _decode_fn
+        self._resolve_lowerings(max_batch)
 
     # -- internals ---------------------------------------------------------
+
+    def _resolve_lowerings(self, max_batch: int) -> None:
+        """Look up the compile records of the decode step's and each
+        bucket's prefill attention and norms now, while the engine is
+        built: the first lookup of a trace spec runs its e-graph
+        saturation, which would otherwise fall into the first request's
+        TTFT.  The shapes are fixed here (slots, pages, buckets)."""
+        cfg = self.cfg
+        dt = L.dtype_of(cfg.compute_dtype)
+        H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+        T = self.cache.pages_per_seq * self.cache.page_size
+        self.lowering.lower("rmsnorm", (max_batch, cfg.d_model), dt)
+        self.lowering.lower("attention_paged", (max_batch, 1, H, K, T, hd),
+                            dt)
+        for b in self.prompt_buckets:
+            self.lowering.lower("rmsnorm", (b, cfg.d_model), dt)
+            self.lowering.lower("attention", (1, b, H, K, b, hd), dt)
 
     def _lifetime_tokens(self, req: Request, bucket: int) -> int:
         return max(bucket, req.prompt_len + req.max_new_tokens)

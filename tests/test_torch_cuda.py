@@ -28,7 +28,7 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_int8kv)
 from repro_torch.kernels.int8_matmul import INT8_MATMUL, int8_matmul
-from repro_torch.kernels import pipeline
+from repro_torch.kernels import pipeline, schedule
 from repro_torch.kernels.pipeline import flash_attention_pipelined
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.ssd_scan import block_fits as ssd_block_fits
@@ -226,18 +226,29 @@ def test_flash_wrappers_raise_on_what_the_kernel_does_not_take(gen):
                                   mask, sm_scale=0.1, depth=3)
 
 
-def test_ops_route_k2_for_one_tile_and_k3_for_more(gen):
-    counts = {n: _build.KERNELS[n].launches for n in _build.KERNELS}
+def _sms():
+    return pipeline.sm_count("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ops_route_k2_for_one_tile_and_k3_for_more(gen, dtype):
+    """The route launches the kernel its schedule names (K2 for one K/V
+    tile, where K3 is not offered; above that the cost model's pick), and
+    K3 where forced from two tiles up."""
     for S in (16, 64, 65, 512):
-        q, k, v, mask = _flash_inputs(gen, 1, S, S, 4, 4, 64, torch.float32)
-        got = ops.flash_attention_gqa(q, k, v, mask, sm_scale=0.125)
+        q, k, v, mask = _flash_inputs(gen, 1, S, S, 4, 4, 64, dtype)
+        sched = schedule.flash_schedule(1, S, 4, 4, S, 64, q.element_size(),
+                                        _sms())
+        assert (sched["pipe"] is None) is (S <= 64)
+        got = _launched(sched["kernel"], lambda: ops.flash_attention_gqa(
+            q, k, v, mask, sm_scale=0.125))
         torch.testing.assert_close(
             got, ref.flash_attention_ref(q, k, v, mask, sm_scale=0.125),
-            **_tol(torch.float32))
-    after = {n: _build.KERNELS[n].launches for n in _build.KERNELS}
-    assert after["flash_attention"] - counts["flash_attention"] == 2
-    assert (after["flash_attention_pipelined"]
-            - counts["flash_attention_pipelined"]) == 2
+            **_tol(dtype))
+        if sched["pipe"]:
+            _launched("flash_attention_pipelined",
+                      lambda: ops.flash_attention_gqa(
+                          q, k, v, mask, sm_scale=0.125, pipelined=True))
 
 
 def test_reduced_model_cuda_backend_matches_torch_backend(gen):
@@ -592,7 +603,8 @@ def test_group_aggregate_routes_a_cloud_no_slice_fits_to_k12(gen,
                                    device="cuda", dtype=torch.int32),
                      dim=-1).values
     assert pipeline.group_plan(1, 65536, 1024, 32, 64, 4) is None
-    assert pc_ops.group_steps(feats, idx) == 0
+    assert schedule.group_schedule(1, 65536, 1024, 32, 64, 4,
+                                   pipeline.sm_count("cuda"))["pipe"] is None
     got = _launched("group_aggregate", lambda: pc_ops.group_aggregate(
         feats, idx, pipelined=pipelined))
     assert torch.equal(got, pc_ref.group_aggregate_ref(feats, idx))
@@ -646,20 +658,29 @@ def test_pointcloud_routes_raise_where_the_kernels_do_not_take_the_cloud(gen):
 
 
 def test_pointcloud_ops_route_baseline_and_pipelined(gen):
-    """Ball query pipelines from two 256-point X tiles up, grouped
-    aggregation from two feature tiles of K13's plan up."""
-    counts = dict(_build.launch_counts())
-    xyz = _points(gen, 2, 4096, torch.float32)
-    feats = torch.randn((2, 4096, 64), generator=gen, device="cuda")
-    for N, k in ((256, 16), (4096, 32)):
-        idx = pc_ops.ball_query(xyz[:, :N].contiguous(), xyz[:, :64].contiguous(),
-                                0.9, k)
-        pc_ops.group_aggregate(feats[:, :N].contiguous(), idx)
-    torch.cuda.synchronize()
-    after = _build.launch_counts()
-    for name in ("ball_query", "ball_query_pipelined", "group_aggregate",
-                 "group_aggregate_pipelined"):
-        assert after[name] - counts[name] == 1, name
+    """Each route launches the kernel its schedule names (the cost model's
+    pick between K10 and K11, K12 and K13), and the pipelined one where
+    forced and offered (two streamed tiles or more)."""
+    xyz = _points(gen, 16, 1024, torch.float32)
+    feats = torch.randn((16, 1024, 64), generator=gen, device="cuda")
+    for B, N, M, k in ((2, 256, 64, 16), (16, 1024, 512, 32)):
+        x = xyz[:B, :N].contiguous()
+        c = xyz[:B, :M].contiguous()
+        bs = schedule.ball_schedule(B, N, M, k, 4, _sms())
+        idx = _launched(bs["kernel"],
+                        lambda: pc_ops.ball_query(x, c, 0.9, k))
+        assert torch.equal(idx, pc_ref.ball_query_ref(x, c, 0.9, k))
+        f = feats[:B, :N].contiguous()
+        gs = schedule.group_schedule(B, N, M, k, 64, 4, _sms())
+        out = _launched(gs["kernel"], lambda: pc_ops.group_aggregate(f, idx))
+        assert torch.equal(out, pc_ref.group_aggregate_ref(f, idx))
+        for sched, name, call in (
+                (bs, "ball_query_pipelined",
+                 lambda: pc_ops.ball_query(x, c, 0.9, k, pipelined=True)),
+                (gs, "group_aggregate_pipelined",
+                 lambda: pc_ops.group_aggregate(f, idx, pipelined=True))):
+            if sched["pipe"]:
+                _launched(name, call)
 
 
 @pytest.mark.parametrize("pipelined", [None, False])
@@ -771,10 +792,13 @@ def test_ssd_wrappers_raise_on_what_the_kernels_do_not_take(gen):
 
 
 def test_ops_route_k7_for_one_chunk_and_k8_for_more(gen):
-    for S, name in ((40, "ssd_scan"), (64, "ssd_scan"),
-                    (65, "ssd_scan_pipelined"), (512, "ssd_scan_pipelined")):
+    """K7 for one 16-position chunk (K8 not offered), else the kernel the
+    schedule names; ``pipelined=False`` forces K7."""
+    for S in (16, 40, 64, 65, 512):
         args = _ssd_inputs(gen, 1, 2, S, 64, 128)
-        got = _launched(name, lambda: ops.ssd_scan(*args))
+        sched = schedule.ssd_schedule(1, S, 2, 64, 128, 4, _sms())
+        assert (sched["pipe"] is None) is (S <= 16)
+        got = _launched(sched["kernel"], lambda: ops.ssd_scan(*args))
         torch.testing.assert_close(got, ref.ssd_scan_ref(*args), **SSD_TOL)
     args = _ssd_inputs(gen, 1, 2, 512, 64, 128)
     _launched("ssd_scan", lambda: ops.ssd_scan(*args, pipelined=False))
@@ -787,10 +811,13 @@ def test_reduced_mamba2_cuda_backend_matches_torch_backend(gen):
     params = cuda_m.init(0, "cuda")
     tokens = torch.randint(0, cfg.vocab, (2, 100), generator=gen,
                            device="cuda")
-    before = _build.KERNELS["ssd_scan_pipelined"].launches
+    d_in = cfg.ssm.expand * cfg.d_model
+    kernel = LoweringConfig("cuda").lower(
+        "ssd_scan", (2, 100, d_in // cfg.ssm.head_dim, cfg.ssm.head_dim,
+                     cfg.ssm.d_state), torch.float32).schedule["kernel"]
+    before = _build.KERNELS[kernel].launches
     got, gc = cuda_m.prefill(params, {"tokens": tokens})
-    assert (_build.KERNELS["ssd_scan_pipelined"].launches - before
-            == cfg.n_layers)
+    assert _build.KERNELS[kernel].launches - before == cfg.n_layers
     want, wc = plain_m.prefill(params, {"tokens": tokens})
     torch.testing.assert_close(got, want, atol=5e-5, rtol=1e-4)
     torch.testing.assert_close(gc["state"], wc["state"], atol=5e-5, rtol=1e-4)
@@ -860,9 +887,10 @@ def test_int8_matmul_k4_takes_k_off_the_16_grid(gen, M, N, K, dtype):
 
 
 def test_int8_route_falls_back_to_k4_where_k5_cannot_copy(gen):
-    """K off the 16-byte grid, or an operand off 16-byte alignment, goes
-    to K4 even when K5 is asked for; K5 itself refuses them.  A single
-    64-wide k step never pipelines."""
+    """K off the 16-byte grid goes to K4 even when K5 is asked for (K5 has
+    no plan there, and refuses it itself); an operand off 16-byte alignment
+    is copied and runs the kernel the schedule names.  A single 64-wide k
+    step never pipelines."""
     x, wq, scale = _int8_inputs(gen, 8, 96, 100, torch.float32)
     got = _launched("int8_matmul", lambda: ops.int8_matmul(x, wq, scale,
                                                            pipelined=True))
@@ -873,7 +901,8 @@ def test_int8_route_falls_back_to_k4_where_k5_cannot_copy(gen):
     xs = buf[1:].view(8, 768)          # contiguous, 4 bytes off alignment
     xs.copy_(x)
     assert xs.is_contiguous() and xs.data_ptr() % 16
-    got = _launched("int8_matmul", lambda: ops.int8_matmul(xs, wq, scale))
+    sched = schedule.int8_schedule(8, 768, 96, 4, _sms())
+    got = _launched(sched["kernel"], lambda: ops.int8_matmul(xs, wq, scale))
     torch.testing.assert_close(got, ref.int8_matmul_ref(x, wq, scale),
                                **_int8_tol(x, wq, scale))
     x64, wq64, scale64 = _int8_inputs(gen, 8, 96, 64, torch.float32)
@@ -883,10 +912,12 @@ def test_int8_route_falls_back_to_k4_where_k5_cannot_copy(gen):
         pipeline.int8_matmul_pipelined(*_int8_inputs(gen, 8, 96, 100,
                                                      torch.float32))
     x, wq, scale = _int8_inputs(gen, 8, 96, 768, torch.float32)
-    _launched("int8_matmul_pipelined", lambda: ops.int8_matmul(x, wq, scale))
+    _launched(sched["kernel"], lambda: ops.int8_matmul(x, wq, scale))
     _launched("int8_matmul", lambda: ops.int8_matmul(x, wq, scale,
                                                      pipelined=False))
-    _launched("int8_matmul_pipelined",
+    _launched("int8_matmul_pipelined", lambda: ops.int8_matmul(
+        x, wq, scale, pipelined=True))
+    _launched(sched["kernel"],
               lambda: LoweringConfig("cuda").int8_matmul(x, wq, scale))
 
 
@@ -1169,3 +1200,127 @@ def test_paged_decode_runs_under_sync_debug_error(gen):
     assert torch.equal(got, want)
     assert torch.equal(kp[:-1], pools[0][:-1])
     assert torch.equal(vp[:-1], pools[1][:-1])
+
+
+# ---------------------------------------------------------------------------
+# The compiler on the card: routes run their records' kernels, and the
+# e-graph's offloaded programs evaluate on the kernels
+# ---------------------------------------------------------------------------
+
+RECORD_KEYS = [
+    ("attention", (1, 512, 12, 12, 512, 64), torch.float32),
+    ("attention", (1, 256, 4, 4, 256, 64), torch.bfloat16),
+    ("attention", (2, 64, 4, 2, 64, 32), torch.float16),
+    ("rmsnorm", (512, 768), torch.float32),
+    ("int8_matmul", (8, 768, 2048), torch.float32),
+    ("int8_matmul", (512, 768, 768), torch.bfloat16),
+    ("ssd_scan", (1, 100, 4, 64, 128), torch.float32),
+    ("ssd_scan", (1, 16, 4, 64, 128), torch.float32),
+    ("fps", (2, 4096, 512), torch.float32),
+    ("ball_query", (2, 4096, 512, 16), torch.float32),
+    ("ball_query", (1, 256, 64, 8), torch.float32),
+    ("group_aggregate", (16, 1024, 512, 32, 64), torch.float32),
+    ("group_aggregate", (2, 4096, 512, 16, 64), torch.float32),
+]
+
+
+def _record_inputs(gen, op, shape, dtype):
+    """Inputs of one key on the card and the record's route call."""
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    if op == "attention":
+        B, S, H, K, T, hd = shape
+        mask = torch.tril(torch.ones((S, T), dtype=torch.bool,
+                                     device="cuda"))[None]
+        return (r(B, S, H, hd).to(dtype), r(B, T, K, hd).to(dtype),
+                r(B, T, K, hd).to(dtype), mask), {"sm_scale": hd ** -0.5}
+    if op == "rmsnorm":
+        return (r(*shape).to(dtype), r(shape[1])), {}
+    if op == "int8_matmul":
+        x, wq, scale = _int8_inputs(gen, shape[0], shape[2], shape[1], dtype)
+        return (x, wq, scale), {}
+    if op == "ssd_scan":
+        return _ssd_inputs(gen, shape[0], shape[2], shape[1], shape[3],
+                           shape[4]), {}
+    if op == "fps":
+        return (_points(gen, shape[0], shape[1], dtype), shape[2]), {}
+    xyz = _points(gen, shape[0], shape[1], dtype)
+    if op == "ball_query":
+        return (xyz, xyz[:, :shape[2]].contiguous(), 0.5, shape[3]), {}
+    B, N, M, k, C = shape
+    idx = torch.randint(0, N, (B, M, k), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    return (r(B, N, C).to(dtype), idx), {}
+
+
+@pytest.mark.parametrize("op,shape,dtype", RECORD_KEYS)
+def test_route_launches_the_kernel_its_record_names(gen, op, shape, dtype):
+    """The record's kernel function, given the record's schedule (FPS has
+    one kernel, whose wrapper takes fps_plan's plan itself), launches
+    exactly the kernel the schedule names, once, and computes what the
+    route computes without a schedule (the same kernel, plan and depth)."""
+    rec = LoweringConfig("cuda").lower(op, shape, dtype)
+    assert rec.impl == "isax", rec.note
+    args, kw = _record_inputs(gen, op, shape, dtype)
+    sched = {} if op == "fps" else {"schedule": rec.schedule}
+    got = _launched(rec.schedule["kernel"], lambda: rec.kernel_fn(
+        *args, **kw, **sched))
+    again = _launched(rec.schedule["kernel"],
+                      lambda: rec.kernel_fn(*args, **kw))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("B,N,M,k,C,dtype", [
+    (2, 4096, 512, 16, 64, "float32"), (16, 1024, 512, 32, 64, "float32"),
+    (16, 1024, 512, 32, 64, "bfloat16"), (16, 512, 128, 64, 128, "float32")])
+def test_group_schedule_reads_the_built_kernels_registers(gen, monkeypatch, B,
+                                                          N, M, k, C, dtype):
+    """On the card the K12/K13 model takes each instantiation's registers
+    from the build's ptxas log; at the route phase's group shapes, whose
+    picks the CPU tests pin, the counts the CPU uses (GROUP_REGS) give the
+    same schedule, cycles and all."""
+    itemsize = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+    sms = pipeline.sm_count("cuda")
+    built = schedule.group_schedule.__wrapped__(B, N, M, k, C, itemsize, sms)
+    for kernel, part in (("group_aggregate", "base"),
+                         ("group_aggregate_pipelined", "pipe")):
+        if built[part] is not None:
+            plan = built[part]["plan"]
+            regs, _ = pck.group_ptxas(kernel, dtype, C, plan)
+            assert schedule.group_regs(kernel, itemsize, C, plan) >= regs > 0
+    monkeypatch.setattr(schedule, "group_regs",
+                        lambda kernel, *_: schedule.GROUP_REGS[kernel])
+    assert schedule.group_schedule.__wrapped__(B, N, M, k, C, itemsize,
+                                               sms) == built
+
+
+@pytest.mark.parametrize("kind", ["attention", "int8_matmul", "ssd_scan",
+                                  "rmsnorm", "fps", "ball_query",
+                                  "group_aggregate"])
+def test_offloaded_program_evaluates_on_the_kernels(gen, kind):
+    """Each target ISAX's trace program, compiled and evaluated with the
+    intrinsics bound to the CUDA kernels, equals the software program
+    under the numpy evaluators (exact for indices and the max-pool, the
+    reference's atol 1e-5 / rtol 1e-4 for floats), through one kernel of
+    the ISAX's pair."""
+    from repro_torch.core.offload import compile_program, evaluate
+    from repro_torch.kernels.ops import kernel_intrinsics
+    from repro_torch.pointcloud.ops import pointcloud_intrinsics
+    from repro_torch.targets import cases, default_registry
+    reg = default_registry()
+    isax = cases.CASES[kind][0]
+    prog = reg.spec_for_kind(kind).trace_program()
+    res = compile_program(prog, reg.isaxes(), case=kind)
+    assert isax in res.stats.matched_isaxes
+    sw = cases.environment(kind)
+    hw = cases.copy_env(sw)
+    evaluate(prog, sw)
+    before = dict(_build.launch_counts())
+    evaluate(res.program, hw, intrinsics={**kernel_intrinsics("cuda"),
+                                          **pointcloud_intrinsics("cuda")})
+    torch.cuda.synchronize()
+    ran = {n for n, c in _build.launch_counts().items() if c > before[n]}
+    assert ran and {n.removesuffix("_pipelined") for n in ran} == {
+        {"flash_attention": "flash_attention", "int8_matvec": "int8_matmul",
+         "ssd_step": "ssd_scan", "rmsnorm": "rmsnorm", "fps": "fps",
+         "ball_query": "ball_query", "group_agg": "group_aggregate"}[isax]}
+    cases.compare(kind, sw, hw)

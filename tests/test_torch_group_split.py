@@ -36,7 +36,6 @@ from repro.pointcloud import kernels as jax_pck
 from repro.pointcloud import ref as jax_ref
 from repro_torch.kernels import pipeline
 from repro_torch.pointcloud import kernels as pck
-from repro_torch.pointcloud import ops as pc_ops
 from repro_torch.pointcloud import ref
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -349,10 +348,16 @@ def test_group_plan_picks_what_the_sweep_measured(name, depth, want):
     ((1, 256, 64, 8, 32), 1), ((1, 100, 8, 4, 6), 0),
     ((1, 65536, 1024, 32, 64), 0)])
 def test_group_steps_are_the_plans_feature_tiles(shape, want):
-    Bc, Nc, Mc, kc, Cc = shape
-    feats = torch.zeros((Bc, Nc, Cc))
-    idx = torch.zeros((Bc, Mc, kc), dtype=torch.int32)
-    assert pc_ops.group_steps(feats, idx) == want
+    """The feature tiles K13 copies under its plan (its ring depth: one
+    slot a tile; the reference's N // bn), 0 where K13 takes no plan; the
+    schedule offers K13 only from two tiles up."""
+    from repro_torch.kernels import schedule
+    plan = pipeline.group_plan(*shape, 4)
+    tiles = 0 if plan is None else plan[3]
+    assert tiles == want
+    pipe = schedule.group_schedule(*shape, 4)["pipe"]
+    assert (pipe is not None) is (tiles >= 2)
+    assert pipe is None or pipe["plan"] == plan
 
 
 def test_wrappers_take_the_plain_version_on_cpu_whatever_the_plan():

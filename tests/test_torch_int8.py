@@ -139,25 +139,37 @@ def route_calls(monkeypatch):
 
 @pytest.mark.parametrize("M,K,pipelined,want", [
     (8, 768, None, "K5"), (1, 768, None, "K5"), (64, 768, None, "K5"),
-    (65, 768, None, "K4"), (512, 768, None, "K4"), (512, 2048, True, "K5"),
+    (65, 768, None, "K5"), (512, 768, None, "K4"), (512, 2048, True, "K5"),
     (8, 768, False, "K4"), (8, 100, None, "K4"), (8, 100, True, "K4"),
     (7, 16, None, "K4"), (8, 24, None, "K4"), (8, 64, True, "K4"),
     (7, 80, None, "K5")])
 def test_int8_route_k5_for_decode_rows_and_k4_otherwise(route_calls, M, K,
                                                         pipelined, want):
-    (x, wq, scale), _ = _gemm_inputs(M, 40, K, "float32")
+    """At llama110m's width N = 768, the cost model's pick
+    (``schedule.int8_schedule``): K5 for decode rows and up to the rows
+    where K4's 128-row tiles fill the card, K4 at M = 512; ``pipelined``
+    forces a kernel where its plan takes the shape (K5 wants K % 16 == 0
+    and two 64-wide stages)."""
+    (x, wq, scale), _ = _gemm_inputs(M, 768, K, "float32")
     got = ops.int8_matmul(x, wq, scale, pipelined=pipelined)
     assert route_calls == [want]
     torch.testing.assert_close(got, ref.int8_matmul_ref(x, wq, scale))
 
 
 def test_int8_entry_point_routes_only_where_lower_says_isax(route_calls):
-    (x, wq, scale), _ = _gemm_inputs(8, 40, 128, "float32")
-    LoweringConfig("cuda").int8_matmul(x, wq, scale)
-    LoweringConfig("cuda").int8_matmul(torch.cat([x] * 9), wq, scale)
+    """Backend cuda reaches a kernel on every call, and the one its record's
+    schedule names; backend torch reaches none."""
+    (x, wq, scale), _ = _gemm_inputs(8, 768, 768, "float32")
+    lw = LoweringConfig("cuda")
+    xs = (x, torch.cat([x] * 64), x.half())
+    lw.int8_matmul(xs[0], wq, scale)
+    lw.int8_matmul(xs[1], wq, scale)
     LoweringConfig("torch").int8_matmul(x, wq, scale)
-    got = LoweringConfig("cuda").int8_matmul(x.half(), wq, scale)
-    assert route_calls == ["K5", "K4", "K5"]
+    got = lw.int8_matmul(xs[2], wq, scale)
+    names = {"int8_matmul": "K4", "int8_matmul_pipelined": "K5"}
+    want = [names[lw.lower("int8_matmul", (a.shape[0], 768, 768),
+                           a.dtype).schedule["kernel"]] for a in xs]
+    assert route_calls == want == ["K5", "K4", "K5"]
     assert got.dtype == torch.float16
 
 

@@ -187,7 +187,17 @@ def test_untileable_head_dim_falls_back_to_reference():
     (1, None, False), (1, True, False), (2, None, True), (8, False, False),
     (4, True, True)])
 def test_use_pipeline_never_pipelines_one_tile(n_steps, override, want):
-    assert pipeline.use_pipeline(n_steps, override) is want
+    """The routes' choice between a kernel and its pipelined variant
+    (``ops.chosen`` over ``kernels/schedule.py``), for an SSD sweep of
+    ``n_steps`` 16-position chunks at mamba2-2.7b's widths: a single
+    streamed tile never takes the ring, not even when forced (the schedule
+    offers none); else ``override`` where given, and by default the cost
+    model's pick, which is the ring from two chunks up there."""
+    from repro_torch.kernels import schedule
+    sched = schedule.ssd_schedule(4, 16 * n_steps, 80, 64, 128, 4)
+    assert (sched["pipe"] is None) is (n_steps < 2)
+    got = ops.chosen(sched, override)["kernel"] == "ssd_scan_pipelined"
+    assert got is want
 
 
 @pytest.mark.parametrize("hd,itemsize,n_steps,want", [

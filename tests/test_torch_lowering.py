@@ -1,5 +1,7 @@
-"""The port's lowering table against the reference's dispatcher, the
-port's independence from JAX, and its refusal to fall back to the CPU."""
+"""The port's lowering (the e-graph engine's records) against the
+reference's dispatcher, the records' schedules against what the kernel
+routes run, the port's independence from JAX, and its refusal to fall
+back to the CPU."""
 
 import ast
 import json
@@ -16,6 +18,10 @@ import repro.compile as jax_compile
 from repro_torch.compile.config import LoweringConfig, lower
 from repro_torch.configs.base import reduced
 from repro_torch.configs.registry import get_config
+from repro_torch.kernels import ops, pipeline, schedule
+from repro_torch.kernels.rmsnorm import Plan
+from repro_torch.pointcloud import kernels as pck
+from repro_torch.pointcloud import ops as pc_ops
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -150,6 +156,131 @@ def test_unknown_op_and_backend_raise():
         LoweringConfig("pallas")
     with pytest.raises(ValueError):
         lower("conv2d", shape=(1, 1, 1), dtype=torch.float32)
+
+
+def test_env_override_read_in_constructor(monkeypatch):
+    """tests/test_dispatch.py:263-270 on the port: the environment is read
+    by the constructor, in the reference's names or the port's, and an
+    explicit backend wins."""
+    monkeypatch.delenv("REPRO_BACKEND", raising=False)
+    monkeypatch.setenv("REPRO_ATTENTION_IMPL", "xla_chunked")
+    assert LoweringConfig().backend == "torch_chunked"
+    monkeypatch.delenv("REPRO_ATTENTION_IMPL")
+    monkeypatch.setenv("REPRO_BACKEND", "pallas_interpret")
+    assert LoweringConfig().backend == "cuda"
+    monkeypatch.setenv("REPRO_BACKEND", "torch")
+    assert LoweringConfig().backend == "torch"
+    assert LoweringConfig("cuda").backend == "cuda"
+
+
+def test_invalid_backend_rejected(monkeypatch):
+    with pytest.raises(ValueError):
+        LoweringConfig("xla")
+    monkeypatch.setenv("REPRO_BACKEND", "mosaic")
+    with pytest.raises(ValueError):
+        LoweringConfig()
+
+
+def _inputs(op, shape, dtype):
+    """Zero tensors of a key's shapes (the routes' arguments)."""
+    z = lambda *s, dt=dtype: torch.zeros(s, dtype=dt)  # noqa: E731
+    if op == "rmsnorm":
+        return (z(*shape), torch.ones(shape[1]))
+    if op.startswith("attention"):
+        B, S, H, K, T, hd = shape
+        return (z(B, S, H, hd), z(B, T, K, hd), z(B, T, K, hd),
+                torch.ones((1, S, T), dtype=torch.bool))
+    if op == "int8_matmul":
+        M, K, N = shape
+        return (z(M, K), z(N, K, dt=torch.int8), torch.ones(N))
+    if op == "ssd_scan":
+        b, s, H, P, N = shape
+        return (z(b, H, s, P), z(b, H, s), torch.ones(H), z(b, s, N),
+                z(b, s, N))
+    if op == "fps":
+        return (z(*shape[:2], 3), shape[2])
+    if op == "ball_query":
+        B, N, M, k = shape
+        return (z(B, N, 3), z(B, M, 3), 0.5, k)
+    B, N, M, k, C = shape
+    return (z(B, N, C), torch.zeros((B, M, k), dtype=torch.int32))
+
+
+ROUTES = {"rmsnorm": ops.rmsnorm, "attention": ops.flash_attention_gqa,
+          "int8_matmul": ops.int8_matmul, "ssd_scan": ops.ssd_scan,
+          "fps": pc_ops.kernel_fps, "ball_query": pc_ops.kernel_ball_query,
+          "group_aggregate": pc_ops.kernel_group_aggregate}
+#: (module, attribute) of each kernel wrapper a route reaches, by kernel
+WRAPPERS = {"rmsnorm": (ops, "_rmsnorm"),
+            "flash_attention": (ops, "flash_attention"),
+            "flash_attention_pipelined": (ops, "flash_attention_pipelined"),
+            "int8_matmul": (ops, "_int8_matmul"),
+            "int8_matmul_pipelined": (ops, "int8_matmul_pipelined"),
+            "ssd_scan": (ops, "_ssd_scan"),
+            "ssd_scan_pipelined": (ops, "ssd_scan_pipelined"),
+            "fps": (pck, "fps"), "ball_query": (pck, "ball_query"),
+            "ball_query_pipelined": (pck, "ball_query_pipelined"),
+            "group_aggregate": (pck, "group_aggregate"),
+            "group_aggregate_pipelined": (pck, "group_aggregate_pipelined")}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op,shape", ALL_KEYS)
+def test_recorded_schedule_is_what_the_route_runs(monkeypatch, op, shape,
+                                                  dtype):
+    """Recorded schedules are the executed schedules: where ``lower``
+    says ``isax``, the route, called without a schedule on tensors of the
+    key's shapes, reaches the kernel the record names, at the record's
+    plan and ring depth (the wrappers are spied, not run)."""
+    rec = lower(op, shape=shape, dtype=getattr(torch, dtype))
+    if rec.impl != "isax":
+        assert rec.schedule is None
+        return
+    sched = rec.schedule
+    calls = []
+    for name, (mod, attr) in WRAPPERS.items():
+        monkeypatch.setattr(mod, attr, lambda *a, _n=name, **kw:
+                            calls.append((_n, kw)))
+    kw = {"sm_scale": 0.125} if op.startswith("attention") else {}
+    ROUTES["attention" if op.startswith("attention") else op](
+        *_inputs(op, shape, getattr(torch, dtype)), **kw)
+    assert len(calls) == 1
+    name, kw = calls[0]
+    assert name == sched["kernel"]
+    if "depth" in kw:
+        depth = kw["depth"]
+    elif "plan" in kw:
+        depth = kw["plan"][3]
+    else:
+        depth = 0
+    assert depth == sched["depth"]
+    if op == "rmsnorm":
+        assert kw["shape"] == Plan(*sched["plan"])
+    elif op == "fps":
+        assert sched["plan"] == pipeline.fps_plan(*shape[:2])
+    elif sched["plan"] is not None:
+        # the schedule's plan, passed as one the wrapper runs unchecked
+        assert "_plan" not in kw
+        assert tuple(kw["plan"]) == tuple(sched["plan"])
+
+
+@pytest.mark.parametrize("kernel,rule,call", [
+    ("int8_matmul", "int8_plan",
+     lambda: schedule.int8_schedule.__wrapped__(512, 768, 2048, 4, 132)),
+    ("ball_query", "ball_plan",
+     lambda: schedule.ball_schedule.__wrapped__(2, 4096, 512, 16, 4, 132)),
+    ("group_aggregate", "group_plan",
+     lambda: schedule.group_schedule.__wrapped__(2, 4096, 512, 16, 64, 4,
+                                                 132)),
+])
+def test_schedule_refuses_a_plan_its_kernel_does_not_take(monkeypatch, kernel,
+                                                          rule, call):
+    """A schedule checks its plans once, when it is made, so that the
+    routes can run them with no check a call: a plan rule that returned a
+    plan the kernel is not built for would raise here."""
+    monkeypatch.setattr(pipeline, rule, lambda *a, **kw: (3, 3, 3, 3))
+    with pytest.raises(ValueError, match="not legal"):
+        call()
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:

@@ -322,13 +322,16 @@ def test_decode_matches_prefill(cfgs, backend):
 
 
 def test_backends_route_the_scan_as_lowered(cfgs, params, monkeypatch):
-    """Backend "cuda" runs ``ops.ssd_scan`` (one launch a layer) and never
-    ``ssd_chunked``; backend "torch" the reverse."""
+    """Backend "cuda" runs a scan kernel (K7 or K8, one launch a layer)
+    and never ``ssd_chunked``; backend "torch" the reverse."""
     cfg, _ = cfgs
     _, tparams = params
     calls = []
-    for mod, name in ((tm.kops, "ssd_scan"), (tm, "ssd_chunked")):
-        monkeypatch.setattr(mod, name, _spy(calls, name, getattr(mod, name)))
+    for mod, name, label in ((ops, "_ssd_scan", "ssd_scan"),
+                             (ops, "ssd_scan_pipelined", "ssd_scan"),
+                             (tm, "ssd_chunked", "ssd_chunked")):
+        monkeypatch.setattr(mod, name, _spy(calls, label,
+                                            getattr(mod, name)))
     tokens = torch.from_numpy(_prompts(cfg, 2, 20, seed=4))
     for backend, want in (("cuda", "ssd_scan"), ("torch", "ssd_chunked")):
         calls.clear()
@@ -338,10 +341,15 @@ def test_backends_route_the_scan_as_lowered(cfgs, params, monkeypatch):
 
 
 @pytest.mark.parametrize("S,pipelined,want", [
-    (40, None, "k7"), (64, None, "k7"), (65, None, "k8"), (512, None, "k8"),
-    (512, False, "k7"), (40, True, "k7"), (100, True, "k8")])
+    (40, None, "k8"), (64, None, "k8"), (65, None, "k8"), (512, None, "k8"),
+    (512, False, "k7"), (40, True, "k8"), (100, True, "k8"), (16, None, "k7"),
+    (16, True, "k7")])
 def test_ops_route_k7_for_one_chunk_and_k8_for_more(monkeypatch, S,
                                                     pipelined, want):
+    """K7 for a sweep of one 16-position chunk (K8 is not offered: a single
+    streamed tile never pipelines); above that the cost model's pick
+    (``schedule.ssd_schedule``), K8 at these widths (BT=1, H=2, P=64,
+    N=128); ``pipelined`` forces a kernel where it is offered."""
     calls, depths = [], []
     monkeypatch.setattr(ops, "_ssd_scan", _spy(calls, "k7", ops._ssd_scan))
     monkeypatch.setattr(ops, "ssd_scan_pipelined", _spy(

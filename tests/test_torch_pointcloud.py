@@ -25,7 +25,7 @@ from repro.pointcloud import kernels as jax_pck
 from repro.pointcloud import ops as jax_pcops
 from repro.pointcloud import ref as jax_ref
 from repro_torch.compile.config import LoweringConfig
-from repro_torch.kernels import pipeline
+from repro_torch.kernels import pipeline, schedule
 from repro_torch.launch.pointcloud import set_abstraction
 from repro_torch.pointcloud import kernels as pck
 from repro_torch.pointcloud import ops as pc_ops
@@ -286,13 +286,18 @@ def _record_calls(monkeypatch):
 
 @pytest.mark.parametrize("Np,pipelined,want", [
     (256, None, ("ball_query", None)),           # one X tile
-    (512, None, ("ball_query_pipelined", 2)),
-    (1024, None, ("ball_query_pipelined", 4)),
-    (4096, None, ("ball_query_pipelined", 4)),
+    (512, None, ("ball_query", None)),
+    (1024, None, ("ball_query", None)),
+    (4096, None, ("ball_query", None)),
     (4096, False, ("ball_query", None)),
     (256, True, ("ball_query", None)),           # one tile never pipelines
+    (4096, True, ("ball_query_pipelined", 4)),
 ])
 def test_ball_query_routes_by_streamed_tiles(monkeypatch, Np, pipelined, want):
+    """The cost model's pick (``schedule.ball_schedule``): for 8 centers K10
+    at every cloud (its part copied whole beats K11's ring of 256-point
+    tiles); ``pipelined`` forces K11 where the cloud has two tiles or
+    more, at a ring as deep as its tiles (at most 4)."""
     calls = _record_calls(monkeypatch)
     xyz = torch.zeros((1, Np, 3))
     pc_ops.ball_query(xyz, xyz[:, :8], 0.5, 4, pipelined=pipelined)
@@ -302,30 +307,34 @@ def test_ball_query_routes_by_streamed_tiles(monkeypatch, Np, pipelined, want):
 @pytest.mark.parametrize("Np,k,Cc,dtype,pipelined,want", [
     (256, 16, 64, torch.float32, None, ("group_aggregate", None)),  # 1 tile
     (128, 32, 64, torch.float32, None, ("group_aggregate", None)),  # 1 tile
-    (1024, 32, 64, torch.float32, None, ("group_aggregate_pipelined", None)),
-    (512, 64, 128, torch.bfloat16, None,
-     ("group_aggregate_pipelined", None)),
+    (1024, 32, 64, torch.float32, None, ("group_aggregate", None)),
+    (512, 64, 128, torch.bfloat16, None, ("group_aggregate", None)),
     (1024, 64, 64, torch.float32, False, ("group_aggregate", None)),
     (1024, 64, 512, torch.float32, None,                # past 256 channels
-     ("group_aggregate_pipelined", None)),
+     ("group_aggregate", None)),
     (1024, 64, 6, torch.float32, True, ("group_aggregate", None)),  # 24 B
     (65536, 32, 64, torch.float32, None, ("group_aggregate", None)),  # 1 MB
     (65536, 32, 64, torch.float32, True, ("group_aggregate", None)),
+    (1024, 32, 64, torch.float32, True, ("group_aggregate_pipelined", None)),
 ])
 def test_group_aggregate_routes_by_neighbour_stages(monkeypatch, Np, k, Cc,
                                                     dtype, pipelined, want):
-    """K13 where its plan copies two feature tiles or more (the
-    reference's N // bn; ``pipelined`` overrides), else K12; rows that are
-    not whole 16-byte chunks, and clouds of which no 16-byte slice fits a
+    """The cost model's pick (``schedule.group_schedule``): for 8 centers,
+    whose rows are gathered a few times each, K12 (K13's copy of the whole
+    slice does not pay); ``pipelined`` forces K13 where its plan copies
+    two feature tiles or more (the reference's N // bn); rows that are not
+    whole 16-byte chunks, and clouds of which no 16-byte slice fits a
     block, always K12."""
     calls = _record_calls(monkeypatch)
     feats = torch.zeros((1, Np, Cc), dtype=dtype)
     idx = torch.zeros((1, 8, k), dtype=torch.int32)
     pc_ops.group_aggregate(feats, idx, pipelined=pipelined)
     assert calls == [want]
-    steps = pc_ops.group_steps(feats, idx)
+    sched = schedule.group_schedule(1, Np, 8, k, Cc, feats.element_size())
+    tiles = sched["pipe"]["depth"] if sched["pipe"] else 0
     assert (want[0] == "group_aggregate_pipelined") == (
-        steps >= 2 and pipelined is not False)
+        tiles >= 2 and (pipelined or (pipelined is None
+                                      and sched["pipelined"])))
 
 
 def test_ops_send_every_cloud_the_reference_kernels_take_to_the_kernels(
@@ -365,7 +374,8 @@ def test_lowering_config_runs_what_lower_records(monkeypatch, op, shape,
     lw = LoweringConfig("cuda")
     decision = lw.lower(op, shape, torch.float32)
     assert decision.impl == ("isax" if kernel else "reference")
-    assert (decision.note == pc_ops.fallback(op, shape)) == (kernel is None)
+    why = pc_ops.fallback(op, shape)
+    assert (why is not None and why in decision.note) == (kernel is None)
     xyz = torch.zeros((shape[0], shape[1], 3))
     if op == "fps":
         lw.fps(xyz, shape[2])
@@ -389,9 +399,8 @@ def test_group_depth_fits_shared_memory(Np, k, Cc, itemsize):
     plan = pipeline.group_plan(1, Np, 512, k, Cc, itemsize)
     if Np * 16 > pipeline.MAX_SMEM:
         assert plan is None
-        assert pc_ops.group_steps(torch.zeros((1, Np, Cc)),
-                                  torch.zeros((1, 512, k),
-                                              dtype=torch.int32)) == 0
+        assert schedule.group_schedule(1, Np, 512, k, Cc,
+                                       itemsize)["pipe"] is None
         return
     bn, cs, split, depth = plan
     assert depth == pipeline.group_tiles(Np, bn)
