@@ -3,7 +3,9 @@
 kernels, holds each against its plain PyTorch version on the card, then
 serves full-width llama110m through the continuous-batching engine, runs
 the point-cloud set-abstraction stage, serves full-width mamba2-2.7b
-through the static-batch engine, serves llama110m on int8 weights through
+through the static-batch engine, serves every other config of the
+registry at full width (dbrx-132b and arctic-480b cut in depth only),
+serves llama110m on int8 weights through
 ``StaticBatchEngine`` and sends its quantized projections through the
 quantized-GEMM entry point, checks that each path went through the
 kernels its compile records name, then prints the compile cache, runs the
@@ -151,9 +153,34 @@ Phases (any failure exits non-zero; nothing is caught):
    (s2) bf16 (the config as it stands) through ``ServeEngine.generate``,
    4 × 512 tokens, 32 new: TTFT, ITL, tokens/s, then the prefill logits of
    the first 1, 2, 4, ..., 64 blocks on backends "cuda" and "torch" in
-   bf16, each against backend "torch" in fp32 on the same weights
+   bf16, each against backend "torch" computing in fp32 on the same
+   weights, cuda at most BF16_GAP_RATIO times as far as torch
    (``bf16_depth_sweep``); (s3) the same engine, 4 × 16 tokens, 8 new (one
    chunk: K7).
+7b. families: each config of FAMILY_RUNS, bf16 (the configs' dtypes),
+   random weights from seed 0 drawn on the card (the peak memory of the
+   init printed), backend "cuda", each run with launch counts zeroed just
+   before and read just after and required exactly the records' (K1 at
+   every norm, each prefill attention's K2 or K3, zamba2's scans' K7 or
+   K8; decode attention and the SSM step run none): granite-3-8b (full)
+   and dbrx-132b (full width, 4 of 40 layers: one card's memory) through
+   ``ContinuousEngine`` (4 slots, pages of 16, buckets 16..512, 8 Poisson
+   requests, prompts 10-512, 8 or 16 new); yi-9b, internlm2-20b,
+   qwen1.5-0.5b (B 2, S 128, 8 new), arctic-480b (full width, 1 of 35
+   layers; S 64), zamba2-1.2b (B 4, S 512, 16 new), paligemma-3b (256
+   random prefix embeddings + 64 tokens: decode from S + 256) and
+   seamless-m4t-medium (1024 random frames, 32 tokens) through
+   ``ServeEngine.generate``.  Every token in the vocab; first-token logits
+   (one request a bucket, or the batch) of backends "cuda" and "torch" in
+   bf16 against "torch" computing in fp32 on the same weights, cuda at
+   most BF16_GAP_RATIO times as far as torch, the first check at depths
+   1, 2, 4, ..., L and the rest at L (``family_logits_check``); TTFT, ITL
+   and tokens/s as smoke readings.
+   The kernel phase holds K2/K3 at these runs' attention shapes in bf16
+   (FAMILY_FLASH: hd 128 GQA, hd 256 with one KV head under the prefix
+   mask, the full mask over 1024 frames and 32 queries to 1024 keys), the
+   ssm kernel phase K7/K8 at zamba2's scan (4 x 512, 64 heads, P = N =
+   64).
 8. int8 kernels: K4 int8_matmul and K5 int8_matmul_pipelined, each forced,
    at llama110m's four projection shapes (K, N) in {(768, 768), (768,
    2048), (2048, 768), (768, 32000)} at M = 512 (the largest prompt bucket)
@@ -230,7 +257,9 @@ Phases (any failure exits non-zero; nothing is caught):
    each launched.
 13. route: at ROUTE_CASES (the shapes where K2/K3, K10/K11, K12/K13,
    K7/K8 and K4/K5 were measured against each other, the serve buckets at
-   batch 1 and 8, (i2)'s projections), both kernels of the pair at their
+   batch 1 and 8, (i2)'s projections; the families' hd 128 at S = T = 128
+   and 512, hd 256 under the prefix mask, the full mask at 1024, zamba2's
+   scan in fp32 and bf16), both kernels of the pair at their
    plans, each output held to the plain version, then timed cold in turns
    (A B B A, twice): the model's pick, its predicted µs of each, both
    medians, ``pick_is_faster`` and ``pick_within_3pct``.  A timing
@@ -430,8 +459,16 @@ def flash_mask(kind: str, S: int, T: int):
     ``fully_masked_rows`` (tests/test_kernels.py:45); ``block_sparse``,
     causal keys of the query's own 64-key tile and of every even-numbered
     tile (a local + strided pattern: 24 of 64 tile pairs live at S = T =
-    512, where causal has 36)."""
+    512, where causal has 36); ``full``, every key (the encoder's and the
+    cross attention's mask); ``prefix<n>``, causal and every one of the
+    first n keys (the vlm prefix-LM mask, ``layers.make_mask``)."""
     import torch
+    from repro_torch.models.layers import make_mask
+    if kind == "full":
+        return make_mask("full", S, T, device="cuda")
+    if kind.startswith("prefix"):
+        return make_mask("prefix", S, T, n_prefix=int(kind[6:]),
+                         device="cuda")
     mask = torch.tril(torch.ones((S, T), dtype=torch.bool, device="cuda"),
                       diagonal=T - S)[None]
     if kind == "fully_masked_rows":
@@ -613,8 +650,50 @@ def kernel_phase() -> list[dict]:
                                 (64, 12, 12, "float16")):
             rows.append(flash_case(kernel, 256, 256, H, K, dtype, gen,
                                    depth=depths.get((hd, dtype), 0), hd=hd))
+    rows += family_flash_rows(gen)
     for r in rows:
         print(json.dumps(r))
+    return rows
+
+
+#: The prefill attention the families phase gives K2/K3, bf16: (arch, B,
+#: S, T, H, K, hd, mask).  granite and dbrx at the largest bucket (batch
+#: 1), the static runs at their batch; zamba2's sites; paligemma's 256
+#: prefix embeddings + 64 tokens under the prefix-LM mask; seamless's
+#: encoder over 1024 frames and its cross attention (32 tokens to 1024).
+FAMILY_FLASH = (
+    ("granite-3-8b", 1, 512, 512, 32, 8, 128, "causal"),
+    ("dbrx-132b", 1, 512, 512, 48, 8, 128, "causal"),
+    ("yi-9b", 2, 128, 128, 32, 4, 128, "causal"),
+    ("internlm2-20b", 2, 128, 128, 48, 8, 128, "causal"),
+    ("qwen1.5-0.5b", 2, 128, 128, 16, 16, 64, "causal"),
+    ("arctic-480b", 2, 64, 64, 56, 8, 128, "causal"),
+    ("zamba2-1.2b", 4, 512, 512, 32, 32, 64, "causal"),
+    ("paligemma-3b", 2, 320, 320, 8, 1, 256, "prefix256"),
+    ("seamless-m4t-medium", 2, 1024, 1024, 16, 16, 64, "full"),
+    ("seamless-m4t-medium", 2, 32, 1024, 16, 16, 64, "full"),
+)
+
+
+def family_flash_rows(gen) -> list[dict]:
+    """K2, and K3 at the ring depth its schedule names where it has one,
+    at FAMILY_FLASH's shapes, each row tagged with its arch."""
+    import torch
+    from repro_torch.kernels import schedule
+    from repro_torch.kernels.pipeline import sm_count
+    rows = []
+    for arch, B, S, T, H, K, hd, kind in FAMILY_FLASH:
+        sched = schedule.flash_schedule(B, S, H, K, T, hd, 2,
+                                        sm_count(torch.device("cuda")))
+        runs = [("flash_attention", 0)]
+        if sched["pipe"]:
+            runs.append(("flash_attention_pipelined", sched["pipe"]["depth"]))
+        for kernel, depth in runs:
+            row = flash_case(kernel, S, T, H, K, "bfloat16", gen, kind,
+                             depth=depth, B=B, hd=hd)
+            row["arch"] = arch
+            row["pick"] = sched["kernel"]
+            rows.append(row)
     return rows
 
 
@@ -1599,6 +1678,12 @@ def ssm_kernel_phase() -> list[dict]:
         for d in depths:
             rows.append(ssd_case("ssd_scan_pipelined", shape, depth=d,
                                  strong=strong, plain=False))
+    # zamba2-1.2b's scan (64 heads of 64, state 64, 4 x 512 tokens): K7
+    # and K8 at its schedule's ring
+    zamba = (4, 64, 512, 64, 64)
+    rows.append(ssd_case("ssd_scan", zamba))
+    rows.append(ssd_case("ssd_scan_pipelined", zamba,
+                         depth=pipeline.ssd_plan(64, 64, 512, 4)))
     # the inputs the reference's lowering reaches beyond the path: bf16 and
     # fp16 at the model's widths, P = 6 (element loads, padded to 16 in the
     # block), N = 256 (two warps across the state); K8 at every depth that
@@ -1639,49 +1724,54 @@ def _ssm_launches_ok(run: str, launches: dict, scan: str, n_prefills: int,
                              f"expected {want}")
 
 
-def bf16_depth_sweep(cfg, params, tokens) -> list[dict]:
-    """Prefill logits of the first ``depth`` blocks of the bf16 model, for
-    depth 1, 2, 4, ..., L: backend "cuda" and backend "torch" in bf16, each
-    against backend "torch" in fp32 on the same weights (the answer without
-    bf16 rounding).  A fault of the kernel path in bf16 puts its logits
-    farther from the fp32 answer than the plain path's at every depth;
-    rounding alone puts both at the same distance, growing with depth."""
+def doublings(L: int) -> list[int]:
+    """1, 2, 4, ... below L, then L."""
+    out = [1]
+    while out[-1] * 2 < L:
+        out.append(out[-1] * 2)
+    return out + [L] if L > 1 else out
+
+
+def bf16_depth_sweep(run: str, cfg, params, entry: str, args,
+                     depths) -> list[dict]:
+    """Logits of the entry point ``entry`` (called with ``params, *args``)
+    over the first ``depth`` layers of the bf16 model, at each of
+    ``depths``: backend "cuda" and backend "torch" in bf16, each against
+    backend "torch" computing in fp32 on the same weights (bf16 weights are
+    exact in fp32, so that is the answer without bf16 rounding).  A fault
+    of the kernel path in bf16 puts its logits farther from the fp32 answer
+    than the plain path's; rounding alone puts both at about the same
+    distance, growing with depth.  Fails at any depth where backend cuda is
+    farther than BF16_GAP_RATIO times backend torch."""
     import dataclasses
     import torch
     from repro_torch.compile.config import LoweringConfig
     from repro_torch.models.registry import get_model
 
-    def cast(tree):
-        if isinstance(tree, dict):
-            return {k: cast(v) for k, v in tree.items()}
-        return tree.float() if tree.is_floating_point() else tree
+    def logits(c, lowering):
+        model = get_model(c, lowering=LoweringConfig(lowering))
+        return getattr(model, entry)(params, *args)[0].float()
 
-    params32 = cast(params)
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                compute_dtype="float32")
-    batch = {"tokens": tokens}
-    out, depth = [], 1
-    while depth <= cfg.n_layers:
-        def logits(c, lowering, p):
-            c = dataclasses.replace(c, n_layers=depth)
-            return get_model(c, lowering=LoweringConfig(lowering)).prefill(
-                p, batch)[0].float()
-        got = logits(cfg, "cuda", params)
-        plain = logits(cfg, "torch", params)
-        exact = logits(cfg32, "torch", params32)
+    out = []
+    for depth in depths:
+        c = dataclasses.replace(cfg, n_layers=depth)
+        got = logits(c, "cuda")
+        plain = logits(c, "torch")
+        exact = logits(dataclasses.replace(c, compute_dtype="float32"),
+                       "torch")
         row = {"depth": depth,
                "cuda_vs_torch": float((got - plain).abs().max()),
                "cuda_vs_fp32": float((got - exact).abs().max()),
                "torch_vs_fp32": float((plain - exact).abs().max()),
-               "logits_max_abs": float(exact.abs().max())}
+               "logits_max_abs": float(exact.abs().max()),
+               "argmax_agree": bool(torch.equal(got.argmax(-1),
+                                                exact.argmax(-1)))}
         if not torch.isfinite(got).all() or (
                 row["cuda_vs_fp32"] > BF16_GAP_RATIO * row["torch_vs_fp32"]):
-            raise AssertionError(f"ssm run (s2): backend cuda in bf16 is "
-                                 f"farther from the fp32 answer than "
+            raise AssertionError(f"{run}: backend cuda in bf16 is farther "
+                                 f"from the fp32 answer than "
                                  f"{BF16_GAP_RATIO} x backend torch's: {row}")
         out.append(row)
-        depth *= 2
-    del params32
     return out
 
 
@@ -1772,12 +1862,224 @@ def ssm_serve_phase() -> dict:
                    "tokens_per_s": stats.tokens_per_s}
         if run == "s2":
             summary["bf16_depth_sweep"] = bf16_depth_sweep(
-                cfg, eng.params, torch.from_numpy(p).cuda())
+                "ssm run (s2)", cfg, eng.params, "prefill",
+                ({"tokens": torch.from_numpy(p).cuda()},),
+                doublings(cfg.n_layers))
         print(json.dumps(summary))
         print(f"ssm {run}: {p.shape[0]} x {plen} tokens, {n_new} new, TTFT "
               f"{stats.ttft_s * 1e3:.2f} ms, ITL {stats.itl_s * 1e3:.3f} ms, "
               f"{stats.tokens_per_s:.1f} tok/s")
     del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# -- families phase ------------------------------------------------------------
+
+#: The families phase: each config of the reference's registry not served
+#: above, at full width (dbrx and arctic cut in depth only, which one card
+#: forces), bf16, random weights from seed 0.  (arch, layers kept or None,
+#: engine, B, S text tokens, new tokens, prefix embeddings)
+FAMILY_RUNS = (
+    ("granite-3-8b", None, "continuous", 0, 0, 0, 0),
+    ("dbrx-132b", 4, "continuous", 0, 0, 0, 0),
+    ("yi-9b", None, "static", 2, 128, 8, 0),
+    ("internlm2-20b", None, "static", 2, 128, 8, 0),
+    ("qwen1.5-0.5b", None, "static", 2, 128, 8, 0),
+    ("arctic-480b", 1, "static", 2, 64, 8, 0),
+    ("zamba2-1.2b", None, "static", 4, 512, 16, 0),
+    ("paligemma-3b", None, "static", 2, 64, 8, 256),
+    ("seamless-m4t-medium", None, "static", 2, 32, 8, 1024),
+)
+#: The continuous runs: 4 slots, pages of 16, buckets 16..512, 8 Poisson
+#: requests with prompts of 10..512 tokens and 8 or 16 new.
+FAMILY_SLOTS = 4
+FAMILY_OUT_LENS = (8, 16)
+FAMILY_PROMPT_LENS = (10, 24, 50, 100, 200, 400, 512)
+def family_logits_check(run: str, cfg, params, checks) -> dict:
+    """First-token logits of backend cuda and backend torch in bf16, each
+    against backend torch in fp32 on the same weights, for each (entry
+    point, args) of ``checks`` (``bf16_depth_sweep``): the first at every
+    depth of ``doublings`` (where the plain gap is small next to the
+    logits, a wrong path shows; deeper, how bf16 rounding grows), the rest
+    at full depth.  Returns the worst of the full-depth rows and the
+    first check's sweep."""
+    sweeps = [bf16_depth_sweep(f"families {run}", cfg, params, entry, args,
+                               doublings(cfg.n_layers) if i == 0
+                               else (cfg.n_layers,))
+              for i, (entry, args) in enumerate(checks)]
+    full = [rows[-1] for rows in sweeps]
+    worst = {k: max(r[k] for r in full)
+             for k in ("cuda_vs_torch", "cuda_vs_fp32", "torch_vs_fp32",
+                       "logits_max_abs")}
+    worst["argmax_agree"] = all(r["argmax_agree"] for r in full)
+    worst["depth_sweep"] = sweeps[0]
+    return worst
+
+
+def family_static_launches(lw, cfg, B: int, S: int, n_new: int,
+                           n_prefix: int) -> dict:
+    """Launch counts one ``ServeEngine.generate`` must make, from the
+    compile records: K1 at every norm of the prefill and the n_new - 1
+    decode steps, and each prefill attention's kernel (K2 or K3) and, for
+    the hybrid, each Mamba2 layer's scan (K7 or K8); decode attention
+    (one query row) and the SSM decode step run no kernel."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import hybrid
+    from repro_torch.models.layers import dtype_of
+    dt = dtype_of(cfg.compute_dtype)
+    L, H, K, hd = (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+                   cfg.resolved_head_dim())
+    want = {n: 0 for n in _build.KERNELS}
+
+    def attn(S_, T_, n):
+        want[scheduled(lw, "attention", (B, S_, H, K, T_, hd), dt)] += n
+
+    if cfg.family == "hybrid":
+        sites = hybrid.n_sites(cfg)
+        norms = 2 * sites + 2 * L + 1
+        attn(S, S, sites)
+        want[ssd_kernel(lw, cfg, S, BT=B)] += L
+    elif cfg.family == "encdec":
+        norms = 3 * L + 1
+        want["rmsnorm"] += 2 * L + 1             # the encoder's
+        attn(n_prefix, n_prefix, L)              # encoder, full mask
+        attn(S, S, L)                            # decoder self attention
+        attn(S, n_prefix, L)                     # cross attention
+    else:
+        norms = 2 * L + 1
+        attn(S + n_prefix, S + n_prefix, L)
+    want["rmsnorm"] += norms * n_new
+    return want
+
+
+def families_phase() -> dict:
+    """Serves each of FAMILY_RUNS at full width: launch counts exact
+    against the compile records, every token in the vocab, first-token
+    logits of backend cuda against torch (``family_logits_check``), the
+    card's peak memory at init; returns the launch counts summed."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.compile.config import LoweringConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import ContinuousEngine, ServeEngine
+    from repro_torch.serve.scheduler import (make_poisson_workload,
+                                             pick_bucket)
+    total = {n: 0 for n in _build.KERNELS}
+    for arch, cut, engine, B, S, n_new, n_prefix in FAMILY_RUNS:
+        cfg = get_config(arch)
+        full_layers = cfg.n_layers
+        if cut:
+            cfg = dataclasses.replace(cfg, n_layers=cut)
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        lw = LoweringConfig("cuda")
+        params = get_model(cfg, lowering=lw).init(0, "cuda")
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated() - base
+        weights = torch.cuda.memory_allocated() - base
+        rng = np.random.default_rng(0)
+        line = {"phase": "families", "arch": arch, "family": cfg.family,
+                "layers": cfg.n_layers,
+                "cut": (f"n_layers {full_layers} -> {cut}" if cut else None),
+                "n_params": cfg.n_params(),
+                "weights_gb": weights / 1e9,
+                "init_peak_gb": init_peak / 1e9}
+        if engine == "continuous":
+            eng = ContinuousEngine(
+                cfg, params, max_batch=FAMILY_SLOTS, page_size=16,
+                max_len=BUCKETS[-1] + max(FAMILY_OUT_LENS),
+                prompt_buckets=BUCKETS, lowering=lw, device="cuda")
+            eng.run(make_poisson_workload(2, rate=2.0, vocab=cfg.vocab,
+                                          prompt_lens=(20,), out_lens=(4,),
+                                          seed=1))
+            reqs = make_poisson_workload(
+                8, rate=2.0, vocab=cfg.vocab, prompt_lens=FAMILY_PROMPT_LENS,
+                out_lens=FAMILY_OUT_LENS, seed=0)
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            stats = eng.run(reqs)
+            torch.cuda.synchronize()
+            launches = _build.launch_counts()
+            L, H, K = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads
+            hd = cfg.resolved_head_dim()
+            want = {n: 0 for n in launches}
+            want["rmsnorm"] = (2 * L + 1) * (len(reqs) + stats.decode_steps)
+            for r in reqs:
+                b = pick_bucket(r.prompt_len, BUCKETS)
+                want[scheduled(lw, "attention", (1, b, H, K, b, hd),
+                               cfg.compute_dtype)] += L
+            tokens_ok = all(len(r.out_tokens) == r.max_new_tokens
+                            and all(0 <= t < cfg.vocab for t in r.out_tokens)
+                            for r in reqs)
+            by_bucket = {}
+            for r in reqs:
+                by_bucket.setdefault(pick_bucket(r.prompt_len, BUCKETS), r)
+            checks = []
+            for bucket, r in sorted(by_bucket.items()):
+                toks = np.zeros((1, bucket), np.int32)
+                toks[0, :r.prompt_len] = r.prompt
+                checks.append(("prefill_at", (
+                    {"tokens": torch.from_numpy(toks).cuda()}, r.prompt_len)))
+            line.update(requests=stats.n_requests, tokens=stats.total_tokens,
+                        decode_steps=stats.decode_steps,
+                        buckets_used=sorted(by_bucket),
+                        ttft_ms=stats.mean_ttft_s * 1e3,
+                        itl_ms=stats.mean_itl_s * 1e3,
+                        tokens_per_s=stats.tokens_per_s)
+        else:
+            batch = {"tokens": rng.integers(0, cfg.vocab, (B, S),
+                                            dtype=np.int32)}
+            if n_prefix:
+                batch["prefix_embeds"] = rng.normal(
+                    size=(B, n_prefix, cfg.d_model)).astype(np.float32)
+            vlm_prefix = n_prefix if cfg.family == "vlm" else 0
+            eng = ServeEngine(cfg, params, lowering=lw, device="cuda",
+                              max_len=S + vlm_prefix + n_new + 8)
+            eng.generate(batch, 2)                                  # warm
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            toks, stats = eng.generate(batch, n_new)
+            torch.cuda.synchronize()
+            launches = _build.launch_counts()
+            want = family_static_launches(lw, cfg, B, S, n_new, n_prefix)
+            tokens_ok = (toks.shape == (B, n_new)
+                         and bool(((toks >= 0) & (toks < cfg.vocab)).all()))
+            dev = {k: torch.as_tensor(v, device="cuda")
+                   for k, v in batch.items()}
+            checks = [("prefill", (dev,))]
+            line.update(batch=[B, S], prefix=n_prefix, new_tokens=n_new,
+                        ttft_ms=stats.ttft_s * 1e3, itl_ms=stats.itl_s * 1e3,
+                        tokens_per_s=stats.tokens_per_s)
+        if launches != want:
+            raise AssertionError(f"families {arch}: launch counts "
+                                 f"{launches} != the records' {want}")
+        if not tokens_ok:
+            raise AssertionError(f"families {arch}: a token outside the "
+                                 f"vocab or a short output")
+        line["launches"] = launches
+        line["first_token_logits"] = family_logits_check(arch, cfg, params,
+                                                         checks)
+        line["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        line["wall_s"] = time.perf_counter() - t0
+        for n, c in launches.items():
+            total[n] += c
+        print(json.dumps(line))
+        print(f"families {arch}{' (' + line['cut'] + ')' if cut else ''}: "
+              f"{engine}, TTFT {line['ttft_ms']:.2f} ms, ITL "
+              f"{line['itl_ms']:.3f} ms, {line['tokens_per_s']:.1f} tok/s, "
+              f"weights {line['weights_gb']:.2f} GB (init peak "
+              f"{line['init_peak_gb']:.2f}), full-depth logits "
+              f"{dict(list(line['first_token_logits'].items())[:5])}")
+        del eng, params
     gc.collect()
     torch.cuda.empty_cache()
     return total
@@ -2609,12 +2911,22 @@ ROUTE_CASES = (
     *[("int8_matmul", (M, K, N), "float32")
       for M in (8, 512) for K, N in ((768, 2048), (768, 32000))],
     ("int8_matmul", (8, 768, 2048), "bfloat16"),
+    # the families' new shapes: hd 128 GQA (granite), hd 256 with one KV
+    # head under the prefix-LM mask (paligemma), the full mask over 1024
+    # frames (seamless's encoder), zamba2's scan (fp32 as its model lowers
+    # it, and bf16)
+    *[("attention", (1, S, 32, 8, S, 128), "bfloat16") for S in (128, 512)],
+    ("attention", (2, 320, 8, 1, 320, 256), "bfloat16", "prefix256"),
+    ("attention", (2, 1024, 16, 16, 1024, 64), "bfloat16", "full"),
+    ("ssd_scan", (4, 512, 64, 64, 64), "float32"),
+    ("ssd_scan", (4, 512, 64, 64, 64), "bfloat16"),
 )
 
 
-def route_inputs(op: str, shape, dtype: str, gen):
+def route_inputs(op: str, shape, dtype: str, gen, mask: str = "causal"):
     """(key shape, inputs, route call f(*inputs, pipelined=...), plain
-    version g(*inputs)) of one route case on the card."""
+    version g(*inputs)) of one route case on the card (attention under
+    ``flash_mask(mask)``)."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
@@ -2626,7 +2938,7 @@ def route_inputs(op: str, shape, dtype: str, gen):
         ins = [torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt),
                *[torch.randn((B, T, K, hd), generator=gen,
                              device="cuda").to(dt) for _ in range(2)],
-               flash_mask("causal", S, T)]
+               flash_mask(mask, S, T)]
         return (shape, ins,
                 lambda q, k, v, m, **kw: kops.flash_attention_gqa(
                     q, k, v, m, sm_scale=hd ** -0.5, **kw),
@@ -2668,8 +2980,8 @@ def route_phase() -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     summary = []
-    for op, shape, dtype in ROUTE_CASES:
-        key, ins, route, plain = route_inputs(op, shape, dtype, gen)
+    for op, shape, dtype, *mask in ROUTE_CASES:
+        key, ins, route, plain = route_inputs(op, shape, dtype, gen, *mask)
         rec = lw.lower(op, key, getattr(torch, dtype))
         sched = rec.schedule
         want = plain(*ins)
@@ -2683,7 +2995,8 @@ def route_phase() -> None:
                                          f"version")
                 continue
             tol = (int8_tol(*ins) if op == "int8_matmul" else
-                   {dtype: SSD_TOL} if op == "ssd_scan" else None)
+                   {dtype: SSD_TOL} if op == "ssd_scan"
+                   and dtype == "float32" else None)
             _check(f"route {op} {shape} pipelined={flag}", got, want, dtype,
                    tol)
         times = {f: [] for f in flags}
@@ -2695,6 +3008,7 @@ def route_phase() -> None:
         pick = sched["pipelined"]
         line = {"phase": "route", "op": op, "shape": list(key),
                 "case": shape if isinstance(shape, str) else None,
+                "mask": mask[0] if mask else None,
                 "dtype": dtype, "pick": sched["kernel"],
                 "base": sched["base"]["kernel"],
                 "pipe": sched["pipe"] and sched["pipe"]["kernel"],
@@ -2719,22 +3033,25 @@ def route_phase() -> None:
 
 
 def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
-    """One entry per kernel: its main-path representative case (the
-    largest shape the main path gives it; for K3 and K6, which no path
-    launches, their former or the reference's main case) and the largest
-    fp32 error over all its cases."""
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.pipeline import choose_depth, ssd_depth
-    i1_depth = choose_depth(64, 4, 512 // 64)
+    """One entry per kernel: its main-path representative case (the shape
+    where the main path gives it most work; for K6, which no path launches,
+    the reference's main case) and the largest error over its cases in the
+    main case's dtype."""
+    import torch
+    from repro_torch.kernels import _build, schedule
+    from repro_torch.kernels.pipeline import sm_count, ssd_depth
+    # granite-3-8b's prefill at bucket 512 (FAMILY_FLASH's first row)
+    granite = schedule.flash_schedule(1, 512, 32, 8, 512, 128, 2,
+                                      sm_count(torch.device("cuda")))
     main_case = {"rmsnorm": "R=2048 d=5120 bfloat16",   # (s2)'s gate_norm
                  # (i1)'s largest group: 8 prompts at bucket 512
                  "flash_attention":
                      "B=8 S=512 T=512 H=12 K=12 hd=64 float32 causal",
-                 # off the main path since the cost model: the
-                 # same group at choose_depth's ring, where it ran before
+                 # the families phase's bf16 prefills, where the model
+                 # picks it (llama110m's fp32 paths take K2)
                  "flash_attention_pipelined":
-                     "B=8 S=512 T=512 H=12 K=12 hd=64 float32 causal "
-                     f"depth={i1_depth}",
+                     "S=512 T=512 H=32 K=8 hd=128 bfloat16 causal "
+                     f"depth={granite['pipe']['depth']}",
                  # shape (a) for K9-K12 (K12 as run (c) takes it), (b) for
                  # K13
                  "fps": "a float32",
@@ -2755,7 +3072,7 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
         row = next(r for r in rows if r["kernel"] == name
                    and r["case"] == main_case[name])
         err = max(r["max_abs_err"] for r in rows
-                  if r["kernel"] == name and r["dtype"] == "float32")
+                  if r["kernel"] == name and r["dtype"] == row["dtype"])
         out.append({"name": name, "route": "cuda", "source": kern.source,
                     "replaces": kern.replaces, "launches": launches[name],
                     "max_abs_err": err, "ms": row["ms"],
@@ -2815,6 +3132,7 @@ def main() -> int:
     pc_launches = timed("pointcloud", pointcloud_path_phase)
     rows += timed("ssm_kernels", ssm_kernel_phase)
     ssm_launches = timed("ssm", ssm_serve_phase)
+    family_launches = timed("families", families_phase)
     rows += timed("int8_kernels", int8_kernel_phase)
     timed("int8_sweep", int8_sweep_phase)
     timed("k4_repeat", k4_repeat_phase)
@@ -2825,7 +3143,8 @@ def main() -> int:
     timed("dispatch", dispatch_phase)
     timed("evaluate", evaluate_phase)
     timed("route", route_phase)
-    runs = (launches, pc_launches, ssm_launches, i1_launches, i2_launches)
+    runs = (launches, pc_launches, ssm_launches, family_launches,
+            i1_launches, i2_launches)
     launches = {n: sum(d.get(n, 0) for d in runs)
                 for n in set().union(*runs)}
     print(json.dumps({"phase": "wall", "seconds": seconds,

@@ -16,7 +16,10 @@ class MoEConfig:
     n_experts: int
     top_k: int
     capacity_factor: float = 1.25
-    dense_residual_ff: int = 0
+    dense_residual_ff: int = 0   # arctic: parallel dense FFN next to MoE
+    # dispatch: 'sort' (argsort + scatter into expert buffers; the fewest
+    # FLOPs) or 'grouped' (GShard one-hot einsums over token groups; the
+    # reference's shardable form, also at decode)
     dispatch: str = "sort"
 
 
@@ -24,8 +27,8 @@ class MoEConfig:
 class SSMConfig:
     d_state: int
     head_dim: int = 64
-    expand: int = 2
-    chunk: int = 256
+    expand: int = 2              # d_inner = expand * d_model
+    chunk: int = 256             # SSD chunk length (the plain version's)
     conv_width: int = 4
 
 
@@ -45,7 +48,11 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    # hybrid (zamba2): one shared attention block applied every k-th layer
     shared_attn_every: int = 0
+    # encdec: n_layers encoder + n_layers decoder layers;
+    # vlm / encdec: prefix embeddings (image patches / audio frames) given
+    # by the caller in place of a frontend
     n_prefix_tokens: int = 0
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -57,6 +64,42 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
+
+    def n_params(self) -> int:
+        """Approximate parameter count (the reference's formula)."""
+        d, ff, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab
+        hd = self.resolved_head_dim()
+        attn = (d * hd * self.n_heads + 2 * d * hd * self.n_kv_heads
+                + hd * self.n_heads * d)
+        if self.family in ("ssm", "hybrid"):
+            s = self.ssm
+            d_in = s.expand * d
+            ssm_per = (d * (2 * d_in + 2 * s.d_state + d_in // s.head_dim)
+                       + d_in * d + d_in * s.conv_width)
+            body = L * ssm_per
+            if self.family == "hybrid":
+                body += attn + 3 * d * ff  # one shared block
+        elif self.family == "moe":
+            mlp = (3 * d * ff * self.moe.n_experts
+                   + 3 * d * self.moe.dense_residual_ff)
+            body = L * (attn + mlp + d * self.moe.n_experts)
+        elif self.family == "encdec":
+            body = L * (attn + 3 * d * ff) + L * (2 * attn + 3 * d * ff)
+        else:
+            body = L * (attn + 3 * d * ff)
+        return body + V * d * (1 if self.tie_embeddings else 2)
+
+    def n_active_params(self) -> int:
+        """Parameters a token passes through (MoE: its top-k experts)."""
+        if self.family != "moe":
+            return self.n_params()
+        d, ff, L = self.d_model, self.d_ff, self.n_layers
+        hd = self.resolved_head_dim()
+        attn = (d * hd * (self.n_heads + 2 * self.n_kv_heads)
+                + hd * self.n_heads * d)
+        mlp = 3 * d * ff * self.moe.top_k + 3 * d * self.moe.dense_residual_ff
+        body = L * (attn + mlp + d * self.moe.n_experts)
+        return body + self.vocab * self.d_model * 2
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

@@ -5,7 +5,11 @@ length Poisson workload; the default drives the static-batch engine on a
 uniform batch.  ``--int8`` quantizes every ≥2-D weight to int8 per tensor
 and dequantizes it once, at load.  Runs on the card (``--device cuda``, the
 default) unless ``--device cpu`` is given; TF32 is switched off so fp32
-matmuls stay fp32.
+matmuls stay fp32.  Every registered arch is taken; ``--continuous`` only
+where the family has a paged decode path (dense, moe).  The vlm and encdec
+families read prefix embeddings (image patches, audio frames) that no
+frontend here makes: for them the launcher raises, naming the missing
+input; serve them through ``ServeEngine.generate`` with ``prefix_embeds``.
 """
 
 from __future__ import annotations
@@ -64,6 +68,12 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
+    if cfg.family in ("vlm", "encdec"):
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}) needs 'prefix_embeds' (B, "
+            f"{cfg.n_prefix_tokens}, {cfg.d_model}) beside its tokens, and "
+            f"this launcher has no frontend to make them; call "
+            f"ServeEngine.generate with them")
     lowering = LoweringConfig(args.backend)
 
     if args.continuous:

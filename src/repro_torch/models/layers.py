@@ -1,5 +1,5 @@
-"""Shared layer substrate of the dense family: RMSNorm, RoPE, GQA attention,
-SwiGLU MLP, embeddings.
+"""Shared layer substrate of every family: RMSNorm, RoPE, GQA attention,
+masks, SwiGLU MLP, embeddings.
 
 Parameters are plain nested dicts of tensors with the reference's names,
 shapes and layouts, so a ``repro`` param tree bridges over as it is
@@ -8,7 +8,13 @@ shapes and layouts, so a ``repro`` param tree bridges over as it is
 hand-written kernels on the ``"cuda"`` backend, with the record's
 schedule; ``"torch_chunked"`` runs attention as an online softmax over key
 chunks; decode attention (a one-row query) and every GEMM stay plain torch
-ops, as the reference leaves them to XLA.
+ops, as the reference leaves them to XLA.  The MLP and unembedding GEMMs
+look up their ``matmul`` record all the same, as the reference does (the
+recorded negative control: no ISAX matches a plain GEMM).
+
+The init functions take ``lead``, a shape put before each leaf's own:
+a stack of layers is drawn as one ``(L, ...)`` tensor a leaf, so a model
+never holds its blocks twice.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.compile.config import LoweringConfig, default_lowering
 from repro_torch.configs.base import ModelConfig
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -30,17 +37,18 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype, device):
-    """N(0, std²) draws in fp32 from ``gen``, cast to ``dtype``."""
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * std).to(dtype)
+    """N(0, std²) draws from ``gen``, made in ``dtype`` in place (no fp32
+    copy of a full-width leaf)."""
+    return torch.empty(shape, dtype=dtype, device=device).normal_(
+        0.0, std, generator=gen)
 
 
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 
-def init_rmsnorm(d: int, dtype, device) -> dict:
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def init_rmsnorm(d: int, dtype, device, lead: tuple = ()) -> dict:
+    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device)}
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6, *,
@@ -86,21 +94,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # GQA attention
 # ---------------------------------------------------------------------------
 
-def init_attention(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+def init_attention(cfg: ModelConfig, gen: torch.Generator, device,
+                   lead: tuple = ()) -> dict:
     d, H, K = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim()
     dt = dtype_of(cfg.param_dtype)
     scale = d ** -0.5
     p = {
-        "wq": _normal(gen, (d, H, hd), scale, dt, device),
-        "wk": _normal(gen, (d, K, hd), scale, dt, device),
-        "wv": _normal(gen, (d, K, hd), scale, dt, device),
-        "wo": _normal(gen, (H, hd, d), (H * hd) ** -0.5, dt, device),
+        "wq": _normal(gen, lead + (d, H, hd), scale, dt, device),
+        "wk": _normal(gen, lead + (d, K, hd), scale, dt, device),
+        "wv": _normal(gen, lead + (d, K, hd), scale, dt, device),
+        "wo": _normal(gen, lead + (H, hd, d), (H * hd) ** -0.5, dt, device),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((H, hd), dtype=dt, device=device)
-        p["bk"] = torch.zeros((K, hd), dtype=dt, device=device)
-        p["bv"] = torch.zeros((K, hd), dtype=dt, device=device)
+        for name, heads in (("bq", H), ("bk", K), ("bv", K)):
+            p[name] = torch.zeros(lead + (heads, hd), dtype=dt, device=device)
     return p
 
 
@@ -281,35 +289,47 @@ def attention_decode_paged(params, x, cfg: ModelConfig, k_pages, v_pages,
     return _out_proj(out, params["wo"].to(cd)), k_pages, v_pages
 
 
-def make_mask(kind: str, S: int, T: Optional[int] = None,
+def make_mask(kind: str, S: int, T: Optional[int] = None, n_prefix: int = 0,
               device=None) -> torch.Tensor:
-    """(1, S, T) boolean attention mask; the dense family needs only
-    ``"causal"`` (the vlm prefix mask arrives with that family)."""
-    if kind != "causal":
-        raise ValueError(f"mask kind {kind!r} is not ported")
+    """(1, S, T) boolean attention mask: ``"causal"``; ``"prefix"``, causal
+    and bidirectional over the first ``n_prefix`` positions (the vlm
+    prefix-LM mask); ``"full"``, every key (encoder and cross attention)."""
     T = T or S
     rows = torch.arange(S, device=device)[:, None]
     cols = torch.arange(T, device=device)[None, :]
-    return (cols <= rows)[None]
+    if kind == "causal":
+        m = cols <= rows
+    elif kind == "prefix":
+        m = (cols <= rows) | (cols < n_prefix)
+    elif kind == "full":
+        m = torch.ones((S, T), dtype=torch.bool, device=device)
+    else:
+        raise ValueError(kind)
+    return m[None]
 
 
 # ---------------------------------------------------------------------------
 # SwiGLU MLP (GEMMs stay torch.matmul: the reference's negative control)
 # ---------------------------------------------------------------------------
 
-def init_mlp(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
-    d, ff = cfg.d_model, cfg.d_ff
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, device,
+             d_ff: Optional[int] = None, lead: tuple = ()) -> dict:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     dt = dtype_of(cfg.param_dtype)
     return {
-        "wi_gate": _normal(gen, (d, ff), d ** -0.5, dt, device),
-        "wi_up": _normal(gen, (d, ff), d ** -0.5, dt, device),
-        "wo": _normal(gen, (ff, d), ff ** -0.5, dt, device),
+        "wi_gate": _normal(gen, lead + (d, ff), d ** -0.5, dt, device),
+        "wi_up": _normal(gen, lead + (d, ff), d ** -0.5, dt, device),
+        "wo": _normal(gen, lead + (ff, d), ff ** -0.5, dt, device),
     }
 
 
-def mlp(params, x, cfg: ModelConfig):
+def mlp(params, x, cfg: ModelConfig,
+        lowering: Optional[LoweringConfig] = None):
+    lw = lowering or default_lowering()
     cd = dtype_of(cfg.compute_dtype)
     x = x.to(cd)
+    d, ff = params["wi_gate"].shape
+    lw.lower("matmul", (math.prod(x.shape[:-1]), d, ff), x.dtype)
     g = x @ params["wi_gate"].to(cd)
     u = x @ params["wi_up"].to(cd)
     return (F.silu(g) * u) @ params["wo"].to(cd)
@@ -330,7 +350,11 @@ def embed(params, tokens, cfg: ModelConfig):
     return params["table"].to(cd)[tokens.long()]
 
 
-def unembed(table_or_w, x, cfg: ModelConfig):
+def unembed(table_or_w, x, cfg: ModelConfig,
+            lowering: Optional[LoweringConfig] = None):
+    lw = lowering or default_lowering()
+    lw.lower("matmul", (math.prod(x.shape[:-1]), x.shape[-1],
+                        table_or_w.shape[0]), x.dtype)
     cd = dtype_of(cfg.compute_dtype)
     logits = x.to(cd) @ table_or_w.to(cd).T
     return logits.to(dtype_of(cfg.logit_dtype))

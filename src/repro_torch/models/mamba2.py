@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from repro_torch.compile.config import LoweringConfig, default_lowering
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import layer_params, new_generator
 
 
 
@@ -52,9 +52,7 @@ def init_ssm_block(cfg: ModelConfig, gen: torch.Generator, device,
     Ls = (n_layers,)
 
     def normal(shape, std):
-        x = torch.randn(Ls + shape, generator=gen, dtype=torch.float32,
-                        device=device)
-        return x.mul_(std).to(dt)
+        return L._normal(gen, Ls + shape, std, dt, device)
 
     def full(shape, value, dtype):
         return torch.full(Ls + shape, value, dtype=dtype, device=device)
@@ -78,8 +76,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
     ``device`` (not ``jax.random``'s numbers; parity tests bridge the
     reference's own weights)."""
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = new_generator(seed, device)
     dt = L.dtype_of(cfg.param_dtype)
     return {
         "embed": L.init_embedding(cfg, gen, device),
@@ -269,7 +266,8 @@ def ssm_block_decode(params, u, cfg: ModelConfig, cache,
 
 def _logits(params, h, cfg: ModelConfig, lowering):
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, lowering=lowering)
-    return L.unembed(params["embed"]["table"], h, cfg)[:, 0]
+    return L.unembed(params["embed"]["table"], h, cfg,
+                     lowering=lowering)[:, 0]
 
 
 def prefill(params, batch, cfg: ModelConfig, pad_to=None,

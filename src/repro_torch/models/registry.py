@@ -1,9 +1,12 @@
-"""Uniform model API over the ported families: ``get_model(cfg, lowering)``.
+"""Uniform model API over every family: ``get_model(cfg, lowering)``.
 
-The dense and SSM families are ported; every other family raises
-``NotImplementedError`` naming the ROADMAP item that brings it.  Only the
-attention families have the paged entry points (``prefill_at``,
-``decode_paged``); elsewhere they are None, as in the reference.
+dense, moe and vlm bind ``transformer``, ssm ``mamba2``, hybrid ``hybrid``
+and encdec ``encdec``, as in the reference.  Only dense and moe have the
+paged entry points (``prefill_at``, ``decode_paged``) that the
+continuous-batching engine needs; elsewhere they are None, as in the
+reference.  The reference's ``ShapeDtypeStruct`` specs of the dry-run
+(``batch_specs``, ``cache_specs``, ``input_specs``, ``param_specs``) come
+with the distribution slice.
 """
 
 from __future__ import annotations
@@ -13,15 +16,10 @@ from typing import Callable, Optional
 
 from repro_torch.compile.config import LoweringConfig
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import encdec, hybrid, mamba2, transformer
 
-#: Family → the ROADMAP.md item ("Modules still to port") that ports it.
-_PENDING = {
-    "moe": "item 11 (models/moe.py)",
-    "vlm": "item 11 (the vlm prefix mask in transformer.py)",
-    "hybrid": "item 11 (models/hybrid.py)",
-    "encdec": "item 11 (models/encdec.py)",
-}
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+             "ssm": mamba2, "hybrid": hybrid, "encdec": encdec}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,8 +28,8 @@ class Model:
     init: Callable             # (seed, device) -> params
     prefill: Callable          # (params, batch, pad_to) -> (logits, caches)
     decode_step: Callable      # (params, token, caches, pos) -> (logits, caches)
-    # Paged-KV serving entry points (continuous batching); only attention
-    # families implement them — None elsewhere.
+    # Paged-KV serving entry points (continuous batching); only the dense
+    # and moe families implement them — None elsewhere.
     prefill_at: Optional[Callable] = None   # (params, batch, length)
     #                                         -> (logits, caches)
     decode_paged: Optional[Callable] = None  # (params, tokens, k_pages,
@@ -43,33 +41,27 @@ def get_model(cfg: ModelConfig,
               lowering: Optional[LoweringConfig] = None) -> Model:
     """Bind the family module to a config and a lowering policy (default:
     the ``"cuda"`` backend)."""
+    if cfg.family not in _FAMILIES:
+        raise ValueError(cfg.family)
+    mod = _FAMILIES[cfg.family]
     lw = lowering or LoweringConfig()
-    if cfg.family == "ssm":
-        M = mamba2
-        return Model(
-            cfg=cfg,
-            init=lambda seed=0, device="cpu": M.init_params(cfg, seed, device),
-            prefill=lambda p, b, pad_to=None: M.prefill(p, b, cfg,
-                                                        pad_to=pad_to,
-                                                        lowering=lw),
-            decode_step=lambda p, t, c, pos: M.decode_step(p, t, c, pos, cfg,
-                                                           lowering=lw),
-        )
-    if cfg.family != "dense":
-        where = _PENDING.get(cfg.family)
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet"
-            + (f"; ROADMAP.md {where} brings it" if where else ""))
-    T = transformer
+    paged = {}
+    if cfg.family in ("dense", "moe"):
+        T = transformer
+        paged = {
+            "prefill_at": lambda p, b, length: T.prefill_at(
+                p, b, length, cfg, lowering=lw),
+            "decode_paged": lambda p, t, kp, vp, pt, sl, act:
+                T.decode_step_paged(p, t, kp, vp, pt, sl, act, cfg,
+                                    lowering=lw),
+        }
     return Model(
         cfg=cfg,
-        init=lambda seed=0, device="cpu": T.init_params(cfg, seed, device),
-        prefill=lambda p, b, pad_to=None: T.prefill(p, b, cfg, pad_to=pad_to,
-                                                    lowering=lw),
-        decode_step=lambda p, t, c, pos: T.decode_step(p, t, c, pos, cfg,
-                                                       lowering=lw),
-        prefill_at=lambda p, b, length: T.prefill_at(p, b, length, cfg,
-                                                     lowering=lw),
-        decode_paged=lambda p, t, kp, vp, pt, sl, act: T.decode_step_paged(
-            p, t, kp, vp, pt, sl, act, cfg, lowering=lw),
+        init=lambda seed=0, device="cpu": mod.init_params(cfg, seed, device),
+        prefill=lambda p, b, pad_to=None: mod.prefill(p, b, cfg,
+                                                      pad_to=pad_to,
+                                                      lowering=lw),
+        decode_step=lambda p, t, c, pos: mod.decode_step(p, t, c, pos, cfg,
+                                                         lowering=lw),
+        **paged,
     )

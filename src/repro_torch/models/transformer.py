@@ -1,8 +1,11 @@
-"""Decoder-only transformer, dense branch.
+"""Decoder-only transformer covering the dense, moe and vlm families.
 
 Parameters carry a leading layer axis (``blocks[...]`` is ``(L, ...)``), as
 in the reference, so a ``repro`` param tree bridges over unchanged; the
-reference's ``jax.lax.scan`` over that axis is a Python loop here.
+reference's ``jax.lax.scan`` over that axis is a Python loop here.  A moe
+config's blocks carry ``moe`` (``models/moe.py``) where the others carry
+``mlp``; a vlm batch may carry ``prefix_embeds`` (B, P, d), prepended to
+the token embeddings and attended under the prefix-LM mask.
 
 Entry points:
   init_params(cfg, seed, device)
@@ -22,27 +25,34 @@ import torch
 from repro_torch.compile.config import LoweringConfig
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import init_moe, moe_mlp
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (see ROADMAP.md)")
+def _is_moe(cfg: ModelConfig) -> bool:
+    return cfg.moe is not None
 
 
-def init_block(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+def init_blocks(cfg: ModelConfig, gen: torch.Generator, device,
+                n_layers: int) -> dict:
+    """The blocks' params, each leaf one ``(n_layers, ...)`` tensor."""
     dt = L.dtype_of(cfg.param_dtype)
-    return {
-        "attn_norm": L.init_rmsnorm(cfg.d_model, dt, device),
-        "attn": L.init_attention(cfg, gen, device),
-        "mlp_norm": L.init_rmsnorm(cfg.d_model, dt, device),
-        "mlp": L.init_mlp(cfg, gen, device),
+    lead = (n_layers,)
+    p = {
+        "attn_norm": L.init_rmsnorm(cfg.d_model, dt, device, lead),
+        "attn": L.init_attention(cfg, gen, device, lead),
+        "mlp_norm": L.init_rmsnorm(cfg.d_model, dt, device, lead),
     }
+    if _is_moe(cfg):
+        p["moe"] = init_moe(cfg, gen, device, lead)
+    else:
+        p["mlp"] = L.init_mlp(cfg, gen, device, lead=lead)
+    return p
 
 
-def _stack(trees: list[dict]) -> dict:
-    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
-            else torch.stack([t[k] for t in trees]) for k in trees[0]}
+def new_generator(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
@@ -50,15 +60,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
     from a ``torch.Generator`` seeded with ``seed`` on ``device`` (the
     numbers differ from ``jax.random``'s; parity tests bridge the
     reference's own weights instead)."""
-    _check_dense(cfg)
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = new_generator(seed, device)
     dt = L.dtype_of(cfg.param_dtype)
     p = {
         "embed": L.init_embedding(cfg, gen, device),
-        "blocks": _stack([init_block(cfg, gen, device)
-                          for _ in range(cfg.n_layers)]),
+        "blocks": init_blocks(cfg, gen, device, cfg.n_layers),
         "final_norm": L.init_rmsnorm(cfg.d_model, dt, device),
     }
     if not cfg.tie_embeddings:
@@ -83,10 +90,18 @@ def block_fwd(cfg: ModelConfig, x, bp, mask, positions,
                         L.rmsnorm(bp["attn_norm"], x, cfg.norm_eps,
                                   lowering=lowering),
                         cfg, mask, positions, lowering=lowering)
-    x = x + a
-    y = L.mlp(bp["mlp"], L.rmsnorm(bp["mlp_norm"], x, cfg.norm_eps,
-                                   lowering=lowering), cfg)
-    return x + y, kv
+    return _ffn(bp, x + a, cfg, lowering), kv
+
+
+def _ffn(bp, h, cfg: ModelConfig, lowering):
+    """h + the block's MLP (or MoE: its auxiliary loss is dropped, as the
+    port has no training path) of the normed h."""
+    hn = L.rmsnorm(bp["mlp_norm"], h, cfg.norm_eps, lowering=lowering)
+    if _is_moe(cfg):
+        y, _ = moe_mlp(bp["moe"], hn, cfg, lowering=lowering)
+    else:
+        y = L.mlp(bp["mlp"], hn, cfg, lowering=lowering)
+    return h + y
 
 
 def backbone(params, x, cfg: ModelConfig, mask, positions,
@@ -114,22 +129,48 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None].expand(B, S)
 
 
-def prefill(params, batch, cfg: ModelConfig, pad_to: Optional[int] = None,
-            lowering: Optional[LoweringConfig] = None):
-    """Returns (last-position logits (B, vocab), {'k','v'} (L,B,S',K,hd)),
-    with S' = ``pad_to`` when it exceeds the prompt (zero padded)."""
-    _check_dense(cfg)
+def _inputs_to_x(params, batch, cfg: ModelConfig):
+    """tokens (+ ``prefix_embeds`` for vlm) → embeddings (B, S, d)."""
     x = L.embed(params["embed"], batch["tokens"], cfg)
-    B, S, _ = x.shape
-    mask = L.make_mask("causal", S, device=x.device)
-    h, (k_stack, v_stack) = backbone(params, x, cfg, mask,
-                                     _positions(B, S, x.device),
-                                     collect_kv=True, lowering=lowering)
+    if cfg.n_prefix_tokens and "prefix_embeds" in batch:
+        pe = batch["prefix_embeds"].to(device=x.device, dtype=x.dtype)
+        x = torch.cat([pe, x], dim=1)
+    return x
+
+
+def _prefill_mask(cfg: ModelConfig, S: int, device):
+    """The prefix-LM mask over the first n_prefix_tokens for vlm, causal
+    otherwise."""
+    if cfg.family == "vlm":
+        return L.make_mask("prefix", S, n_prefix=cfg.n_prefix_tokens,
+                           device=device)
+    return L.make_mask("causal", S, device=device)
+
+
+def pad_kv(k_stack, v_stack, pad_to: Optional[int]):
+    """Zero-pad (L, B, S, K, hd) stacks along S to ``pad_to``."""
+    S = k_stack.shape[2]
     if pad_to and pad_to > S:
         pad = (0, 0, 0, 0, 0, pad_to - S)
         k_stack = torch.nn.functional.pad(k_stack, pad)
         v_stack = torch.nn.functional.pad(v_stack, pad)
-    logits = L.unembed(_unembed_table(params, cfg), h[:, -1:, :], cfg)
+    return k_stack, v_stack
+
+
+def prefill(params, batch, cfg: ModelConfig, pad_to: Optional[int] = None,
+            lowering: Optional[LoweringConfig] = None):
+    """Returns (last-position logits (B, vocab), {'k','v'} (L,B,S',K,hd)),
+    with S' = ``pad_to`` when it exceeds the prompt (zero padded); a vlm
+    prompt's S counts its prefix embeddings."""
+    x = _inputs_to_x(params, batch, cfg)
+    B, S, _ = x.shape
+    mask = _prefill_mask(cfg, S, x.device)
+    h, (k_stack, v_stack) = backbone(params, x, cfg, mask,
+                                     _positions(B, S, x.device),
+                                     collect_kv=True, lowering=lowering)
+    k_stack, v_stack = pad_kv(k_stack, v_stack, pad_to)
+    logits = L.unembed(_unembed_table(params, cfg), h[:, -1:, :], cfg,
+                       lowering=lowering)
     return logits[:, 0], {"k": k_stack, "v": v_stack}
 
 
@@ -143,8 +184,7 @@ def prefill_at(params, batch, length: int, cfg: ModelConfig,
     batch: {'tokens': (B, S_pad)}; length: true prompt length (int).
     Returns (logits (B, vocab), {'k','v'} (L, B, S_pad, K, hd)).
     """
-    _check_dense(cfg)
-    x = L.embed(params["embed"], batch["tokens"], cfg)
+    x = _inputs_to_x(params, batch, cfg)
     B, S, _ = x.shape
     mask = L.make_mask("causal", S, device=x.device)
     h, (k_stack, v_stack) = backbone(params, x, cfg, mask,
@@ -152,13 +192,8 @@ def prefill_at(params, batch, length: int, cfg: ModelConfig,
                                      collect_kv=True, lowering=lowering)
     length = int(length)
     logits = L.unembed(_unembed_table(params, cfg), h[:, length - 1:length],
-                       cfg)
+                       cfg, lowering=lowering)
     return logits[:, 0], {"k": k_stack, "v": v_stack}
-
-
-def _decode_mlp(bp, h, cfg, lowering):
-    return h + L.mlp(bp["mlp"], L.rmsnorm(bp["mlp_norm"], h, cfg.norm_eps,
-                                          lowering=lowering), cfg)
 
 
 def decode_step_paged(params, tokens, k_pages, v_pages, page_table, seq_lens,
@@ -173,7 +208,6 @@ def decode_step_paged(params, tokens, k_pages, v_pages, page_table, seq_lens,
 
     Returns (logits (B, vocab), k_pages, v_pages).
     """
-    _check_dense(cfg)
     h = L.embed(params["embed"], tokens[:, None], cfg)  # (B,1,d)
     for i in range(cfg.n_layers):
         bp = layer_params(params["blocks"], i)
@@ -182,9 +216,10 @@ def decode_step_paged(params, tokens, k_pages, v_pages, page_table, seq_lens,
                                   lowering=lowering),
             cfg, k_pages[i], v_pages[i], page_table, seq_lens, active,
             lowering=lowering)
-        h = _decode_mlp(bp, h + a, cfg, lowering)
+        h = _ffn(bp, h + a, cfg, lowering)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, lowering=lowering)
-    logits = L.unembed(_unembed_table(params, cfg), h, cfg)
+    logits = L.unembed(_unembed_table(params, cfg), h, cfg,
+                       lowering=lowering)
     return logits[:, 0], k_pages, v_pages
 
 
@@ -192,7 +227,6 @@ def decode_step(params, token, caches, pos: int, cfg: ModelConfig,
                 lowering: Optional[LoweringConfig] = None):
     """One-token decode.  token: (B,) int; caches: {'k','v'} (L,B,T,K,hd),
     updated in place at ``pos``.  Returns (logits (B, vocab), caches)."""
-    _check_dense(cfg)
     h = L.embed(params["embed"], token[:, None], cfg)  # (B,1,d)
     for i in range(cfg.n_layers):
         bp = layer_params(params["blocks"], i)
@@ -200,7 +234,8 @@ def decode_step(params, token, caches, pos: int, cfg: ModelConfig,
             bp["attn"], L.rmsnorm(bp["attn_norm"], h, cfg.norm_eps,
                                   lowering=lowering),
             cfg, caches["k"][i], caches["v"][i], int(pos), lowering=lowering)
-        h = _decode_mlp(bp, h + a, cfg, lowering)
+        h = _ffn(bp, h + a, cfg, lowering)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, lowering=lowering)
-    logits = L.unembed(_unembed_table(params, cfg), h, cfg)
+    logits = L.unembed(_unembed_table(params, cfg), h, cfg,
+                       lowering=lowering)
     return logits[:, 0], caches

@@ -147,15 +147,19 @@ class ServeEngine:
 
     def generate(self, batch: dict, n_tokens: int
                  ) -> tuple[np.ndarray, ServeStats]:
-        """Prefill ``batch`` ({'tokens': (B, S)}) and greedily decode
-        ``n_tokens`` tokens; returns ``(tokens (B, n_tokens), ServeStats)``."""
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        """Prefill ``batch`` ({'tokens': (B, S)}, and ``prefix_embeds`` (B,
+        P, d) for vlm and encdec) and greedily decode ``n_tokens`` tokens;
+        returns ``(tokens (B, n_tokens), ServeStats)``.  A vlm's decode
+        starts at S + n_prefix_tokens, past its prefix, as the
+        reference's does."""
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in batch.items()}
         t0 = time.perf_counter()
-        logits, caches = self.model.prefill(self.params, {"tokens": tokens},
-                                            self.max_len)
+        logits, caches = self.model.prefill(self.params, batch, self.max_len)
         _sync(self.device)
         ttft = time.perf_counter() - t0
-        pos = tokens.shape[1]
+        n_prefix = self.cfg.n_prefix_tokens if self.cfg.family == "vlm" else 0
+        pos = batch["tokens"].shape[1] + n_prefix
         token = torch.argmax(logits, dim=-1).to(torch.int32)
         out = [token.cpu().numpy()]
         t1 = time.perf_counter()
@@ -269,20 +273,24 @@ class ContinuousEngine:
 
     def _resolve_lowerings(self, max_batch: int) -> None:
         """Look up the compile records of the decode step's and each
-        bucket's prefill attention and norms now, while the engine is
-        built: the first lookup of a trace spec runs its e-graph
-        saturation, which would otherwise fall into the first request's
-        TTFT.  The shapes are fixed here (slots, pages, buckets)."""
+        bucket's prefill attention and norms, and of the unembedding GEMM,
+        now, while the engine is built: the first lookup of a trace spec
+        runs its e-graph saturation, which would otherwise fall into the
+        first request's TTFT (a later key of a saturated spec is a quick
+        decision).  The shapes are fixed here (slots, pages, buckets)."""
         cfg = self.cfg
+        lw = self.lowering
         dt = L.dtype_of(cfg.compute_dtype)
-        H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+        d, H, K, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.resolved_head_dim())
         T = self.cache.pages_per_seq * self.cache.page_size
-        self.lowering.lower("rmsnorm", (max_batch, cfg.d_model), dt)
-        self.lowering.lower("attention_paged", (max_batch, 1, H, K, T, hd),
-                            dt)
+        lw.lower("rmsnorm", (max_batch, d), dt)
+        lw.lower("attention_paged", (max_batch, 1, H, K, T, hd), dt)
+        lw.lower("matmul", (max_batch, d, cfg.vocab), dt)
+        lw.lower("matmul", (1, d, cfg.vocab), dt)
         for b in self.prompt_buckets:
-            self.lowering.lower("rmsnorm", (b, cfg.d_model), dt)
-            self.lowering.lower("attention", (1, b, H, K, b, hd), dt)
+            lw.lower("rmsnorm", (b, d), dt)
+            lw.lower("attention", (1, b, H, K, b, hd), dt)
 
     def _lifetime_tokens(self, req: Request, bucket: int) -> int:
         return max(bucket, req.prompt_len + req.max_new_tokens)

@@ -264,6 +264,82 @@ def test_reduced_model_cuda_backend_matches_torch_backend(gen):
     torch.testing.assert_close(gkv["k"], wkv["k"], atol=1e-5, rtol=0)
 
 
+#: The families' prefill masks: the vlm prefix-LM mask (paligemma-3b's hd
+#: 256 with one KV head, and a prefix that ends inside a tile), the
+#: encoder's full mask and the cross attention's with S != T
+#: (seamless-m4t-medium), and a full mask at hd 128 with 9 query rows.
+FAMILY_FLASH = [  # B, S, T, H, K, hd, mask kind, n_prefix
+    (1, 320, 320, 8, 1, 256, "prefix", 256),
+    (2, 100, 100, 4, 1, 256, "prefix", 70),
+    (2, 32, 1024, 4, 4, 64, "full", 0),
+    (1, 1024, 1024, 4, 4, 64, "full", 0),
+    (2, 9, 130, 4, 2, 128, "full", 0)]
+
+
+@pytest.mark.parametrize("dtype", FLOATS)
+@pytest.mark.parametrize("B,S,T,H,K,hd,kind,n_prefix", FAMILY_FLASH)
+def test_flash_kernels_under_family_masks(gen, B, S, T, H, K, hd, kind,
+                                          n_prefix, dtype):
+    """K2 and K3 (every ring depth that fits) under ``layers.make_mask``'s
+    prefix and full masks against the plain version, each launch counting
+    the K/V tiles the mask leaves live."""
+    from repro_torch.models.layers import make_mask
+    q, k, v, _ = _flash_inputs(gen, B, S, T, H, K, hd, dtype)
+    mask = make_mask(kind, S, T, n_prefix=n_prefix, device="cuda")
+    want = ref.flash_attention_ref(q, k, v, mask, sm_scale=hd ** -0.5)
+    outs = [_live_counted("flash_attention", lambda n: flash_attention(
+        q, k, v, mask, sm_scale=hd ** -0.5, live_count=n), mask, B, H, hd)]
+    for depth in (2, 3, 4):
+        if (pipeline.ring_smem_bytes(hd, q.element_size(), depth)
+                <= pipeline.MAX_SMEM):
+            outs.append(_live_counted(
+                "flash_attention_pipelined",
+                lambda n: flash_attention_pipelined(
+                    q, k, v, mask, sm_scale=hd ** -0.5, depth=depth,
+                    live_count=n), mask, B, H, hd))
+    for got in outs:
+        torch.testing.assert_close(got, want, **_tol(dtype))
+
+
+FAMILIES = ["granite-3-8b", "yi-9b", "internlm2-20b", "qwen1.5-0.5b",
+            "dbrx-132b", "arctic-480b", "zamba2-1.2b", "paligemma-3b",
+            "seamless-m4t-medium"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_reduced_family_cuda_backend_matches_torch_backend(gen, arch):
+    """A reduced prefill and one decode step of each family on backend
+    cuda (the kernels) against backend torch on the same weights: logits
+    and caches within 5e-5 / 1e-4 (the reference's decode-vs-prefill
+    tolerance: two to four fp32 layers, zamba2's SSD on 3xTF32)."""
+    cfg = reduced(get_config(arch))
+    cuda_m = get_model(cfg, lowering=LoweringConfig("cuda"))
+    plain_m = get_model(cfg, lowering=LoweringConfig("torch"))
+    params = cuda_m.init(0, "cuda")
+    S = 40
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, S), generator=gen,
+                                     device="cuda")}
+    P = {"vlm": cfg.n_prefix_tokens, "encdec": 24}.get(cfg.family, 0)
+    if P:
+        batch["prefix_embeds"] = torch.randn((2, P, cfg.d_model),
+                                             generator=gen, device="cuda")
+    pos = S + (P if cfg.family == "vlm" else 0)
+    tol = dict(atol=5e-5, rtol=1e-4)
+    before = _build.launch_counts()
+    got, gc = cuda_m.prefill(params, batch, pos + 4)
+    torch.cuda.synchronize()
+    ran = {n for n, c in _build.launch_counts().items() if c > before[n]}
+    assert "rmsnorm" in ran and ran & {"flash_attention",
+                                       "flash_attention_pipelined"}, ran
+    want, wc = plain_m.prefill(params, batch, pos + 4)
+    torch.testing.assert_close(got, want, **tol)
+    torch.testing.assert_close(gc["k"], wc["k"], **tol)
+    tok = torch.argmax(want, dim=-1).to(torch.int32)
+    got, _ = cuda_m.decode_step(params, tok, gc, pos)
+    want, _ = plain_m.decode_step(params, tok, wc, pos)
+    torch.testing.assert_close(got, want, **tol)
+
+
 # ---------------------------------------------------------------------------
 # Point-cloud kernels K9-K13
 # ---------------------------------------------------------------------------

@@ -63,13 +63,15 @@ def _close(got, want, what):
 
 
 def test_config_matches_reference(cfgs):
-    cfg, jcfg = cfgs
-    for f in dataclasses.fields(cfg):
-        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
-    full = get_config("llama110m")
-    jfull = jax_get_config("llama110m")
-    for f in dataclasses.fields(full):
-        assert getattr(full, f.name) == getattr(jfull, f.name), f.name
+    """Every config of the reference's registry, field for field, full
+    and reduced."""
+    from repro.configs.registry import available_configs as jax_available
+    from repro_torch.configs.registry import available_configs
+    assert available_configs() == jax_available()
+    for name in available_configs():
+        full, jfull = get_config(name), jax_get_config(name)
+        for a, b in ((full, jfull), (reduced(full), jax_reduced(jfull))):
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), name
 
 
 def test_port_init_matches_reference_shapes(cfgs, params):
