@@ -8,7 +8,9 @@ registry at full width (dbrx-132b and arctic-480b cut in depth only),
 serves llama110m on int8 weights through
 ``StaticBatchEngine`` and sends its quantized projections through the
 quantized-GEMM entry point, checks that each path went through the
-kernels its compile records name, then prints the compile cache, runs the
+kernels its compile records name, trains through the port's ``Trainer``
+(llama110m with a failure and a restart, qwen1.5-0.5b under each remat
+policy, every other family two steps), then prints the compile cache, runs the
 e-graph's offloaded programs on the kernels, and times both kernels of
 each baseline/pipelined pair where the cost model picks between them.
 
@@ -242,6 +244,30 @@ Phases (any failure exits non-zero; nothing is caught):
    the plain version at phase 8's fp32 tolerance; the card's µs for the
    85 calls back to back and the host's µs a call (queued behind a GPU
    spin), and their wall time.
+10b. train: the port's ``Trainer`` on the card, backend "torch" (the
+   kernels have no gradient; launch counts zeroed before and read after:
+   the training path launches none).  (t1) llama110m fp32 at full width,
+   ``TrainConfig``'s batch 8 x seq 128: the first step's gradients
+   against the port's on the CPU from the same weights and batch (each
+   leaf's relative norm distance at most 1e-4, every leaf's norm above
+   0: a graph cut by a kernel launch fails here), a loss under backend
+   "cuda" raising the routes' guard, 8 AdamW updates on the step-0 batch
+   lowering its loss, 20 steps timed (warm median step ms, tokens/s,
+   ``max_memory_allocated``), and 20 steps under ``run_with_restarts``
+   with a ``FailureInjector`` at step 12 and checkpoints every 5 steps
+   in a temporary directory: exactly one restart, step 20 reached, every
+   post-restart loss within rel 1e-4 of the no-failure run's.  (t2)
+   qwen1.5-0.5b bf16, B 4 x S 512, two steps under each remat policy
+   (none, dots, full): the steps' peak memory above the weights and
+   AdamW state lower under dots and full than under none, the first
+   loss the same within bf16's 2e-2.  (t3) mamba2-2.7b, zamba2-1.2b,
+   paligemma-3b (256 prefix embeddings), seamless-m4t-medium (1024
+   frames) and dbrx-132b (aux loss, bf16 AdamW state) at full width,
+   depth cut only where params + grads + AdamW state (``train_bytes``)
+   pass TRAIN_BUDGET of the card (dbrx 40 -> 1 layer; arctic-480b, 14 B
+   parameters a layer, skipped and said why): two AdamW steps on a fixed
+   batch, finite losses, every leaf's gradient norm above 0, the second
+   loss below the first.
 11. dispatch: the process-wide compile cache after the path phases
    (``Dispatcher.stats``: keys, matched, isax, pipelined, hit rate; each
    record's kernel, plan, ring depth and the model's gain); the 11 golden
@@ -2773,6 +2799,318 @@ def int8_gemm_phase(qtree) -> dict:
 
 # -- the compiler's phases: dispatch, evaluate, route ---------------------------
 
+# ---------------------------------------------------------------------------
+# train: the port's Trainer on the card (plain torch ops, no kernel)
+# ---------------------------------------------------------------------------
+
+#: (t1) llama110m fp32 at full width, TrainConfig's batch 8 x seq 128.
+TRAIN_T1 = {"steps": 20, "fail_at": 12, "ckpt_every": 5, "lr": 1e-3,
+            "grad_rtol": 1e-4, "restart_rtol": 1e-4, "decrease_updates": 8}
+#: (t2) qwen1.5-0.5b bf16 at full width, B 4 x S 512, two steps a policy.
+TRAIN_T2 = {"arch": "qwen1.5-0.5b", "batch": 4, "seq": 512,
+            "policies": ("none", "dots", "full")}
+#: (t3) one family a run at full width (depth cut only where the reckoned
+#: bytes exceed TRAIN_BUDGET of the card): arch, batch, seq (vlm's counts
+#: its 256-token prefix), AdamW state dtype.  lr TRAIN_T3_LR: the
+#: Trainer's first moving step at its defaults (lr 3e-4 x warmup_cosine at
+#: step 1 of a 20-step warmup).  AdamW's first step moves every weight by
+#: ~lr; at d 6144 and ff 10752 a larger one overshoots: dbrx's loss rose
+#: 12.05 -> 25.61 at 3e-4 and -> 18.82 at 1e-4, where mamba2's fell.
+TRAIN_T3_LR = 3e-4 / 20
+TRAIN_T3 = (("mamba2-2.7b", 2, 128, "float32"),
+            ("zamba2-1.2b", 2, 128, "float32"),
+            ("paligemma-3b", 2, 320, "float32"),
+            ("seamless-m4t-medium", 2, 128, "float32"),
+            ("dbrx-132b", 2, 128, "bfloat16"),
+            ("arctic-480b", 2, 64, "bfloat16"))
+#: Share of the card's memory the reckoned params + grads + AdamW state may
+#: take; the rest holds activations and the update's fp32 slices.
+TRAIN_BUDGET = 0.6
+
+
+def train_bytes(cfg, state_dtype: str) -> int:
+    """Params + grads (the param dtype) + AdamW's m and v (the state dtype)
+    at ``n_params``: 12 bytes a bf16 parameter with fp32 state, 8 with
+    bf16 state, 16 in fp32."""
+    p = 2 if cfg.param_dtype == "bfloat16" else 4
+    s = 2 if state_dtype == "bfloat16" else 4
+    return cfg.n_params() * (2 * p + 2 * s)
+
+
+def train_depth(cfg, state_dtype: str, budget: float) -> int:
+    """The most layers (full depth first) whose ``train_bytes`` fit
+    ``budget`` bytes; 0 where not even one layer does."""
+    import dataclasses
+    for n in range(cfg.n_layers, 0, -1):
+        if train_bytes(dataclasses.replace(cfg, n_layers=n),
+                       state_dtype) <= budget:
+            return n
+    return 0
+
+
+def _rel_dist(a, b) -> float:
+    import torch
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.clamp(torch.linalg.vector_norm(b), min=1e-30))
+
+
+def _leaf_norms(grads) -> list[float]:
+    import torch
+    from repro_torch.tree import tree_leaves
+    return [float(torch.linalg.vector_norm(g.float())) for g in
+            tree_leaves(grads)]
+
+
+def _free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_t1() -> dict:
+    """(t1): 20 steps under run_with_restarts with a failure at step 12,
+    against a run with no failure; step 1's gradients against the CPU's;
+    8 updates on the step-0 batch; the guard under backend cuda."""
+    import statistics
+    import tempfile
+    import torch
+    from repro_torch.compile.config import LoweringConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
+                                         init_state)
+    from repro_torch.train.fault_tolerance import (FailureInjector,
+                                                   run_with_restarts)
+    from repro_torch.train.trainer import TrainConfig, Trainer, loss_and_grads
+    from repro_torch.tree import tree_leaves, tree_map
+    t = TRAIN_T1
+    cfg = get_config("llama110m")
+    opt = AdamWConfig(lr=t["lr"])
+    line = {"phase": "train", "run": "t1", "arch": cfg.name,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab, "dtype": cfg.param_dtype}
+
+    # step 1's gradients on the card against the port on the CPU
+    tc = TrainConfig(ckpt_dir=None, total_steps=t["steps"], optimizer=opt)
+    line.update(batch=tc.batch, seq=tc.seq)
+    tr = Trainer(cfg, tc, device="cuda")
+    batch = tr._device_batch(0)
+    loss, grads = loss_and_grads(tr.model, tr.params, batch)
+    cpu_model = get_model(cfg, lowering=LoweringConfig("torch"))
+    cpu_loss, cpu_grads = loss_and_grads(
+        cpu_model, tree_map(lambda p: p.cpu(), tr.params),
+        {k: v.cpu() for k, v in batch.items()})
+    dists = [_rel_dist(a, b) for a, b in zip(tree_leaves(grads),
+                                             tree_leaves(cpu_grads))]
+    norms = _leaf_norms(grads)
+    line.update(step1_loss=float(loss), step1_cpu_loss=float(cpu_loss),
+                grad_leaves=len(dists), grad_max_rel_dist=max(dists),
+                grad_min_leaf_norm=min(norms))
+    if max(dists) > t["grad_rtol"] or min(norms) <= 0:
+        raise AssertionError(f"t1 step-1 gradients: {line}")
+
+    # the guard: a loss under backend cuda refuses autograd
+    live = tree_map(lambda p: p.detach().requires_grad_(True), tr.params)
+    try:
+        get_model(cfg, lowering=LoweringConfig("cuda")).loss(
+            live, batch).backward()
+    except RuntimeError as e:
+        if "no gradient" not in str(e):
+            raise
+        line["guard"] = str(e).split(":")[0] + ": raised"
+    else:
+        raise AssertionError("t1: a loss under backend cuda did not raise")
+    del live
+
+    # 8 updates on the step-0 batch
+    params = tree_map(lambda p: p.clone(), tr.params)
+    state = init_state(params, opt)
+    losses = []
+    for _ in range(t["decrease_updates"]):
+        loss, g = loss_and_grads(tr.model, params, batch)
+        losses.append(float(loss))
+        params, state, _ = apply_updates(params, g, state, opt)
+    after = float(loss_and_grads(tr.model, params, batch)[0])
+    line.update(fixed_batch_loss_start=losses[0], fixed_batch_loss_after=after)
+    if not after < losses[0]:
+        raise AssertionError(f"t1: loss did not fall: {line}")
+    del params, state, grads, cpu_grads, g, tr
+    _free_card()
+
+    # the no-failure run, timed
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ref = Trainer(cfg, tc, device="cuda")
+    ref.train(t["steps"])
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = [m["step_time"] * 1e3 for m in ref.metrics_log[2:]]
+    med = statistics.median(ms)
+    ref_losses = {m["step"]: m["loss"] for m in ref.metrics_log}
+    line.update(warm_median_step_ms=med,
+                tokens_per_s=tc.batch * tc.seq / (med / 1e3),
+                max_memory_allocated_gb=peak / 1e9,
+                loss_first=ref.metrics_log[0]["loss"],
+                loss_last=ref.metrics_log[-1]["loss"])
+    del ref
+    _free_card()
+
+    # the run with a failure at step 12 under run_with_restarts
+    with tempfile.TemporaryDirectory() as d:
+        tcf = TrainConfig(ckpt_dir=d, ckpt_every=t["ckpt_every"],
+                          total_steps=t["steps"], optimizer=opt)
+        inj = FailureInjector({t["fail_at"]})
+        built = []
+
+        def make():
+            built.append(1)
+            return Trainer(cfg, tcf, failure_injector=inj, device="cuda")
+
+        t0 = time.perf_counter()
+        tr = run_with_restarts(make, t["steps"])
+        line["restart_run_s"] = time.perf_counter() - t0
+        restarts = len(built) - 1
+        post = tr.metrics_log
+        worst = max(abs(m["loss"] - ref_losses[m["step"]])
+                    / abs(ref_losses[m["step"]]) for m in post)
+        line.update(final_step=tr.step, restarts=restarts,
+                    resumed_from=post[0]["step"], post_restart_steps=len(post),
+                    post_restart_max_rel=worst)
+        if (tr.step != t["steps"] or restarts != 1
+                or worst > t["restart_rtol"]):
+            raise AssertionError(f"t1 restart: {line}")
+        del tr
+    _free_card()
+    return line
+
+
+def train_t2() -> dict:
+    """(t2): qwen1.5-0.5b in bf16 under each remat policy, two steps (the
+    first's loss, the second's time, warm): the steps' peak memory above
+    the weights and AdamW state falls under dots and full, the first loss
+    the same under all three."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    t = TRAIN_T2
+    base_cfg = get_config(t["arch"])
+    line = {"phase": "train", "run": "t2", "arch": base_cfg.name,
+            "layers": base_cfg.n_layers, "dtype": base_cfg.param_dtype,
+            "config_remat": base_cfg.remat, "batch": t["batch"],
+            "seq": t["seq"], "policies": {}}
+    for policy in t["policies"]:
+        cfg = dataclasses.replace(base_cfg, remat=policy)
+        tr = Trainer(cfg, TrainConfig(batch=t["batch"], seq=t["seq"],
+                                      total_steps=2), device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tr.train(2)
+        torch.cuda.synchronize()
+        line["policies"][policy] = {
+            "loss": tr.metrics_log[0]["loss"],
+            "first_step_s": tr.metrics_log[0]["step_time"],
+            "step_ms": tr.metrics_log[1]["step_time"] * 1e3,
+            "weights_and_state_gb": base / 1e9,
+            "step_peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del tr
+        _free_card()
+    p = line["policies"]
+    loss = p["none"]["loss"]
+    same = all(abs(p[k]["loss"] - loss) <= 2e-2 * abs(loss) for k in p)
+    if not (p["full"]["step_peak_gb"] < p["none"]["step_peak_gb"]
+            and p["dots"]["step_peak_gb"] < p["none"]["step_peak_gb"]
+            and same):
+        raise AssertionError(f"t2: {line}")
+    return line
+
+
+def train_t3() -> list[dict]:
+    """(t3): each family at full width (depth cut only by TRAIN_BUDGET),
+    two AdamW steps on a fixed batch: finite losses, every leaf's
+    gradient norm above 0, the second loss below the first."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state
+    from repro_torch.train.trainer import TrainConfig, Trainer, loss_and_grads
+    budget = TRAIN_BUDGET * torch.cuda.get_device_properties(0).total_memory
+    lines = []
+    for arch, B, S, state_dtype in TRAIN_T3:
+        cfg = get_config(arch)
+        full = cfg.n_layers
+        depth = train_depth(cfg, state_dtype, budget)
+        line = {"phase": "train", "run": "t3", "arch": arch,
+                "family": cfg.family, "state_dtype": state_dtype,
+                "batch": B, "seq": S, "remat": cfg.remat,
+                "reckoned_gb_full_depth": train_bytes(cfg, state_dtype) / 1e9,
+                "budget_gb": budget / 1e9}
+        if depth == 0:
+            one = dataclasses.replace(cfg, n_layers=1)
+            line.update(skipped=(
+                f"one layer ({one.n_params() / 1e9:.2f} B parameters) "
+                f"reckons {train_bytes(one, state_dtype) / 1e9:.1f} GB of "
+                f"params, grads and AdamW state, over the "
+                f"{budget / 1e9:.1f} GB budget; not cut in width"))
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            continue
+        if depth < full:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+            line["cut"] = f"n_layers {full} -> {depth}"
+        line.update(layers=cfg.n_layers, n_params=cfg.n_params(),
+                    reckoned_gb=train_bytes(cfg, state_dtype) / 1e9)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        opt = AdamWConfig(lr=TRAIN_T3_LR, state_dtype=state_dtype)
+        tr = Trainer(cfg, TrainConfig(batch=B, seq=S, optimizer=opt),
+                     device="cuda")
+        batch = tr._device_batch(0)
+        params, state = tr.params, init_state(tr.params, opt)
+        losses = []
+        for _ in range(2):
+            loss, grads = loss_and_grads(tr.model, params, batch)
+            losses.append(float(loss))
+            norms = _leaf_norms(grads)
+            params, state, _ = apply_updates(params, grads, state, opt)
+            del grads
+        line.update(losses=losses, min_leaf_grad_norm=min(norms),
+                    leaves=len(norms),
+                    max_memory_allocated_gb=(
+                        torch.cuda.max_memory_allocated() / 1e9),
+                    seconds=time.perf_counter() - t0)
+        print(json.dumps(line), flush=True)
+        if not (all(math.isfinite(x) for x in losses) and min(norms) > 0
+                and losses[1] < losses[0]):
+            raise AssertionError(f"t3 {arch}: {line}")
+        del tr, params, state
+        _free_card()
+        lines.append(line)
+    return lines
+
+
+def train_phase() -> None:
+    """(t1)-(t3) through the port's Trainer, TF32 off, kernel launch
+    counts zeroed before and read after: the training path launches no
+    kernel (backend "torch"; the kernels have no gradient)."""
+    from repro_torch.kernels import _build
+    _build.reset_launch_counts()
+    t1 = train_t1()
+    print(json.dumps(t1), flush=True)
+    t2 = train_t2()
+    print(json.dumps(t2), flush=True)
+    train_t3()
+    launches = _build.launch_counts()
+    print(json.dumps({"phase": "train", "kernel_launches": launches}))
+    if any(launches.values()):
+        raise AssertionError(f"the training path launched kernels: "
+                             f"{launches}")
+
+
 GOLDEN_RECORDS = ROOT / "tests" / "golden" / "dispatch_records.json"
 #: Lowering keys the serve phase's engine looks up (llama110m: 12 heads of
 #: 64, d 768, 8 slots, pages of 16, buckets 16..512): a decode step's norms,
@@ -3140,6 +3478,7 @@ def main() -> int:
     timed("int8kv_repeat", int8kv_repeat_phase)
     i1_launches, qtree = timed("int8_serve", int8_serve_phase)
     i2_launches = timed("int8_gemm", int8_gemm_phase, qtree)
+    timed("train", train_phase)
     timed("dispatch", dispatch_phase)
     timed("evaluate", evaluate_phase)
     timed("route", route_phase)

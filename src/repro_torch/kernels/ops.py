@@ -11,6 +11,13 @@ two kernels of a pair, for tests and sweeps only.  On CPU tensors the
 kernel wrappers compute their plain versions; on CUDA tensors a route
 launches the kernel the schedule names, or raises.
 
+The kernels have no gradient, as the reference's Pallas kernels cannot be
+differentiated (``jax.grad`` through them fails to linearize), and their
+launches return tensors autograd has not recorded.  So every route calls
+``no_grad_guard`` first: where autograd would record (grad enabled, a
+floating input that requires grad) it raises on every device, rather than
+return a result cut from the graph.  Training binds backend ``"torch"``.
+
 ``kernel_intrinsics`` / ``register_kernel_intrinsics`` bind the routes to
 the ``isax:`` e-nodes of ``core/offload.evaluate`` (the port of
 ``repro/kernels/ops.register_kernel_intrinsics``): on ``device="cpu"``
@@ -33,6 +40,18 @@ from repro_torch.kernels.pipeline import (flash_attention_pipelined,
 from repro_torch.kernels.rmsnorm import Plan
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
+
+
+def no_grad_guard(route: str, *tensors) -> None:
+    """Raise a ``RuntimeError`` where autograd would record through a
+    kernel route: grad enabled and a floating input that requires grad."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors if t.is_floating_point()):
+        raise RuntimeError(
+            f"{route}: the hand-written kernels have no gradient (nor do the "
+            f"reference's Pallas kernels), so a loss under autograd cannot "
+            f"run through them; bind LoweringConfig(\"torch\") to train, or "
+            f"call under torch.no_grad()")
 
 
 def flash_tileable(H: int, K: int, hd: int, dtype) -> bool:
@@ -58,6 +77,7 @@ def flash_attention_gqa(q, k, v, mask, *, sm_scale: float,
                         pipelined: bool | None = None):
     """q (B,S,H,hd), k/v (B,T,K,hd), mask (1|B,S,T) bool → (B,S,H,hd):
     K3 at the schedule's ring depth where it says pipelined, else K2."""
+    no_grad_guard("flash_attention_gqa", q, k, v)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     if schedule is None:
@@ -78,6 +98,7 @@ def int8_matmul(x, wq, scale, *, schedule: dict | None = None,
     fp32 → (x @ f32(wq)ᵀ) · scale[None] in x's dtype: K5 or K4 as the
     schedule says, at its plan.  K5's TMA copies want 16-byte aligned
     operands, so an unaligned one is copied."""
+    no_grad_guard("int8_matmul", x, scale)
     M, K = x.shape
     if schedule is None:
         schedule = ks.int8_schedule(M, K, wq.shape[0], x.element_size(),
@@ -94,6 +115,7 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, *, eps: float = 1e-6,
             schedule: dict | None = None):
     """Row RMSNorm through K1 at the schedule's launch shape: x (R, d), g
     (d,) → (R, d)."""
+    no_grad_guard("rmsnorm", x, g)
     x, g = _aligned(x), _aligned(g.float())
     if schedule is None:
         schedule = ks.rmsnorm_schedule(*x.shape, x.element_size(),
@@ -107,6 +129,7 @@ def ssd_scan(x, dt, A, B, C, *, schedule: dict | None = None,
     → y (BT,H,S,P) of x's dtype, computed in fp32: K8 at the schedule's
     ring depth where it says pipelined, else K7.  x, dt, B and C share one
     dtype; A is taken in fp32, as the reference widens it."""
+    no_grad_guard("ssd_scan", x, dt, A, B, C)
     x, dt, A, B, C = (t.contiguous() for t in (x, dt, A.float(), B, C))
     BT, H, S, P = x.shape
     if schedule is None:

@@ -9,7 +9,8 @@ the encoder output.  ``prefill`` returns ``{"k", "v": (L, B, S', K, hd),
 K/V from ``enc_out`` at every step, as the reference does, and updates the
 self-attention caches in place.  Cross attention at decode has a one-row
 query, which the compile record keeps on the plain version (a degenerate
-q tile), as the reference's does.
+q tile), as the reference's does.  ``loss`` trains the decoder's
+next-token prediction over the encoder's frames.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_ffn, _positions, block_fwd,
                                             layer_params, new_generator,
-                                            pad_kv)
+                                            pad_kv, unstack)
 
 
 def _cross_attention(params, x, enc_out, cfg: ModelConfig, mask, lowering):
@@ -74,9 +75,13 @@ def encode(params, frame_embeds, cfg: ModelConfig,
     mask = L.make_mask("full", T, device=frame_embeds.device)
     positions = _positions(B, T, frame_embeds.device)
     h = frame_embeds.to(L.dtype_of(cfg.compute_dtype))
-    for i in range(cfg.n_layers):
-        h, _ = block_fwd(cfg, h, layer_params(params["enc_blocks"], i), mask,
-                         positions, lw)
+
+    def body(h, bp):
+        return block_fwd(cfg, h, bp, mask, positions, lw)[0]
+
+    body = L.remat_wrap(body, cfg.remat)
+    for bp in unstack(params["enc_blocks"], cfg.n_layers):
+        h = body(h, bp)
     return L.rmsnorm(params["enc_norm"], h, cfg.norm_eps, lowering=lw)
 
 
@@ -88,21 +93,44 @@ def _cross(bp, h, enc_out, cfg: ModelConfig, mask, lowering):
 
 
 def _decoder(params, x, enc_out, cfg: ModelConfig, self_mask, cross_mask,
-             positions, lowering):
-    """Returns (normed hidden, (k, v) stacks (L, B, S, K, hd))."""
+             positions, lowering, collect_kv: bool = True):
+    """Each layer under ``remat_wrap(cfg.remat)``.  Returns (normed
+    hidden, (k, v) stacks (L, B, S, K, hd) | None)."""
+
+    def body(h, bp):
+        a, kv = L.attention(bp["attn"],
+                            L.rmsnorm(bp["attn_norm"], h, cfg.norm_eps,
+                                      lowering=lowering),
+                            cfg, self_mask, positions, lowering=lowering)
+        h = _cross(bp, h + a, enc_out, cfg, cross_mask, lowering)
+        return _ffn(bp, h, cfg, lowering)[0], kv
+
+    body = L.remat_wrap(body, cfg.remat)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        bp = layer_params(params["dec_blocks"], i)
-        a, (k, v) = L.attention(bp["attn"],
-                                L.rmsnorm(bp["attn_norm"], x, cfg.norm_eps,
-                                          lowering=lowering),
-                                cfg, self_mask, positions, lowering=lowering)
-        x = _cross(bp, x + a, enc_out, cfg, cross_mask, lowering)
-        x = _ffn(bp, x, cfg, lowering)
-        ks.append(k)
-        vs.append(v)
+    for bp in unstack(params["dec_blocks"], cfg.n_layers):
+        x, (k, v) = body(x, bp)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
     h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, lowering=lowering)
-    return h, (torch.stack(ks), torch.stack(vs))
+    return h, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+
+def loss(params, batch, cfg: ModelConfig,
+         lowering: Optional[LoweringConfig] = None):
+    """Mean next-token cross-entropy of the decoder.  batch: prefix_embeds
+    (B, T, d) (the encoder's frames), tokens (B, S), labels (B, S)."""
+    lw = lowering or default_lowering()
+    enc_out = encode(params, batch["prefix_embeds"], cfg, lowering=lw)
+    x = L.embed(params["embed"], batch["tokens"], cfg)
+    B, S, _ = x.shape
+    T = enc_out.shape[1]
+    self_mask = L.make_mask("causal", S, device=x.device)
+    cross_mask = L.make_mask("full", S, T, device=x.device)
+    h, _ = _decoder(params, x, enc_out, cfg, self_mask, cross_mask,
+                    _positions(B, S, x.device), lw, collect_kv=False)
+    logits = L.unembed(params["unembed"]["w"], h, cfg, lowering=lw)
+    return L.cross_entropy(logits, batch["labels"].to(logits.device))
 
 
 def prefill(params, batch, cfg: ModelConfig, pad_to=None,
@@ -141,7 +169,7 @@ def decode_step(params, token, caches, pos: int, cfg: ModelConfig,
                                   lowering=lw),
             cfg, caches["k"][i], caches["v"][i], int(pos), lowering=lw)
         x = _cross(bp, x + a, enc_out, cfg, cross_mask, lw)
-        x = _ffn(bp, x, cfg, lw)
+        x, _ = _ffn(bp, x, cfg, lw)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, lowering=lw)
     logits = L.unembed(params["unembed"]["w"], x, cfg, lowering=lw)
     return logits[:, 0], caches

@@ -8,6 +8,7 @@ with the SSM caches stacked over all L layers, as ``mamba2``'s.  The Mamba2
 layers are ``mamba2.ssm_block`` / ``ssm_block_decode`` as they are (the
 SSD kernels K7/K8 through ``ssm_block``'s lowering); ``decode_step``
 updates the caches in place where the reference returns new ones.
+``loss`` is the training entry point.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models.transformer import (_ffn, _positions, block_fwd,
                                             layer_params, new_generator,
-                                            pad_kv)
+                                            pad_kv, unstack)
 
 
 def n_sites(cfg: ModelConfig) -> int:
@@ -63,13 +64,14 @@ def _forward(params, x, cfg: ModelConfig, mask, positions,
     Returns (normed hidden, caches | None)."""
     lw = lowering or default_lowering()
     ks, vs, convs, states = [], [], [], []
+    layers = unstack(params["blocks"], cfg.n_layers)
     for start, end in _sites(cfg):
-        x, (k, v) = block_fwd(cfg, x, params["shared_attn"], mask, positions,
-                              lw)
+        x, _, (k, v) = block_fwd(cfg, x, params["shared_attn"], mask,
+                                 positions, lw)
         ks.append(k)
         vs.append(v)
         for i in range(start, end):
-            x, cache = M.ssm_block(layer_params(params["blocks"], i), x, cfg,
+            x, cache = M.ssm_block(layers[i], x, cfg,
                                    collect_cache=collect_caches, lowering=lw)
             if collect_caches:
                 convs.append(cache["conv"])
@@ -80,6 +82,24 @@ def _forward(params, x, cfg: ModelConfig, mask, positions,
     return x, {"k": torch.stack(ks), "v": torch.stack(vs),
                "ssm": {"conv": torch.stack(convs),
                        "state": torch.stack(states)}}
+
+
+def loss(params, batch, cfg: ModelConfig,
+         lowering: Optional[LoweringConfig] = None):
+    """Mean next-token cross-entropy; the whole forward runs under
+    ``remat_wrap(cfg.remat)``, as in the reference."""
+    lw = lowering or default_lowering()
+    x = L.embed(params["embed"], batch["tokens"], cfg)
+    B, S, _ = x.shape
+    mask = L.make_mask("causal", S, device=x.device)
+    positions = _positions(B, S, x.device)
+
+    def fwd(p, h):
+        return _forward(p, h, cfg, mask, positions, False, lowering=lw)[0]
+
+    h = L.remat_wrap(fwd, cfg.remat)(params, x)
+    logits = L.unembed(params["embed"]["table"], h, cfg, lowering=lw)
+    return L.cross_entropy(logits, batch["labels"].to(logits.device))
 
 
 def prefill(params, batch, cfg: ModelConfig, pad_to=None,
@@ -111,7 +131,7 @@ def decode_step(params, token, caches, pos: int, cfg: ModelConfig,
             sp["attn"], L.rmsnorm(sp["attn_norm"], x, cfg.norm_eps,
                                   lowering=lw),
             cfg, caches["k"][site], caches["v"][site], int(pos), lowering=lw)
-        x = _ffn(sp, x + a, cfg, lw)
+        x, _ = _ffn(sp, x + a, cfg, lw)
         for i in range(start, end):
             x, _ = M.ssm_block_decode(
                 layer_params(params["blocks"], i), x, cfg,

@@ -19,11 +19,14 @@ never holds its blocks twice.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.compile.config import LoweringConfig, default_lowering
 from repro_torch.configs.base import ModelConfig
@@ -358,3 +361,72 @@ def unembed(table_or_w, x, cfg: ModelConfig,
     cd = dtype_of(cfg.compute_dtype)
     logits = x.to(cd) @ table_or_w.to(cd).T
     return logits.to(dtype_of(cfg.logit_dtype))
+
+
+# ---------------------------------------------------------------------------
+# Loss and rematerialization
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """Mean token cross-entropy in fp32; labels == ignore_id are masked."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels.long(), min=0)[..., None])[..., 0]
+    w = (labels != ignore_id).float()
+    return torch.sum((logz - gold) * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+#: The unbatched products whose outputs the ``"dots"`` policy saves.
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _needs_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_needs_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_needs_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def remat_wrap(fn, policy: str):
+    """``fn`` under a rematerialization policy (the reference's
+    ``jax.checkpoint`` policies):
+
+    * ``"none"``: ``fn`` as it is; autograd saves what it needs;
+    * ``"dots"``: selective checkpointing that saves the outputs of the
+      unbatched products, ``aten.mm`` and ``aten.addmm``, and recomputes
+      everything else in the backward pass (the counterpart of
+      ``dots_with_no_batch_dims_saveable``).  The port's projections
+      (``x @ w`` of a (B, S, d) activation, ``_proj``, ``_out_proj``,
+      ``mlp``, ``unembed``) lower to ``aten.mm`` over the flattened rows
+      and are saved; the attention and SSD einsums, whose operands share a
+      batch of (batch, heads) or (batch, chunk), lower to ``aten.bmm`` and
+      are recomputed, as are norms, softmax and elementwise ops;
+    * ``"full"``: ``torch.utils.checkpoint.checkpoint``: only the inputs
+      are kept, the whole of ``fn`` runs again in the backward pass.
+
+    The wrapper checkpoints only where autograd records: with grad
+    disabled, or with no tensor argument that requires grad (serving),
+    it calls ``fn`` directly."""
+    if policy == "none":
+        return fn
+    if policy not in ("dots", "full"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    kw = {"use_reentrant": False}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        if not (torch.is_grad_enabled() and _needs_grad(args)):
+            return fn(*args)
+        return checkpoint(fn, *args, **kw)
+
+    return wrapped

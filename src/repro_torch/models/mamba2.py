@@ -16,7 +16,9 @@ leaves them to XLA (``F.softplus`` returns x itself above 20, where
 Parameters carry a leading layer axis (``blocks[...]`` is ``(L, ...)``), so
 a ``repro`` param tree bridges over unchanged.  Caches are
 ``{"conv": (L,b,w-1,ch), "state": (L,b,H,N,P) fp32}``; ``decode_step``
-updates them in place where the reference returns new ones.
+updates them in place where the reference returns new ones.  ``loss``
+(training) runs under backend ``"torch"``: the SSD kernels have no
+gradient.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import torch.nn.functional as F
 from repro_torch.compile.config import LoweringConfig, default_lowering
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import layer_params, new_generator
+from repro_torch.models.transformer import (layer_params, new_generator,
+                                            unstack)
 
 
 
@@ -134,13 +137,17 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
 
     a_cum = torch.cumsum(dtc * A, dim=2)  # (b,nc,Q,H)
 
-    # intra-chunk: Y[q] = Σ_{k<=q} (C_q·B_k)·exp(acum_q - acum_k)·dt_k·x_k;
-    # the mask selects, so the inf of exp(k > q) never reaches the sum
+    # intra-chunk: Y[q] = Σ_{k<=q} (C_q·B_k)·exp(acum_q - acum_k)·dt_k·x_k.
+    # The mask goes inside the exp (exp(-inf) = 0, the same values as the
+    # reference's where(tril, exp(.), 0)): above the diagonal the exponent
+    # grows with the chunk and overflows to inf at full width (chunk 256),
+    # where the reference's gradient is 0 · inf = NaN
     scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)
-    decay = torch.exp(a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :])
     tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    M = scores[..., None] * torch.where(tril[None, None, :, :, None], decay,
-                                        0.0)  # (b,c,q,k,H)
+    decay = torch.exp(torch.where(
+        tril[None, None, :, :, None],
+        a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :], -torch.inf))
+    M = scores[..., None] * decay  # (b,c,q,k,H)
     y_intra = torch.einsum("bcqkh,bckhp->bcqhp", M * dtc[:, :, None], xc)
 
     # inter-chunk recurrence over chunk states: h_prev of every chunk
@@ -268,6 +275,23 @@ def _logits(params, h, cfg: ModelConfig, lowering):
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, lowering=lowering)
     return L.unembed(params["embed"]["table"], h, cfg,
                      lowering=lowering)[:, 0]
+
+
+def loss(params, batch, cfg: ModelConfig,
+         lowering: Optional[LoweringConfig] = None):
+    """Mean next-token cross-entropy; each block runs under
+    ``remat_wrap(cfg.remat)``."""
+
+    def body(h, bp):
+        return ssm_block(bp, h, cfg, lowering=lowering)[0]
+
+    body = L.remat_wrap(body, cfg.remat)
+    h = L.embed(params["embed"], batch["tokens"], cfg)
+    for bp in unstack(params["blocks"], cfg.n_layers):
+        h = body(h, bp)
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, lowering=lowering)
+    logits = L.unembed(params["embed"]["table"], h, cfg, lowering=lowering)
+    return L.cross_entropy(logits, batch["labels"].to(logits.device))
 
 
 def prefill(params, batch, cfg: ModelConfig, pad_to=None,

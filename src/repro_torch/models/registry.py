@@ -26,6 +26,7 @@ _FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
 class Model:
     cfg: ModelConfig
     init: Callable             # (seed, device) -> params
+    loss: Callable             # (params, batch) -> scalar
     prefill: Callable          # (params, batch, pad_to) -> (logits, caches)
     decode_step: Callable      # (params, token, caches, pos) -> (logits, caches)
     # Paged-KV serving entry points (continuous batching); only the dense
@@ -40,7 +41,9 @@ class Model:
 def get_model(cfg: ModelConfig,
               lowering: Optional[LoweringConfig] = None) -> Model:
     """Bind the family module to a config and a lowering policy (default:
-    the ``"cuda"`` backend)."""
+    the ``"cuda"`` backend, whose kernels have no gradient: ``loss``
+    under autograd wants ``LoweringConfig("torch")``, as the trainer
+    binds)."""
     if cfg.family not in _FAMILIES:
         raise ValueError(cfg.family)
     mod = _FAMILIES[cfg.family]
@@ -58,6 +61,7 @@ def get_model(cfg: ModelConfig,
     return Model(
         cfg=cfg,
         init=lambda seed=0, device="cpu": mod.init_params(cfg, seed, device),
+        loss=lambda p, b: mod.loss(p, b, cfg, lowering=lw),
         prefill=lambda p, b, pad_to=None: mod.prefill(p, b, cfg,
                                                       pad_to=pad_to,
                                                       lowering=lw),

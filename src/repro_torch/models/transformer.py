@@ -9,6 +9,7 @@ the token embeddings and attended under the prefix-LM mask.
 
 Entry points:
   init_params(cfg, seed, device)
+  loss(params, batch, cfg)                 — training (+ MoE aux loss)
   prefill(params, batch, cfg)              — last logits + KV stacks
   prefill_at(params, batch, length, cfg)   — logits at a bucketed length
   decode_step(params, token, caches, pos, cfg)
@@ -80,44 +81,66 @@ def layer_params(blocks: dict, i: int) -> dict:
             for k, v in blocks.items()}
 
 
+def unstack(blocks: dict, n: int) -> list[dict]:
+    """Every layer's slice of the stacked block params (views), by one
+    ``unbind`` a leaf: under autograd its backward stacks the layers'
+    gradients once, where indexing each layer (``layer_params``) would
+    scatter each into a zero tensor the size of the whole stack."""
+    per = {k: unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+           for k, v in blocks.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
 def block_fwd(cfg: ModelConfig, x, bp, mask, positions,
               lowering: Optional[LoweringConfig] = None):
+    """One block.  Returns (out, aux, (k, v)): ``aux`` is the MoE block's
+    Switch auxiliary loss, None for a dense block."""
     a, kv = L.attention(bp["attn"],
                         L.rmsnorm(bp["attn_norm"], x, cfg.norm_eps,
                                   lowering=lowering),
                         cfg, mask, positions, lowering=lowering)
-    return _ffn(bp, x + a, cfg, lowering), kv
+    h, aux = _ffn(bp, x + a, cfg, lowering)
+    return h, aux, kv
 
 
 def _ffn(bp, h, cfg: ModelConfig, lowering):
-    """h + the block's MLP (or MoE: its auxiliary loss is dropped, as the
-    port has no training path) of the normed h."""
+    """(h + the block's MLP or MoE of the normed h, the MoE's auxiliary
+    loss or None)."""
     hn = L.rmsnorm(bp["mlp_norm"], h, cfg.norm_eps, lowering=lowering)
     if _is_moe(cfg):
-        y, _ = moe_mlp(bp["moe"], hn, cfg, lowering=lowering)
-    else:
-        y = L.mlp(bp["mlp"], hn, cfg, lowering=lowering)
-    return h + y
+        y, aux = moe_mlp(bp["moe"], hn, cfg, lowering=lowering)
+        return h + y, aux
+    return h + L.mlp(bp["mlp"], hn, cfg, lowering=lowering), None
 
 
 def backbone(params, x, cfg: ModelConfig, mask, positions,
              collect_kv: bool = False,
              lowering: Optional[LoweringConfig] = None):
-    """Loop over the stacked blocks.  Returns (hidden, (k, v) stacks | None)
-    with stacks shaped (L, B, S, K, hd)."""
+    """Loop over the stacked blocks, each under ``remat_wrap(cfg.remat)``.
+    Returns (hidden, aux, (k, v) stacks | None): ``aux`` the sum of the
+    blocks' auxiliary losses (0-d fp32; 0 for dense), the stacks shaped
+    (L, B, S, K, hd)."""
+
+    def body(h, bp):
+        return block_fwd(cfg, h, bp, mask, positions, lowering)
+
+    body = L.remat_wrap(body, cfg.remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, (k, v) = block_fwd(cfg, x, layer_params(params["blocks"], i), mask,
-                              positions, lowering)
+    for bp in unstack(params["blocks"], cfg.n_layers):
+        x, a, (k, v) = body(x, bp)
+        if a is not None:
+            aux = aux + a
         if collect_kv:
             ks.append(k)
             vs.append(v)
     h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps, lowering=lowering)
-    return h, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+    return h, aux, ((torch.stack(ks), torch.stack(vs)) if collect_kv
+                    else None)
 
 
 def _unembed_table(params, cfg: ModelConfig):
@@ -157,6 +180,22 @@ def pad_kv(k_stack, v_stack, pad_to: Optional[int]):
     return k_stack, v_stack
 
 
+def loss(params, batch, cfg: ModelConfig, aux_weight: float = 0.01,
+         lowering: Optional[LoweringConfig] = None):
+    """Mean next-token cross-entropy plus ``aux_weight`` × the MoE blocks'
+    auxiliary loss.  batch: tokens (B, S_text), labels (B, S_text)
+    [, prefix_embeds (B, P, d): vlm's prefix, sliced off the logits]."""
+    x = _inputs_to_x(params, batch, cfg)
+    B, S, _ = x.shape
+    h, aux, _ = backbone(params, x, cfg, _prefill_mask(cfg, S, x.device),
+                         _positions(B, S, x.device), lowering=lowering)
+    logits = L.unembed(_unembed_table(params, cfg), h, cfg,
+                       lowering=lowering)
+    logits = logits[:, S - batch["tokens"].shape[1]:, :]
+    labels = batch["labels"].to(logits.device)
+    return L.cross_entropy(logits, labels) + aux_weight * aux
+
+
 def prefill(params, batch, cfg: ModelConfig, pad_to: Optional[int] = None,
             lowering: Optional[LoweringConfig] = None):
     """Returns (last-position logits (B, vocab), {'k','v'} (L,B,S',K,hd)),
@@ -165,9 +204,9 @@ def prefill(params, batch, cfg: ModelConfig, pad_to: Optional[int] = None,
     x = _inputs_to_x(params, batch, cfg)
     B, S, _ = x.shape
     mask = _prefill_mask(cfg, S, x.device)
-    h, (k_stack, v_stack) = backbone(params, x, cfg, mask,
-                                     _positions(B, S, x.device),
-                                     collect_kv=True, lowering=lowering)
+    h, _, (k_stack, v_stack) = backbone(params, x, cfg, mask,
+                                        _positions(B, S, x.device),
+                                        collect_kv=True, lowering=lowering)
     k_stack, v_stack = pad_kv(k_stack, v_stack, pad_to)
     logits = L.unembed(_unembed_table(params, cfg), h[:, -1:, :], cfg,
                        lowering=lowering)
@@ -187,9 +226,9 @@ def prefill_at(params, batch, length: int, cfg: ModelConfig,
     x = _inputs_to_x(params, batch, cfg)
     B, S, _ = x.shape
     mask = L.make_mask("causal", S, device=x.device)
-    h, (k_stack, v_stack) = backbone(params, x, cfg, mask,
-                                     _positions(B, S, x.device),
-                                     collect_kv=True, lowering=lowering)
+    h, _, (k_stack, v_stack) = backbone(params, x, cfg, mask,
+                                        _positions(B, S, x.device),
+                                        collect_kv=True, lowering=lowering)
     length = int(length)
     logits = L.unembed(_unembed_table(params, cfg), h[:, length - 1:length],
                        cfg, lowering=lowering)
@@ -216,7 +255,7 @@ def decode_step_paged(params, tokens, k_pages, v_pages, page_table, seq_lens,
                                   lowering=lowering),
             cfg, k_pages[i], v_pages[i], page_table, seq_lens, active,
             lowering=lowering)
-        h = _ffn(bp, h + a, cfg, lowering)
+        h, _ = _ffn(bp, h + a, cfg, lowering)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, lowering=lowering)
     logits = L.unembed(_unembed_table(params, cfg), h, cfg,
                        lowering=lowering)
@@ -234,7 +273,7 @@ def decode_step(params, token, caches, pos: int, cfg: ModelConfig,
             bp["attn"], L.rmsnorm(bp["attn_norm"], h, cfg.norm_eps,
                                   lowering=lowering),
             cfg, caches["k"][i], caches["v"][i], int(pos), lowering=lowering)
-        h = _ffn(bp, h + a, cfg, lowering)
+        h, _ = _ffn(bp, h + a, cfg, lowering)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, lowering=lowering)
     logits = L.unembed(_unembed_table(params, cfg), h, cfg,
                        lowering=lowering)

@@ -15,7 +15,8 @@ kernel its schedule names — the record's, or where none is passed the one
 plan; the cost model's choice, ``core/kernel_synth.decide_hopper``) — and
 raises on CUDA tensors the kernel does not take (points other than 3-d,
 dtypes other than fp32/bf16/fp16).  ``pipelined`` overrides the choice
-between the two kernels of a pair, for tests and sweeps only.
+between the two kernels of a pair, for tests and sweeps only.  Each
+kernel route raises under autograd (``kernels.ops.no_grad_guard``).
 
 ``pointcloud_intrinsics`` / ``register_pointcloud_intrinsics`` bind the
 routes to the ``isax:`` e-nodes of ``core/offload.evaluate``: plain
@@ -29,7 +30,7 @@ import torch
 
 from repro_torch.core.tiling import down_pow2
 from repro_torch.kernels import schedule as ks
-from repro_torch.kernels.ops import chosen
+from repro_torch.kernels.ops import chosen, no_grad_guard
 from repro_torch.kernels.pipeline import sm_count
 from repro_torch.pointcloud import kernels as pck
 from repro_torch.pointcloud import ref
@@ -71,6 +72,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def kernel_fps(xyz: torch.Tensor, n_samples: int) -> torch.Tensor:
     """K9 at ``pipeline.fps_plan``'s plan (the one its schedule records),
     with no fallback."""
+    no_grad_guard("kernel_fps", xyz)
     return pck.fps(_aligned(xyz), n_samples)
 
 
@@ -88,6 +90,7 @@ def kernel_ball_query(xyz, centers, radius: float, k: int, *,
                       radius_sq: float | None = None) -> torch.Tensor:
     """K10 or K11 (and its ring depth) at its plan, as the schedule says;
     no fallback."""
+    no_grad_guard("kernel_ball_query", xyz, centers)
     xyz, centers = _aligned(xyz), _aligned(centers)
     B, N, _ = xyz.shape
     if schedule is None:
@@ -120,6 +123,7 @@ def kernel_group_aggregate(features, idx, *, schedule: dict | None = None,
                            pipelined: bool | None = None) -> torch.Tensor:
     """K12 or K13 at its plan, as the schedule says (K12 where no slice of
     the cloud fits a K13 block); no fallback."""
+    no_grad_guard("kernel_group_aggregate", features)
     features = _aligned(features)
     idx = _aligned(idx.to(torch.int32))
     B, N, C = features.shape

@@ -38,6 +38,7 @@ from repro_torch.models.registry import Model, get_model
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.scheduler import (Request, RequestQueue, Scheduler,
                                          pick_bucket)
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def resolve_device(device=None) -> torch.device:
@@ -49,12 +50,6 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
     return dev
-
-
-def _to_device(params, device: torch.device):
-    if isinstance(params, dict):
-        return {k: _to_device(v, device) for k, v in params.items()}
-    return params.to(device)
 
 
 def quantize_params_int8(params):
@@ -86,18 +81,12 @@ def quantize_params_int8(params):
     return _quant(params), _dequant
 
 
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    return [tree]
-
-
 def quantization_error(params, qtree, dequant) -> float:
     """Mean relative L1 error of the int8 round trip over all weights."""
     deq = dequant(qtree)
     num = sum(float(torch.sum(torch.abs(a.float() - b.float())))
-              for a, b in zip(_leaves(params), _leaves(deq)))
-    den = sum(float(torch.sum(torch.abs(a))) for a in _leaves(params))
+              for a, b in zip(tree_leaves(params), tree_leaves(deq)))
+    den = sum(float(torch.sum(torch.abs(a))) for a in tree_leaves(params))
     return num / max(den, 1e-12)
 
 
@@ -106,7 +95,7 @@ def _init_params(model: Model, params, quantize: bool, seed: int,
     """The caller's params (or the model's own from ``seed``) on ``device``,
     through the int8 round trip when ``quantize``."""
     params = (model.init(seed, device) if params is None
-              else _to_device(params, device))
+              else tree_map(lambda p: p.to(device), params))
     if quantize:
         qtree, dequant = quantize_params_int8(params)
         params = dequant(qtree)

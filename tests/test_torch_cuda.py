@@ -1400,3 +1400,55 @@ def test_offloaded_program_evaluates_on_the_kernels(gen, kind):
          "ssd_step": "ssd_scan", "rmsnorm": "rmsnorm", "fps": "fps",
          "ball_query": "ball_query", "group_agg": "group_aggregate"}[isax]}
     cases.compare(kind, sw, hw)
+
+
+# ---------------------------------------------------------------------------
+# Training on the card: plain torch ops (backend "torch"); the kernel
+# routes refuse autograd
+# ---------------------------------------------------------------------------
+
+def test_train_step_on_the_card_matches_the_cpu(gen):
+    """One Trainer step of reduced llama110m on the card against the same
+    step on the CPU from the same weights: loss, grad_norm and the updated
+    weights at the fp32 tolerance."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    from repro_torch.tree import tree_leaves
+    cfg = reduced(get_config("llama110m"))
+    tc = TrainConfig(batch=4, seq=32, total_steps=1,
+                     optimizer=AdamWConfig(lr=1e-3))
+    params = get_model(cfg).init(0, "cpu")
+    runs = [Trainer(cfg, tc, params=params, device=d) for d in ("cpu", "cuda")]
+    for tr in runs:
+        tr.train(1)
+    (cpu, card) = (tr.metrics_log[0] for tr in runs)
+    for key in ("loss", "grad_norm"):
+        assert card[key] == pytest.approx(cpu[key], rel=2e-4, abs=2e-5)
+    for a, b in zip(tree_leaves(runs[1].params), tree_leaves(runs[0].params)):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-5, rtol=2e-4)
+
+
+def test_guard_raises_at_a_real_k1_launch(gen):
+    """Under autograd the K1 route raises before it launches; under
+    no_grad it launches."""
+    x = torch.randn((8, 768), generator=gen, device="cuda")
+    g = torch.ones(768, device="cuda")
+    before = _build.KERNELS["rmsnorm"].launches
+    with pytest.raises(RuntimeError, match="rmsnorm: the hand-written "
+                                           "kernels have no gradient"):
+        ops.rmsnorm(x.requires_grad_(True), g)
+    assert _build.KERNELS["rmsnorm"].launches == before
+    with torch.no_grad():
+        got = ops.rmsnorm(x, g)
+    torch.cuda.synchronize()
+    assert _build.KERNELS["rmsnorm"].launches == before + 1
+    torch.testing.assert_close(got, ref.rmsnorm_ref(x.detach(), g),
+                               atol=2e-5, rtol=2e-4)
+    model = get_model(reduced(get_config("llama110m")),
+                      lowering=LoweringConfig("cuda"))
+    params = model.init(0, "cuda")
+    for p in (params["final_norm"]["scale"],):
+        p.requires_grad_(True)
+    tokens = torch.zeros((2, 16), dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="no gradient"):
+        model.loss(params, {"tokens": tokens, "labels": tokens})
