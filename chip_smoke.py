@@ -268,6 +268,24 @@ Phases (any failure exits non-zero; nothing is caught):
    parameters a layer, skipped and said why): two AdamW steps on a fixed
    batch, finite losses, every leaf's gradient norm above 0, the second
    loss below the first.
+10c. dist: a process group of one rank (NCCL, a file store; NCCL takes
+   one rank a card, so the multi-rank checks run on the CPU with gloo in
+   tests/test_torch_dist.py) and ``make_host_mesh()``'s 1×1 mesh.  (x1)
+   llama110m fp32 at full width with weights and KV caches as DTensors
+   under the ``serve`` policy and the activation specs set, backend
+   "cuda": 2 prompts of 512, 16 greedy decode steps, against the same
+   run on plain tensors: launch counts (zeroed before each run, read
+   after) equal, K1 and the prefill's attention kernel launched through
+   the ``local_map`` routes, the same tokens, every step's logits within
+   fp32's tolerance; both ITLs (median synchronized ms a decode step; the
+   sharded one pays DTensor's dispatch).  (x2) ``make_int8_wire_train_
+   step`` for llama110m fp32 (B 8 x S 128, backend "torch"): step 1's
+   averaged gradient within one int8 level (scale1 + scale2) of the same
+   reduction on the CPU (a gloo group beside NCCL), 8 steps on one batch
+   lowering the loss, 20 steps timed against the plain train step.  (x3)
+   qwen1.5-0.5b bf16 under ``fsdp_tp`` with DTensor params, AdamW state
+   and batch, two steps; the first loss within bf16's 2e-2 of the
+   unsharded step's (the first step's learning rate is the warmup's 0).
 11. dispatch: the process-wide compile cache after the path phases
    (``Dispatcher.stats``: keys, matched, isax, pipelined, hit rate; each
    record's kernel, plan, ring depth and the model's gain); the 11 golden
@@ -302,6 +320,7 @@ from __future__ import annotations
 import json
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -3111,6 +3130,330 @@ def train_phase() -> None:
                              f"{launches}")
 
 
+#: (x1) llama110m fp32 served on a 1×1 mesh: prompts, the bucket they are
+#: padded to, greedy decode steps.
+DIST_X1 = {"arch": "llama110m", "batch": 2, "bucket": 512, "steps": 16}
+#: (x2) the int8-wire DP step at world size 1: llama110m fp32, backend
+#: torch, B x S; updates on one batch; timed steps against the Trainer's.
+DIST_X2 = {"arch": "llama110m", "batch": 8, "seq": 128, "decrease_steps": 8,
+           "timed_steps": 20, "lr": 1e-3}
+#: (x3) qwen1.5-0.5b bf16 under fsdp_tp on the 1×1 mesh: B x S, steps; the
+#: first loss within bf16's tolerance (TOL) of the unsharded step's.
+DIST_X3 = {"arch": "qwen1.5-0.5b", "batch": 4, "seq": 512, "steps": 2}
+
+
+def dist_group() -> None:
+    """An NCCL process group of one rank on the card, through a file store
+    (no port)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    store = pathlib.Path(tempfile.mkdtemp(prefix="dist_smoke_")) / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1,
+                            device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+
+
+def _placed(tree, shardings):
+    """``tree``'s tensors as DTensors placed by ``shardings``, each rank
+    slicing its shard (no communication)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t, s: distribute_tensor(
+        t.detach().clone(), s.mesh, list(s.placements), src_data_rank=None),
+        tree, shardings)
+
+
+def _full(x):
+    from repro_torch.models.layers import is_dtensor
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _sync() -> None:
+    import torch
+    torch.cuda.synchronize()
+
+
+def _greedy(model, params, prompt, steps: int, shard=None):
+    """Prefill ``prompt`` padded to room for ``steps`` more, then greedy
+    decode steps; ``shard(caches)`` places the caches (sharded run).
+    Returns (tokens (B, steps + 1), every step's logits, decode ms)."""
+    import torch
+    S = prompt.shape[1]
+    with torch.no_grad():
+        logits, caches = model.prefill(params, {"tokens": prompt},
+                                       pad_to=S + steps)
+        if shard is not None:
+            caches = shard(caches)
+        logits = _full(logits)
+        out, toks, ms = [logits], [logits.argmax(-1)], []
+        for i in range(steps):
+            _sync()
+            t0 = time.perf_counter()
+            logits, caches = model.decode_step(params, toks[-1], caches,
+                                               S + i)
+            logits = _full(logits)
+            _sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits)
+            toks.append(logits.argmax(-1))
+    return torch.stack(toks, 1), out, ms
+
+
+def dist_x1(mesh, card: str) -> dict:
+    """(x1): llama110m served with weights and caches as DTensors on the
+    1×1 mesh under the ``serve`` policy, activation specs set, backend
+    cuda: K1 and the prefill attention kernel through the ``local_map``
+    routes, launch counts equal to the unsharded run's, the same greedy
+    tokens, logits within fp32's tolerance, both ITLs."""
+    import numpy as np
+    import torch
+    from repro_torch.compile.config import LoweringConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding import policies as pol
+    x1 = DIST_X1
+    device = torch.device("cuda")
+    cfg = get_config(x1["arch"])
+    B, S, n = x1["batch"], x1["bucket"], x1["steps"]
+    lw = LoweringConfig("cuda")
+    model = get_model(cfg, lowering=lw)
+    params = model.init(0, device)
+    axes = model.param_axes()
+    dparams = _placed(params, pol.param_shardings(cfg, mesh, axes, params,
+                                                  "serve"))
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, S),
+                                           dtype=np.int64)).to(device)
+
+    def shard(caches):
+        sh = pol.cache_shardings(cfg, mesh, caches, policy="serve")
+        return {k: v.redistribute(mesh, sh[k].placements)
+                for k, v in caches.items()}
+
+    def run(p, sharded: bool):
+        if sharded:
+            layers.set_activation_shardings(
+                pol.activation_specs(cfg, mesh, B, "serve"))
+        try:
+            _greedy(model, p, prompt, n, shard if sharded else None)  # warm
+            _sync()
+            _build.reset_launch_counts()
+            toks, logits, ms = _greedy(model, p, prompt, n,
+                                       shard if sharded else None)
+            _sync()
+            return toks, logits, ms, _build.launch_counts()
+        finally:
+            layers.set_activation_shardings(None)
+
+    toks_p, logits_p, ms_p, launches_p = run(params, False)
+    toks_d, logits_d, ms_d, launches_d = run(dparams, True)
+    atol, rtol = TOL["float32"]
+    err = max(float((a - b).abs().max()) for a, b in zip(logits_d, logits_p))
+    bad = any(bool(((a - b).abs() > atol + rtol * b.abs()).any())
+              for a, b in zip(logits_d, logits_p))
+    attn = scheduled(lw, "attention", (B, S, cfg.n_heads, cfg.n_kv_heads, S,
+                                       cfg.resolved_head_dim()),
+                     torch.float32)
+    line = {"phase": "dist", "run": "x1", "arch": cfg.name, "batch": B,
+            "bucket": S, "decode_steps": n, "policy": "serve",
+            "mesh": list(mesh.shape), "tokens_equal": bool(
+                torch.equal(toks_d, toks_p)),
+            "logits_max_abs_err": err, "launches": launches_d,
+            "launches_unsharded": launches_p, "attention_kernel": attn,
+            "itl_ms": statistics.median(ms_d),
+            "itl_unsharded_ms": statistics.median(ms_p),
+            "itl_note": "median host ms a decode step, synchronized; the "
+                        "sharded one includes DTensor's dispatch",
+            "card": card}
+    print(json.dumps(line), flush=True)
+    if (not line["tokens_equal"] or bad or launches_d != launches_p
+            or not launches_d.get("rmsnorm") or not launches_d.get(attn)):
+        raise AssertionError(f"x1: {line}")
+    return launches_d
+
+
+def dist_x2(mesh, card: str) -> dict:
+    """(x2): ``make_int8_wire_train_step`` for llama110m fp32 at world size
+    1, backend torch: step 1's averaged gradient within one int8 level
+    (scale1 + scale2) of the same step by the port on the CPU (a gloo
+    group beside the card's), the loss falling over updates on one batch,
+    the step timed against the plain train step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.compile.config import LoweringConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.optim.wire_compression import (_flatten_grads, dp_group,
+                                                    init_err_state,
+                                                    int8_wire_allreduce,
+                                                    make_int8_wire_train_step)
+    from repro_torch.train.trainer import (TrainConfig, loss_and_grads,
+                                           make_train_step)
+    from repro_torch.tree import tree_map
+    x2 = DIST_X2
+    device = torch.device("cuda")
+    cfg = get_config(x2["arch"])
+    B, S = x2["batch"], x2["seq"]
+    model = get_model(cfg, lowering=LoweringConfig("torch"))
+    params = model.init(0, device)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, size=(B, S + 1), dtype=np.int64)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(device),
+             "labels": torch.from_numpy(toks[:, 1:]).to(device)}
+    group = dp_group(mesh, ("data",))
+    cpu_group = dist.new_group([0], backend="gloo")
+
+    # step 1's averaged gradient: card against CPU
+    _, grads = loss_and_grads(model, params, batch)
+    flat, _ = _flatten_grads(grads)
+    mean, _ = int8_wire_allreduce(flat, torch.zeros_like(flat), group)
+    cpu_model = get_model(cfg, lowering=LoweringConfig("torch"))
+    _, cgrads = loss_and_grads(cpu_model, tree_map(lambda p: p.cpu(), params),
+                               {k: v.cpu() for k, v in batch.items()})
+    cflat, _ = _flatten_grads(cgrads)
+    cmean, _ = int8_wire_allreduce(cflat, torch.zeros_like(cflat), cpu_group)
+    scale1 = float(cflat.abs().max()) / 127.0
+    scale2 = float((torch.round(cflat / scale1) * scale1).abs().max()) / 127.0
+    diff = float((mean.cpu() - cmean).abs().max())
+    line = {"phase": "dist", "run": "x2", "arch": cfg.name, "batch": B,
+            "seq": S, "step1_mean_grad_max_abs_diff": diff,
+            "int8_level": scale1 + scale2, "grad_elements": flat.numel()}
+    del grads, cgrads
+
+    opt = AdamWConfig(lr=x2["lr"])
+    p = tree_map(lambda t: t.clone(), params)
+    state, err = init_state(p, opt), init_err_state(p)
+    step = make_int8_wire_train_step(model, opt, mesh, ("data",))
+    losses = []
+    for _ in range(x2["decrease_steps"]):
+        p, state, err, m = step(p, state, err, batch)
+        losses.append(float(m["loss"]))
+    line.update(loss_first=losses[0], loss_last=losses[-1])
+
+    def timed(fn, n):
+        ms = []
+        for i in range(n + 2):
+            _sync()
+            t0 = time.perf_counter()
+            fn()
+            _sync()
+            if i >= 2:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ms)
+
+    box = [p, state, err]
+
+    def wire():
+        box[0], box[1], box[2], _ = step(*box, batch)
+
+    plain_step = make_train_step(model, opt, TrainConfig(optimizer=opt))
+    q = tree_map(lambda t: t.clone(), params)
+    qbox = [q, init_state(q, opt)]
+
+    def plain():
+        qbox[0], qbox[1], _ = plain_step(*qbox, batch)
+
+    line.update(wire_step_ms=timed(wire, x2["timed_steps"]),
+                plain_step_ms=timed(plain, x2["timed_steps"]),
+                timed_steps=x2["timed_steps"],
+                time_note="median host ms a step, synchronized", card=card)
+    print(json.dumps(line), flush=True)
+    if diff > scale1 + scale2 or not losses[-1] < losses[0]:
+        raise AssertionError(f"x2: {line}")
+    dist.destroy_process_group(cpu_group)
+    return line
+
+
+def dist_x3(mesh, card: str) -> dict:
+    """(x3): qwen1.5-0.5b bf16 under ``fsdp_tp`` on the 1×1 mesh, two
+    train steps with DTensor params, state and batch; the first loss
+    within bf16's tolerance of the unsharded step's."""
+    import numpy as np
+    import torch
+    from repro_torch.compile.config import LoweringConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import layers
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.sharding import policies as pol
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+    from repro_torch.tree import tree_map
+    x3 = DIST_X3
+    device = torch.device("cuda")
+    cfg = get_config(x3["arch"])
+    B, S = x3["batch"], x3["seq"]
+    model = get_model(cfg, lowering=LoweringConfig("torch"))
+    params = model.init(0, device)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab, size=(B, S + 1), dtype=np.int64)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(device),
+             "labels": torch.from_numpy(toks[:, 1:]).to(device)}
+    opt = AdamWConfig()
+    step = make_train_step(model, opt, TrainConfig(optimizer=opt))
+    psh = pol.param_shardings(cfg, mesh, model.param_axes(), params,
+                              "fsdp_tp")
+    dparams = _placed(params, psh)
+    dbatch = _placed(batch, pol.batch_sharding(cfg, mesh, batch, "fsdp_tp"))
+    dstate = init_state(dparams, opt)
+    layers.set_activation_shardings(
+        pol.activation_specs(cfg, mesh, B, "fsdp_tp"))
+    losses, ms = [], []
+    try:
+        for _ in range(x3["steps"]):
+            _sync()
+            t0 = time.perf_counter()
+            dparams, dstate, m = step(dparams, dstate, dbatch)
+            losses.append(float(_full(m["loss"])))
+            _sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        layers.set_activation_shardings(None)
+    del dparams, dstate
+    _sync()
+    t0 = time.perf_counter()
+    _, _, m = step(params, init_state(params, opt), batch)
+    plain = float(m["loss"])
+    _sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    atol, rtol = TOL["bfloat16"]
+    line = {"phase": "dist", "run": "x3", "arch": cfg.name, "batch": B,
+            "seq": S, "policy": "fsdp_tp", "mesh": list(mesh.shape),
+            "losses": losses, "unsharded_first_loss": plain,
+            "step_ms": ms, "unsharded_first_step_ms": plain_ms,
+            "time_note": "host ms a step, synchronized; the first step of "
+                         "each includes its first-call costs", "card": card}
+    print(json.dumps(line), flush=True)
+    if (abs(losses[0] - plain) > atol + rtol * abs(plain)
+            or not all(np.isfinite(losses))):
+        raise AssertionError(f"x3: {line}")
+    return line
+
+
+def dist_phase(card: str) -> dict:
+    """(x1)-(x3) on a process group of one rank and a 1×1 mesh on the card
+    (NCCL allows one rank a card; the multi-rank checks run on the CPU
+    with gloo in tests/test_torch_dist.py).  Returns (x1)'s launches."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist_group()
+    try:
+        mesh = make_host_mesh()
+        launches = dist_x1(mesh, card)
+        _free_card()
+        dist_x2(mesh, card)
+        _free_card()
+        dist_x3(mesh, card)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 GOLDEN_RECORDS = ROOT / "tests" / "golden" / "dispatch_records.json"
 #: Lowering keys the serve phase's engine looks up (llama110m: 12 heads of
 #: 64, d 768, 8 slots, pages of 16, buckets 16..512): a decode step's norms,
@@ -3479,11 +3822,12 @@ def main() -> int:
     i1_launches, qtree = timed("int8_serve", int8_serve_phase)
     i2_launches = timed("int8_gemm", int8_gemm_phase, qtree)
     timed("train", train_phase)
+    dist_launches = timed("dist", dist_phase, card)
     timed("dispatch", dispatch_phase)
     timed("evaluate", evaluate_phase)
     timed("route", route_phase)
     runs = (launches, pc_launches, ssm_launches, family_launches,
-            i1_launches, i2_launches)
+            i1_launches, i2_launches, dist_launches)
     launches = {n: sum(d.get(n, 0) for d in runs)
                 for n in set().union(*runs)}
     print(json.dumps({"phase": "wall", "seconds": seconds,

@@ -1,8 +1,10 @@
-"""Model configuration dataclasses and the smoke-size reduction.
+"""Model configuration dataclasses, the dry run's shape cells and the
+smoke-size reduction.
 
 A copy of the reference's ``configs/base.py`` for the fields the port's
 families read; ``reduced`` keeps the reference's rule exactly, so a reduced
-config names the same shapes on both sides of a parity test.
+config names the same shapes on both sides of a parity test, and
+``SHAPES``/``applicable_shapes`` name the reference's four cells.
 """
 
 from __future__ import annotations
@@ -65,6 +67,12 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode: ssm and hybrid run ``long_500k``; the
+        attention families skip it, as in the reference."""
+        return self.family in ("ssm", "hybrid")
+
     def n_params(self) -> int:
         """Approximate parameter count (the reference's formula)."""
         d, ff, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab
@@ -100,6 +108,29 @@ class ModelConfig:
         mlp = 3 * d * ff * self.moe.top_k + 3 * d * self.moe.dense_residual_ff
         body = L * (attn + mlp + d * self.moe.n_experts)
         return body + self.vocab * self.d_model * 2
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[ShapeConfig]:
+    """The cells a config runs: every one but ``long_500k`` for the
+    quadratic-attention families."""
+    return [s for s in SHAPES.values()
+            if s.name != "long_500k" or cfg.supports_long_context]
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

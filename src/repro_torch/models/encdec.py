@@ -24,7 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_ffn, _positions, block_fwd,
                                             layer_params, new_generator,
-                                            pad_kv, unstack)
+                                            pad_kv, stack_axes, unstack)
 
 
 def _cross_attention(params, x, enc_out, cfg: ModelConfig, mask, lowering):
@@ -67,6 +67,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
     }
 
 
+def param_axes(cfg: ModelConfig) -> dict:
+    enc = {"attn_norm": L.rmsnorm_axes(), "attn": L.attention_axes(cfg),
+           "mlp_norm": L.rmsnorm_axes(), "mlp": L.mlp_axes()}
+    dec = {"attn_norm": L.rmsnorm_axes(), "attn": L.attention_axes(cfg),
+           "cross_norm": L.rmsnorm_axes(), "cross": L.attention_axes(cfg),
+           "mlp_norm": L.rmsnorm_axes(), "mlp": L.mlp_axes()}
+    return {
+        "embed": L.embedding_axes(),
+        "enc_blocks": stack_axes(enc),
+        "enc_norm": L.rmsnorm_axes(),
+        "dec_blocks": stack_axes(dec),
+        "final_norm": L.rmsnorm_axes(),
+        "unembed": {"w": ("vocab", "embed")},
+    }
+
+
 def encode(params, frame_embeds, cfg: ModelConfig,
            lowering: Optional[LoweringConfig] = None):
     """frame_embeds (B, T, d) → the normed encoder output (B, T, d)."""
@@ -98,6 +114,7 @@ def _decoder(params, x, enc_out, cfg: ModelConfig, self_mask, cross_mask,
     hidden, (k, v) stacks (L, B, S, K, hd) | None)."""
 
     def body(h, bp):
+        h = L.shard_act(h, "btd")
         a, kv = L.attention(bp["attn"],
                             L.rmsnorm(bp["attn_norm"], h, cfg.norm_eps,
                                       lowering=lowering),
@@ -130,6 +147,7 @@ def loss(params, batch, cfg: ModelConfig,
     h, _ = _decoder(params, x, enc_out, cfg, self_mask, cross_mask,
                     _positions(B, S, x.device), lw, collect_kv=False)
     logits = L.unembed(params["unembed"]["w"], h, cfg, lowering=lw)
+    logits = L.shard_act(logits, "btv")
     return L.cross_entropy(logits, batch["labels"].to(logits.device))
 
 

@@ -23,7 +23,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models.transformer import (_ffn, _positions, block_fwd,
                                             layer_params, new_generator,
-                                            pad_kv, unstack)
+                                            pad_kv, stack_axes, unstack)
 
 
 def n_sites(cfg: ModelConfig) -> int:
@@ -57,6 +57,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
     }
 
 
+def param_axes(cfg: ModelConfig) -> dict:
+    return {
+        "embed": L.embedding_axes(),
+        "blocks": stack_axes(M.ssm_block_axes(cfg)),
+        "shared_attn": {
+            "attn_norm": L.rmsnorm_axes(),
+            "attn": L.attention_axes(cfg),
+            "mlp_norm": L.rmsnorm_axes(),
+            "mlp": L.mlp_axes(),
+        },
+        "final_norm": L.rmsnorm_axes(),
+    }
+
+
 def _forward(params, x, cfg: ModelConfig, mask, positions,
              collect_caches: bool,
              lowering: Optional[LoweringConfig] = None):
@@ -71,7 +85,7 @@ def _forward(params, x, cfg: ModelConfig, mask, positions,
         ks.append(k)
         vs.append(v)
         for i in range(start, end):
-            x, cache = M.ssm_block(layers[i], x, cfg,
+            x, cache = M.ssm_block(layers[i], L.shard_act(x, "btd"), cfg,
                                    collect_cache=collect_caches, lowering=lw)
             if collect_caches:
                 convs.append(cache["conv"])
@@ -99,6 +113,7 @@ def loss(params, batch, cfg: ModelConfig,
 
     h = L.remat_wrap(fwd, cfg.remat)(params, x)
     logits = L.unembed(params["embed"]["table"], h, cfg, lowering=lw)
+    logits = L.shard_act(logits, "btv")
     return L.cross_entropy(logits, batch["labels"].to(logits.device))
 
 

@@ -32,7 +32,8 @@ from repro_torch.compile.config import LoweringConfig, default_lowering
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (layer_params, new_generator,
-                                            unstack)
+                                            stack_axes, unstack)
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 
@@ -71,6 +72,26 @@ def init_ssm_block(cfg: ModelConfig, gen: torch.Generator, device,
         "gate_norm": {"scale": full((d_in,), 1.0, dt)},
         "out_proj": normal((d_in, d), d_in ** -0.5),
     }
+
+
+def ssm_block_axes(cfg: ModelConfig) -> dict:
+    return {
+        "norm": L.rmsnorm_axes(),
+        "in_proj": ("embed", "ssm_in"),
+        "conv_w": ("conv", "ssm_in"),
+        "conv_b": ("ssm_in",),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "gate_norm": {"scale": ("ssm_in",)},
+        "out_proj": ("ssm_in", "embed"),
+    }
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    return {"embed": L.embedding_axes(),
+            "blocks": stack_axes(ssm_block_axes(cfg)),
+            "final_norm": L.rmsnorm_axes()}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
@@ -186,9 +207,40 @@ def _final_state(x, dt, A, B, chunk: int):
     return _state_scan(torch.cumsum(dtc * A, dim=2), dtc, Bc, xc)[-1]
 
 
+def _block_on_shards(fn, params, u, caches: tuple, n_out: int):
+    """``fn(params, u, *caches)`` on batch shards: ``u`` and the cache
+    tensors keep their batch (dim 0) shards, the block's weights are
+    gathered whole, and the ``n_out`` outputs leave batch-sharded.
+    DTensor has no strategy for the SSD chain's chunked reshapes (a
+    strided shard reaches ``bmm``), so a block's scan runs here on local
+    tensors; ``in_proj``/``out_proj`` are gathered like FSDP weights."""
+    from torch.distributed.tensor import Replicate
+    flat = tree_leaves(params)
+    bpl = L._keep(u.placements, (0,))
+    rep = (Replicate(),) * u.device_mesh.ndim
+
+    def local(u, *rest):
+        cs, leaves = rest[:len(caches)], rest[len(caches):]
+        return fn(tree_unflatten(params, leaves), u, *cs)
+
+    return L._on_shards(local, (u, *caches, *flat),
+                        (bpl,) * (1 + len(caches)) + (rep,) * len(flat),
+                        bpl if n_out == 1 else (bpl,) * n_out,
+                        n_out=n_out)
+
+
 def ssm_block(params, u, cfg: ModelConfig, collect_cache: bool = False,
               lowering: Optional[LoweringConfig] = None):
     """Full-sequence SSD block.  u: (b,s,d).  Returns (out, cache|None)."""
+    if L.is_dtensor(u):
+        def fn(p, u):
+            out, cache = ssm_block(p, u, cfg, collect_cache, lowering)
+            return ((out, cache["conv"], cache["state"]) if collect_cache
+                    else out)
+        if not collect_cache:
+            return _block_on_shards(fn, params, u, (), 1), None
+        out, conv, state = _block_on_shards(fn, params, u, (), 3)
+        return out, {"conv": conv, "state": state}
     lw = lowering or default_lowering()
     s_cfg = cfg.ssm
     d_in, H, N, P = _dims(cfg)
@@ -237,6 +289,16 @@ def ssm_block_decode(params, u, cfg: ModelConfig, cache,
     u: (b,1,d); cache: {'conv': (b,w-1,ch), 'state': (b,H,N,P)}, both
     updated in place.  Returns (out, cache).
     """
+    if L.is_dtensor(u):
+        def fn(p, u, conv, state):
+            c = {"conv": conv.clone(), "state": state.clone()}
+            out, c = ssm_block_decode(p, u, cfg, c, lowering)
+            return out, c["conv"], c["state"]
+        out, conv, state = _block_on_shards(
+            fn, params, u, (cache["conv"], cache["state"]), 3)
+        cache["conv"].copy_(conv)
+        cache["state"].copy_(state)
+        return out, cache
     lw = lowering or default_lowering()
     d_in, H, N, P = _dims(cfg)
     cd = L.dtype_of(cfg.compute_dtype)
@@ -283,7 +345,8 @@ def loss(params, batch, cfg: ModelConfig,
     ``remat_wrap(cfg.remat)``."""
 
     def body(h, bp):
-        return ssm_block(bp, h, cfg, lowering=lowering)[0]
+        return ssm_block(bp, L.shard_act(h, "btd"), cfg,
+                         lowering=lowering)[0]
 
     body = L.remat_wrap(body, cfg.remat)
     h = L.embed(params["embed"], batch["tokens"], cfg)
@@ -291,6 +354,7 @@ def loss(params, batch, cfg: ModelConfig,
         h = body(h, bp)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps, lowering=lowering)
     logits = L.unembed(params["embed"]["table"], h, cfg, lowering=lowering)
+    logits = L.shard_act(logits, "btv")
     return L.cross_entropy(logits, batch["labels"].to(logits.device))
 
 

@@ -8,7 +8,7 @@ config's blocks carry ``moe`` (``models/moe.py``) where the others carry
 the token embeddings and attended under the prefix-LM mask.
 
 Entry points:
-  init_params(cfg, seed, device)
+  init_params(cfg, seed, device) / param_axes(cfg)
   loss(params, batch, cfg)                 — training (+ MoE aux loss)
   prefill(params, batch, cfg)              — last logits + KV stacks
   prefill_at(params, batch, length, cfg)   — logits at a bucketed length
@@ -26,7 +26,7 @@ import torch
 from repro_torch.compile.config import LoweringConfig
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.moe import init_moe, moe_mlp
+from repro_torch.models.moe import init_moe, moe_axes, moe_mlp
 
 
 def _is_moe(cfg: ModelConfig) -> bool:
@@ -50,8 +50,31 @@ def init_blocks(cfg: ModelConfig, gen: torch.Generator, device,
     return p
 
 
+def block_axes(cfg: ModelConfig) -> dict:
+    p = {
+        "attn_norm": L.rmsnorm_axes(),
+        "attn": L.attention_axes(cfg),
+        "mlp_norm": L.rmsnorm_axes(),
+    }
+    if _is_moe(cfg):
+        p["moe"] = moe_axes(cfg)
+    else:
+        p["mlp"] = L.mlp_axes()
+    return p
+
+
+def stack_axes(tree):
+    """``("layers",)`` put before every axes tuple of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: stack_axes(v) for k, v in tree.items()}
+    return ("layers",) + tree
+
+
 def new_generator(seed: int, device) -> torch.Generator:
-    gen = torch.Generator(device=device)
+    """A generator seeded with ``seed`` on ``device`` (on the host for the
+    ``meta`` device, whose draws allocate nothing)."""
+    device = torch.device(device)
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
     gen.manual_seed(seed)
     return gen
 
@@ -72,6 +95,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
     if not cfg.tie_embeddings:
         p["unembed"] = {"w": L._normal(gen, (cfg.vocab, cfg.d_model),
                                        cfg.d_model ** -0.5, dt, device)}
+    return p
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    p = {
+        "embed": L.embedding_axes(),
+        "blocks": stack_axes(block_axes(cfg)),
+        "final_norm": L.rmsnorm_axes(),
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = {"w": ("vocab", "embed")}
     return p
 
 
@@ -99,6 +133,7 @@ def block_fwd(cfg: ModelConfig, x, bp, mask, positions,
               lowering: Optional[LoweringConfig] = None):
     """One block.  Returns (out, aux, (k, v)): ``aux`` is the MoE block's
     Switch auxiliary loss, None for a dense block."""
+    x = L.shard_act(x, "btd")
     a, kv = L.attention(bp["attn"],
                         L.rmsnorm(bp["attn_norm"], x, cfg.norm_eps,
                                   lowering=lowering),
@@ -171,12 +206,21 @@ def _prefill_mask(cfg: ModelConfig, S: int, device):
 
 
 def pad_kv(k_stack, v_stack, pad_to: Optional[int]):
-    """Zero-pad (L, B, S, K, hd) stacks along S to ``pad_to``."""
+    """Zero-pad (L, B, S, K, hd) stacks along S to ``pad_to``.  DTensor
+    stacks pad their local shards, S gathered first where it is split
+    (DTensor's sharding cache keys ``constant_pad_nd`` without its pad
+    widths in some releases, and hands a second pad the first's shape)."""
     S = k_stack.shape[2]
     if pad_to and pad_to > S:
         pad = (0, 0, 0, 0, 0, pad_to - S)
-        k_stack = torch.nn.functional.pad(k_stack, pad)
-        v_stack = torch.nn.functional.pad(v_stack, pad)
+        if L.is_dtensor(k_stack):
+            pl = L._keep(k_stack.placements, (0, 1, 3, 4))
+            k_stack, v_stack = (L._on_shards(
+                lambda t: torch.nn.functional.pad(t, pad), (t,), (pl,), pl)
+                for t in (k_stack, v_stack))
+        else:
+            k_stack = torch.nn.functional.pad(k_stack, pad)
+            v_stack = torch.nn.functional.pad(v_stack, pad)
     return k_stack, v_stack
 
 
@@ -191,6 +235,7 @@ def loss(params, batch, cfg: ModelConfig, aux_weight: float = 0.01,
                          _positions(B, S, x.device), lowering=lowering)
     logits = L.unembed(_unembed_table(params, cfg), h, cfg,
                        lowering=lowering)
+    logits = L.shard_act(logits, "btv")
     logits = logits[:, S - batch["tokens"].shape[1]:, :]
     labels = batch["labels"].to(logits.device)
     return L.cross_entropy(logits, labels) + aux_weight * aux

@@ -11,6 +11,14 @@ Where the reference returns new arrays (and its jit donates the old ones),
 returns the same tensors; the update and the global norm run a leaf at a
 time in flat slices of ``CHUNK`` elements, so no step holds an fp32 copy
 of a whole leaf (params, moments and error feedback must be contiguous).
+
+DTensor leaves (a sharded model): the state takes each param's
+placements; a gradient is first redistributed to its param's placements
+(the FSDP reduce-scatter of a partial sum); the update is elementwise, so
+it runs on the local shards, in the same ``CHUNK`` slices; the global
+norm sums each shard's squares and reduces over the mesh dims that shard
+the leaf only, so a replicated copy is counted once; the int8
+compression's per-tensor scale is the max over the shards.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.models import layers as L
 from repro_torch.tree import tree_leaves, tree_map
 
 #: Elements a slice of one leaf's update (its fp32 temporaries' size).
@@ -45,8 +54,8 @@ def init_state(params, cfg: AdamWConfig) -> dict:
     dt = _state_dtype(cfg)
     device = tree_leaves(params)[0].device
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+    def zeros(p):  # a DTensor param's state takes its placements
+        return torch.zeros_like(p, dtype=dt)
 
     state = {"step": torch.zeros((), dtype=torch.int32, device=device),
              "m": tree_map(zeros, params), "v": tree_map(zeros, params)}
@@ -55,14 +64,42 @@ def init_state(params, cfg: AdamWConfig) -> dict:
     return state
 
 
+def _local(x):
+    return x.to_local() if L.is_dtensor(x) else x
+
+
+def _over_shards(value: torch.Tensor, like, op: str = "sum"):
+    """``value``, a local reduction of DTensor ``like``'s shard, reduced
+    over the mesh dims that shard ``like`` (``op`` "sum" or "max");
+    returns a plain tensor."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    pl = [Partial(op) if p.is_shard() else Replicate()
+          for p in like.placements]
+    if all(p == Replicate() for p in pl):
+        return value
+    return DTensor.from_local(value, like.device_mesh, pl,
+                              run_check=False).full_tensor()
+
+
 def _global_norm(tree) -> torch.Tensor:
     """sqrt of the fp32 sum of squares over every leaf, a flat slice of
-    CHUNK elements at a time."""
+    CHUNK elements at a time; DTensor leaves sum their shards, reduced
+    over the mesh dims that shard them (one reduction for all the leaves
+    placed alike)."""
     total = 0
+    parts: dict = {}
     for x in tree_leaves(tree):
-        flat = x.reshape(-1)
+        flat = _local(x).reshape(-1)
+        s = 0
         for i in range(0, flat.numel(), CHUNK):
-            total = total + torch.sum(torch.square(flat[i:i + CHUNK].float()))
+            s = s + torch.sum(torch.square(flat[i:i + CHUNK].float()))
+        if L.is_dtensor(x):
+            key = (x.device_mesh, tuple(x.placements))
+            parts[key] = (parts[key][0] + s, x) if key in parts else (s, x)
+        else:
+            total = total + s
+    for s, like in parts.values():
+        total = total + _over_shards(torch.as_tensor(s), like)
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
@@ -74,11 +111,26 @@ def compress_int8(g, err):
     deq(q) feeds back into the next step.  The dequantized value continues
     through the update, so the numerics are those of the wire version.
     """
+    if L.is_dtensor(err):  # the scale is the max over every shard
+        gf = _local(g).float() + _local(err).float()
+        amax = _over_shards(torch.max(torch.abs(gf)), err, "max")
+        scale = torch.clamp(amax, min=1e-12) / 127.0
+        q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+        deq = q.float() * scale
+        return deq, (gf - deq).to(err.dtype)
     gf = g.float() + err.float()
     scale = torch.clamp(torch.max(torch.abs(gf)), min=1e-12) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     deq = q.float() * scale
     return deq, (gf - deq).to(err.dtype)
+
+
+def _placed_like(g, p):
+    """Gradient ``g`` with its param's placements (a partial sum
+    reduced); a plain one as it is."""
+    if L.is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 @torch.no_grad()
@@ -87,6 +139,7 @@ def apply_updates(params, grads, state, cfg: AdamWConfig,
     """One AdamW step: params, ``m``, ``v`` (and ``err``) updated in place.
     Returns (params, new state, {"grad_norm": 0-d fp32})."""
     step = state["step"] + 1
+    grads = tree_map(_placed_like, grads, params)
     gnorm = _global_norm(grads)
     clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                        max=1.0)
@@ -99,8 +152,9 @@ def apply_updates(params, grads, state, cfg: AdamWConfig,
 
     def update(p, g, m, v, err=None):
         if err is not None:
-            g, new_err = compress_int8(g.float() * clip, err)
-            err.copy_(new_err)
+            g, new_err = compress_int8(_local(g).float() * clip, err)
+            _local(err).copy_(new_err)
+        p, g, m, v = _local(p), _local(g), _local(m), _local(v)
         p1, g1, m1, v1 = p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)
         for i in range(0, p1.numel(), CHUNK):
             ps, ms, vs = p1[i:i + CHUNK], m1[i:i + CHUNK], v1[i:i + CHUNK]

@@ -16,6 +16,13 @@ through int16 into ``torch.bfloat16``, so neither direction needs
 leaf's raw bytes.  Corrupted or partial checkpoints (no manifest, a
 missing leaf) are skipped by ``latest_step``; ``load`` takes the newest
 valid one.
+
+Checkpoints stay mesh-agnostic: ``save`` writes a DTensor leaf as its full
+array (``full_tensor()`` on every rank, the files written by rank 0), and
+``load(shardings=)`` places each leaf onto any ``DeviceMesh`` and
+placements (each rank slices its shard from the full array it read: no
+communication), the counterpart of the reference's ``device_put`` onto
+``NamedSharding``s.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import shutil
 
 import numpy as np
 import torch
+
+from repro_torch.models.layers import is_dtensor
 
 
 def _flatten(tree, prefix=""):
@@ -85,7 +94,28 @@ def _digest(arr: np.ndarray) -> str:
 
 def save(directory: str, step: int, tree, extra: dict | None = None) -> str:
     """Write a checkpoint of a nested dict of tensors (or numpy arrays);
-    returns the committed path."""
+    returns the committed path.  With DTensor leaves every rank of their
+    mesh calls it: each leaf is gathered whole, rank 0 writes, and all
+    wait for the commit."""
+    flat = _flatten(tree)
+    sharded = any(is_dtensor(v) for v in flat.values())
+    if sharded:
+        flat = {k: v.full_tensor() if is_dtensor(v) else v
+                for k, v in flat.items()}
+        import torch.distributed as dist
+        if dist.is_initialized() and dist.get_rank() != 0:
+            dist.barrier()
+            return os.path.join(directory, f"ckpt_{step}")
+    path = _write(directory, step, flat, extra)
+    if sharded:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.barrier()
+    return path
+
+
+def _write(directory: str, step: int, flat: dict,
+           extra: dict | None) -> str:
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"ckpt_{step}")
     tmp = final + ".tmp"
@@ -93,7 +123,7 @@ def save(directory: str, step: int, tree, extra: dict | None = None) -> str:
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest = {"step": step, "leaves": {}, "extra": extra or {}}
-    for path, leaf in _flatten(tree).items():
+    for path, leaf in flat.items():
         arr, dtype = _to_numpy(leaf)
         fname = path.replace("/", "__") + ".npy"
         _write_npy(os.path.join(tmp, fname), arr)
@@ -149,10 +179,13 @@ def _to_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
 
 
 def load(directory: str, step: int | None = None, verify: bool = False,
-         device="cpu"):
+         device="cpu", shardings=None):
     """Load a checkpoint (the newest valid one if ``step`` is None) as a
     nested dict of tensors on ``device``; returns (tree, manifest).  With
-    ``verify`` every leaf's digest is checked."""
+    ``verify`` every leaf's digest is checked.  ``shardings``, a tree of
+    the checkpoint's structure whose leaves carry ``mesh`` and
+    ``placements`` (``sharding.policies.Sharding``), reshards every leaf
+    onto its mesh as a DTensor, on the mesh's device type."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -166,7 +199,19 @@ def load(directory: str, step: int | None = None, verify: bool = False,
         if verify and _digest(arr) != meta["digest"]:
             raise IOError(f"digest mismatch for {leaf_path} in {path}")
         flat[leaf_path] = _to_tensor(arr, meta["dtype"], device)
-    return _unflatten(flat), manifest
+    tree = _unflatten(flat)
+    if shardings is not None:
+        tree = _place(tree, shardings)
+    return tree, manifest
+
+
+def _place(tree, shardings):
+    from torch.distributed.tensor import distribute_tensor
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings[k]) for k, v in tree.items()}
+    mesh = shardings.mesh
+    return distribute_tensor(tree.to(mesh.device_type), mesh,
+                             list(shardings.placements), src_data_rank=None)
 
 
 def gc(directory: str, keep: int = 3) -> None:

@@ -26,13 +26,13 @@ import torch
 from repro_torch.compile.config import LoweringConfig
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
-from repro_torch.models.registry import Model, get_model
+from repro_torch.models.registry import Model, get_model, replicating
 from repro_torch.optim import schedule as schedules
 from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state
 from repro_torch.serve.engine import resolve_device
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.fault_tolerance import FailureInjector, StragglerMonitor
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass
@@ -54,21 +54,16 @@ class TrainConfig:
 def loss_and_grads(model: Model, params, batch):
     """(loss, gradients in each leaf's dtype) of ``model.loss`` at
     ``params``; a leaf the loss does not reach gets zeros, as under
-    ``jax.grad``."""
+    ``jax.grad``.  DTensor params give DTensor gradients, the backward
+    pass under ``replicating`` as the forward is."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     leaves = tree_leaves(live)
-    loss = model.loss(live, batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = iter([torch.zeros_like(p) if g is None else g
-                  for p, g in zip(leaves, grads)])
-    # tree_leaves visits keys sorted; rebuild the tree in that order
-    return loss.detach(), _fill(live, grads)
-
-
-def _fill(tree, it):
-    if isinstance(tree, dict):
-        return {k: _fill(tree[k], it) for k in sorted(tree)}
-    return next(it)
+    with replicating(params):
+        loss = model.loss(live, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(live, grads)
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig,

@@ -18,3 +18,16 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure whose leaves are ``leaves``, in
+    ``tree_leaves``'s order (the inverse of ``tree_leaves``)."""
+    it = iter(leaves)
+
+    def fill(tree):
+        if isinstance(tree, dict):
+            return {k: fill(tree[k]) for k in sorted(tree)}
+        return next(it)
+
+    return fill(like)
