@@ -11,8 +11,9 @@ quantized-GEMM entry point, checks that each path went through the
 kernels its compile records name, trains through the port's ``Trainer``
 (llama110m with a failure and a restart, qwen1.5-0.5b under each remat
 policy, every other family two steps), then prints the compile cache, runs the
-e-graph's offloaded programs on the kernels, and times both kernels of
-each baseline/pipelined pair where the cost model picks between them.
+e-graph's offloaded programs on the kernels, runs the port's three
+examples, and times both kernels of each baseline/pipelined pair where
+the cost model picks between them.
 
     python3 chip_smoke.py
 
@@ -299,6 +300,28 @@ Phases (any failure exits non-zero; nothing is caught):
    under the numpy evaluators (``targets/cases.py``: exact for indices
    and the max-pool, atol 1e-5 / rtol 1e-4 for floats), with the kernels
    each launched.
+12b. examples: ``examples/torch/{quickstart,isax_matching_demo,
+   pointcloud}.py`` through their ``main(["--device", "cuda"])`` in this
+   process, launch counts zeroed just before each and read just after,
+   each equal to what the example's records call for (``example_want``).
+   The quickstart trains full-width llama110m 5 steps (B 4, S 32, backend
+   torch) and serves its int8 weights through ``ServeEngine`` on backend
+   cuda (2 x 8 prompt, 6 tokens: K1 (2L + 1) x 6, the prefill record's
+   K2/K3 L times), after its divergent attention loop evaluated on K2
+   (once); its tokens then equal ``ServeEngine`` on backend torch with the
+   same weights and prompt, and its first-token logits lie within 1e-4 +
+   1e-4 x |want| of torch's (those launches not counted); the matching
+   demo's five variants match
+   ``int8_matvec`` and equal the plain loop through K4 (8 x 7 x 5, K off
+   the 16-byte grid: one launch each); the point-cloud example's offloaded
+   FPS program runs K9 and its set-abstraction stage runs at PointNet++
+   SSG SA1 size (B 16, N 1024, M 512, k 32, C 64, r 0.2; normal(0, 1)
+   from numpy's seed 1) through a fresh dispatcher, indices and the
+   max-pool exactly equal to ``pointcloud/ref.py`` (K9, K10 or K11, K12
+   or K13).  An example raises on a parity failure; one JSON line each
+   with its checks, TTFT/ITL (quickstart), the stage's ms (host clock
+   around a warm call and a synchronize) and its launches, which join the
+   ``kernels`` line.
 13. route: at ROUTE_CASES (the shapes where K2/K3, K10/K11, K12/K13,
    K7/K8 and K4/K5 were measured against each other, the serve buckets at
    batch 1 and 8, (i2)'s projections; the families' hd 128 at S = T = 128
@@ -3575,6 +3598,117 @@ def evaluate_phase() -> None:
                           "max_abs_err": cases.compare(kind, sw, hw)}))
 
 
+#: The examples ``examples_phase`` runs.
+EXAMPLES = ("quickstart", "isax_matching_demo", "pointcloud")
+
+
+def example_want(name: str, out: dict) -> dict:
+    """The launches an example's run calls for, from its output and the
+    compile records it ran under: the quickstart's serve, K1 at every norm
+    of its prefill and decode steps and its prefill bucket's attention
+    kernel at every layer, and K2 once for its offloaded attention program
+    (``kernel_intrinsics``' flash); K4 once a matching-demo variant; the
+    point-cloud example's offloaded FPS program (K9) and its stage, run
+    twice (checked, then timed), the kernel each record names."""
+    import torch
+    want: dict = {}
+
+    def add(kernel, n):
+        if kernel is not None:
+            want[kernel] = want.get(kernel, 0) + n
+    if name == "quickstart":
+        serve = out["serve"]
+        eng, (B, S), n = serve["engine"], serve["prompt"].shape, \
+            serve["tokens"].shape[1]
+        cfg = eng.cfg
+        L, H, K = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads
+        add("rmsnorm", (2 * L + 1) * n)
+        add(scheduled(eng.lowering, "attention",
+                      (B, S, H, K, S, cfg.resolved_head_dim()),
+                      torch.float32), L)
+        add("flash_attention", 1)
+    elif name == "isax_matching_demo":
+        add("int8_matmul", len(out["rows"]))
+    else:
+        add("fps", 1)
+        for rec in out["stage"]["records"].values():
+            add(rec["kernel"], 2)
+    return want
+
+
+def quickstart_parity(serve: dict) -> dict:
+    """The quickstart's serve (backend cuda) against ``ServeEngine`` on
+    backend torch with the same int8-rounded weights and prompt: the same
+    tokens, and first-token logits within the serve phase's 1e-4 + 1e-4 x
+    |want|."""
+    import numpy as np
+    from repro_torch.compile.config import LoweringConfig
+    from repro_torch.serve.engine import ServeEngine
+    eng, prompt, toks = serve["engine"], serve["prompt"], serve["tokens"]
+    plain = ServeEngine(eng.cfg, params=eng.params, max_len=eng.max_len,
+                        lowering=LoweringConfig("torch"), device="cuda")
+    want_toks, _ = plain.generate({"tokens": prompt}, toks.shape[1])
+    if not np.array_equal(toks, want_toks):
+        raise AssertionError(f"examples quickstart: tokens {toks.tolist()} "
+                             f"!= backend torch's {want_toks.tolist()}")
+    batch = {"tokens": prompt.to("cuda")}
+    got, _ = eng.model.prefill(eng.params, batch, eng.max_len)
+    want, _ = plain.model.prefill(plain.params, batch, eng.max_len)
+    err = (got - want).abs()
+    if not bool(got.isfinite().all()) or bool(
+            (err > 1e-4 + 1e-4 * want.abs()).any()):
+        raise AssertionError(f"examples quickstart: cuda vs torch first-token "
+                             f"logits differ by {float(err.max()):.3e}")
+    return {"tokens_equal_torch": True,
+            "first_token_logits_max_abs_err": float(err.max())}
+
+
+def examples_phase() -> dict:
+    """The port's examples (``EXAMPLES``) through their ``main(["--device",
+    "cuda"])``, launch counts zeroed before each and read after, held to
+    ``example_want``; an example raises on a parity failure, and the
+    quickstart's serve is then held to backend torch
+    (``quickstart_parity``, its launches not counted).  One JSON line
+    each; returns the launches of all three."""
+    import importlib.util
+    import torch
+    from repro_torch.kernels import _build
+    total: dict = {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        out = mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        ran = {n: c for n, c in _build.launch_counts().items() if c}
+        want = example_want(name, out)
+        if ran != want:
+            raise AssertionError(f"examples {name}: launches {ran} != "
+                                 f"expected {want}")
+        line = {"phase": "examples", "example": name, "launches": ran}
+        if name == "quickstart":
+            line.update({k: out[k] for k in ("loss_first", "loss_last",
+                                             "ttft_ms", "itl_ms",
+                                             "tokens_shape")},
+                        attention=out["attention"], flash=out["flash"],
+                        **quickstart_parity(out["serve"]))
+        elif name == "isax_matching_demo":
+            line["rows"] = out["rows"]
+        else:
+            stage = out["stage"]
+            line.update(match=out["match"], fps_equal=out["fps_equal"],
+                        schedules=out["schedules"],
+                        **{k: stage[k] for k in ("shape", "checks",
+                                                 "stage_ms", "records")})
+        print(json.dumps(line))
+        for n, c in ran.items():
+            total[n] = total.get(n, 0) + c
+    return total
+
+
 #: Shapes at which the route phase times both kernels of a pair: the
 #: Motivation's (K2/K3 at batch 1, K10/K11 and K12/K13 at (a), (b), (b)
 #: bf16 and an SA2-like stage, K7/K8 at the SSM prefill), the serve buckets
@@ -3825,9 +3959,10 @@ def main() -> int:
     dist_launches = timed("dist", dist_phase, card)
     timed("dispatch", dispatch_phase)
     timed("evaluate", evaluate_phase)
+    example_launches = timed("examples", examples_phase)
     timed("route", route_phase)
     runs = (launches, pc_launches, ssm_launches, family_launches,
-            i1_launches, i2_launches, dist_launches)
+            i1_launches, i2_launches, dist_launches, example_launches)
     launches = {n: sum(d.get(n, 0) for d in runs)
                 for n in set().union(*runs)}
     print(json.dumps({"phase": "wall", "seconds": seconds,

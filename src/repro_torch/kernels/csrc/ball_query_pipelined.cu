@@ -23,7 +23,8 @@
 // `depth` tiles in flight; at step t every thread waits on tile t's
 // mbarrier, the warps sweep it, and the block's barrier releases the slot
 // (block-synchronous: no per-warp release), after which the thread refills
-// it with tile t + depth.  The barrier also asks whether every center is
+// it with tile t + depth, after a fence.proxy.async that orders the warps'
+// generic reads of the slot before the TMA write.  The barrier also asks whether every center is
 // full (__syncthreads_and); if so no more tiles are issued, and the copies
 // in flight are waited for before the block moves on.
 #include "ball_tile.cuh"
@@ -91,6 +92,10 @@ ball_pipelined_kernel(const T* __restrict__ xyz, const T* __restrict__ centers,
     if (bend > x_lim) bend = x_lim > start ? x_lim : start;
     unsigned char* slot = ring + (t % depth) * kSlot;
     const uint32_t bulk = static_cast<uint32_t>(bend - start);
+    // the warps' generic reads of the slot's last tile (before the block
+    // barrier that released it), ordered before this TMA write
+    // (tools/int8_ring_race.py: a ring without the fence gave wrong tiles)
+    tma::fence_proxy_async();
     for (const char* p = bend > first ? bend : first; p < stop; ++p) slot[p - start] = *p;
     tma::mbar_expect(full + t % depth, bulk);
     if (bulk) tma::load_1d(slot, start, bulk, full + t % depth);

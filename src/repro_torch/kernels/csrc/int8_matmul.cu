@@ -32,10 +32,12 @@
 // nearest, so in fp32 each stage is summed into a fresh accumulator that
 // the CUDA cores then add into the running fp32 sum (promotion, as fp8
 // GEMMs do); bf16 and fp16 x accumulate in the wgmma registers.  The
-// consumers release a stage on a third mbarrier.  A K split over a
-// thread-block cluster (gridDim.z = split) gives each block a range of k
-// stages; the blocks write their fp32 partial tiles to shared memory and
-// each sums its share of rows over the cluster's blocks in rank order
+// consumers release a stage on a third mbarrier, each warp after a
+// fence.proxy.async that orders its generic reads of the slot before the
+// TMA write that refills it (thread 0 fences again after its wait).  A K
+// split over a thread-block cluster (gridDim.z = split) gives each block a
+// range of k stages; the blocks write their fp32 partial tiles to shared
+// memory and each sums its share of rows over the cluster's blocks in rank order
 // (deterministic: no atomics).  The epilogue scales by scale[n] and writes
 // x's type.  Where TMA cannot read the operands (K % 16 != 0 or a base not
 // 16-byte aligned) the producer copies them element by element into the
@@ -166,7 +168,10 @@ int8_mm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
           for (int i = 0; i < nt; ++i, ++q) {
             const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
             const int s = q % depth, k0 = (t0 + i) * kBK;
-            if (q >= depth) tma::mbar_wait(empty + s, ((q / depth) - 1) & 1);
+            if (q >= depth) {
+              tma::mbar_wait(empty + s, ((q / depth) - 1) & 1);
+              tma::fence_proxy_async();  // the slot's generic reads -> this refill
+            }
             tma::mbar_expect(full_tma + s, G::kXBytes + G::kWBytes);
             if constexpr (G::kF32) {
               tma::load_2d(stage_x(s), &xmap, k0, m0, full_tma + s);
@@ -225,7 +230,16 @@ int8_mm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
             }
             if (ct == 0) tma::mbar_arrive(full_tma + s);
           }
-          tma::fence_proxy_async();  // B (and x) stores -> visible to wgmma
+          // B (and x) stores -> visible to wgmma; and this warp's generic
+          // reads of the landed wq tile ordered before the TMA write that
+          // refills the slot.  A slot read with generic loads and released
+          // one arrival a warp to a TMA refill with no fence.proxy.async
+          // between them gave wrong tiles wherever two blocks shared an SM
+          // (an earlier K5, a5ed5d9); the fence alone cleared them
+          // (tools/int8_ring_race.py).  Every generic read of
+          // a TMA-filled slot here is followed by one: this warp's, the
+          // consumers' before their release, the producer's after its wait.
+          tma::fence_proxy_async();
           __syncwarp();
           if (threadIdx.x % 32 == 0) tma::mbar_arrive(full_b + s);  // one arrival a warp
         }
@@ -303,6 +317,9 @@ int8_mm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
                                       (G::kPromote && p == 0 && j == 0) ? 0 : 1);
         wg::commit();
         wg::wait<0>();
+        // this warp's generic reads of x's tile, ordered before the TMA
+        // write that refills the slot once every warp has released it
+        tma::fence_proxy_async();
         __syncwarp();
         if (lane == 0) tma::mbar_arrive(empty + s);  // one arrival a warp
         if constexpr (G::kPromote) {

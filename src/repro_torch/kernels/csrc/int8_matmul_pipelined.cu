@@ -27,13 +27,13 @@
 // stage (the schedule is K8's: fill depth-1 stages; at stage i wait for
 // it, sync the block, which frees stage i-1's slot, start stage i+depth-1
 // there, compute on stage i), so ~depth * tile_n * 64 bytes a block are in
-// flight.  (A design with a producer warp that refilled each slot as soon
-// as every consumer warp had arrived on an empty mbarrier gave wrong tiles
-// now and then where two or more blocks shared an SM -- K = 2048, M > 8,
-// the card's tests -- with the release after the reads or after the
-// stage, with a fence after the wait and with a consumers' barrier there;
-// the same design with one bulk copy a row was right but 5x slower.  The
-// block barrier was right in every run; PERF.md.)  Each
+// flight.  Thread 0 issues each refill after a fence.proxy.async, which
+// orders the warps' generic reads of the slot (before the block barrier)
+// before the TMA write.  (A design with a producer warp that refilled each
+// slot as soon as every consumer warp had arrived on an empty mbarrier,
+// with no such fence, gave wrong tiles now and then where two or more
+// blocks shared an SM -- K = 2048, M > 8, the card's tests; the fence alone
+// cleared them: tools/int8_ring_race.py, PERF.md.)  Each
 // warp widens its 16 rows x 64 k of int8 in registers (i8mm::widen4) as the
 // A operand; a thread's 16 consecutive bytes of a row feed four k16 steps
 // with their k permuted, and it reads x's terms under the same permutation,
@@ -194,7 +194,14 @@ int8_mm_pipelined_kernel(const __grid_constant__ CUtensorMap wmap, const T* __re
       const int s = i % depth;
       tma::mbar_wait(full + s, (i / depth) & 1);
       __syncthreads();  // every warp is done with stage i-1: its slot is free
-      if (tid == 0 && i + depth - 1 < nt) issue(i + depth - 1);
+      if (tid == 0 && i + depth - 1 < nt) {
+        // the warps' generic reads of that slot, ordered before the TMA
+        // write that refills it (without this fence an earlier ring of this
+        // kernel gave wrong tiles where blocks shared an SM:
+        // tools/int8_ring_race.py)
+        tma::fence_proxy_async();
+        issue(i + depth - 1);
+      }
       // A: rows 16*warp + g and + 8, bytes 16t .. 16t+15 of the stage's 64
       const uint8_t* ws = ring + s * G::kStage + (16 * warp + g) * kBK + 16 * t;
       const uint4 w0 = *reinterpret_cast<const uint4*>(ws);

@@ -28,7 +28,9 @@
 // columns, which no copy writes, are zeroed once at the start.  The
 // schedule is BurstPipeline.stream_step's: fill depth-1 chunks, then at
 // chunk t wait for it, sync the block, which also frees the slot that
-// chunk t-1 used, start the copy of chunk t+depth-1 into it, and compute
+// chunk t-1 used, start the copy of chunk t+depth-1 into it (each thread
+// after a fence.proxy.async, which orders the block's generic reads of the
+// slot before the bulk copies that refill it), and compute
 // on chunk t while the later copies fly.  That is two block barriers a
 // chunk in fp32, whose ring slots are computed on in place; a bf16 or fp16
 // slot is first widened into an fp32 stage beside the ring (one more
@@ -71,6 +73,13 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar) {
 // (the zeroed ring) visible to the TMA unit; the caller then syncs.
 __device__ __forceinline__ void fence_ring_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Order the block's generic reads of a slot (before the block barrier that
+// freed it) before this thread's bulk copies that refill it: a ring
+// refilled without it gave wrong tiles where blocks shared an SM
+// (tools/int8_ring_race.py).
+__device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // Arrive on `bar` (its one arrival) and expect `bytes` of copies.
@@ -154,6 +163,7 @@ ssd_scan_pipelined_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     const uint32_t nrow = gm.N * static_cast<uint32_t>(sizeof(T));
     if (threadIdx.x == 0)
       mbar_expect(bar, valid * ((bulk_x ? xrow : 0) + (bulk_bc ? 2 * nrow : 0)));
+    fence_proxy_async();
     for (int i = threadIdx.x; i < 3 * valid; i += blockDim.x) {
       const int m = i / valid, r = i % valid;  // m: 0 x, 1 B, 2 C
       const T* src = m == 0 ? x + (row0 + c0 + r) * gm.P + p0

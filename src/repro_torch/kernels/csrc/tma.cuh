@@ -49,8 +49,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
   }
 }
-// Order this thread's generic stores to shared memory before later reads
-// of the async proxy (wgmma operands, TMA).
+// Order this thread's generic accesses to shared memory before later
+// accesses of the async proxy: stores before wgmma or TMA reads them, and
+// reads of a TMA-filled slot before the TMA write that refills it (a ring
+// released to its refill without it gave wrong tiles where blocks shared
+// an SM: tools/int8_ring_race.py).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

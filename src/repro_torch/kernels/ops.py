@@ -20,9 +20,10 @@ return a result cut from the graph.  Training binds backend ``"torch"``.
 
 ``kernel_intrinsics`` / ``register_kernel_intrinsics`` bind the routes to
 the ``isax:`` e-nodes of ``core/offload.evaluate`` (the port of
-``repro/kernels/ops.register_kernel_intrinsics``): on ``device="cpu"``
-they compute with the plain versions, as the reference's compute with its
-references; on ``"cuda"`` they run the kernels on the card.
+``repro/kernels/ops.register_kernel_intrinsics``).  They run the kernels
+on the card unless the caller asks for the CPU (``device="cpu"``: the
+plain versions, as the reference's compute with its references); with no
+CUDA device and no ``device`` they raise (``resolve_device``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,17 @@ from repro_torch.kernels.pipeline import (flash_attention_pipelined,
 from repro_torch.kernels.rmsnorm import Plan
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the card when none is given; raises when that is a
+    CUDA device and PyTorch sees none (never falls back to the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev
 
 
 def no_grad_guard(route: str, *tensors) -> None:
@@ -150,10 +162,11 @@ def _t(a, device, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
 
-def kernel_intrinsics(device: str = "cpu") -> dict:
+def kernel_intrinsics(device=None) -> dict:
     """Intrinsics for flash_attention, int8_matvec, ssd_step and rmsnorm
-    that compute through the kernel routes on ``device`` (plain versions on
-    the CPU, the kernels on a CUDA device)."""
+    that compute through the kernel routes on ``device`` (default the
+    card; plain versions on the CPU)."""
+    device = resolve_device(device)
 
     def flash(Q, K, V, scale, n_q, P, O):
         q = _t(Q, device)[None, :, None, :]
@@ -206,7 +219,7 @@ def kernel_intrinsics(device: str = "cpu") -> dict:
             "ssd_step": ssd, "rmsnorm": rms}
 
 
-def register_kernel_intrinsics(device: str = "cpu") -> None:
+def register_kernel_intrinsics(device=None) -> None:
     """Register ``kernel_intrinsics(device)`` as the e-graph evaluator's
     overrides (``core.offload.register_intrinsic``)."""
     from repro_torch.core import offload

@@ -19,8 +19,9 @@ between the two kernels of a pair, for tests and sweeps only.  Each
 kernel route raises under autograd (``kernels.ops.no_grad_guard``).
 
 ``pointcloud_intrinsics`` / ``register_pointcloud_intrinsics`` bind the
-routes to the ``isax:`` e-nodes of ``core/offload.evaluate``: plain
-versions on ``device="cpu"``, the kernels on ``"cuda"``.
+routes to the ``isax:`` e-nodes of ``core/offload.evaluate``: the kernels
+on the card unless the caller asks for the CPU (``device="cpu"``, the
+plain versions); with no CUDA device and no ``device`` they raise.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 
 from repro_torch.core.tiling import down_pow2
 from repro_torch.kernels import schedule as ks
-from repro_torch.kernels.ops import chosen, no_grad_guard
+from repro_torch.kernels.ops import chosen, no_grad_guard, resolve_device
 from repro_torch.kernels.pipeline import sm_count
 from repro_torch.pointcloud import kernels as pck
 from repro_torch.pointcloud import ref
@@ -151,10 +152,11 @@ def group_aggregate(features, idx, *,
 # kernel routes on float32 tensors of ``device``
 # ---------------------------------------------------------------------------
 
-def pointcloud_intrinsics(device: str = "cpu") -> dict:
+def pointcloud_intrinsics(device=None) -> dict:
     """Intrinsics for fps, ball_query and group_agg that compute through
-    the kernel routes on ``device`` (plain versions on the CPU, the kernels
-    on a CUDA device)."""
+    the kernel routes on ``device`` (default the card; plain versions on
+    the CPU)."""
+    device = resolve_device(device)
 
     def points(a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.float32,
@@ -187,7 +189,7 @@ def pointcloud_intrinsics(device: str = "cpu") -> dict:
     return {"fps": fps, "ball_query": ball, "group_agg": group}
 
 
-def register_pointcloud_intrinsics(device: str = "cpu") -> None:
+def register_pointcloud_intrinsics(device=None) -> None:
     """Register ``pointcloud_intrinsics(device)`` as the e-graph
     evaluator's overrides (``core.offload.register_intrinsic``)."""
     from repro_torch.core import offload

@@ -33,23 +33,13 @@ import torch
 
 from repro_torch.compile.config import LoweringConfig
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ops import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.registry import Model, get_model
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.scheduler import (Request, RequestQueue, Scheduler,
                                          pick_bucket)
 from repro_torch.tree import tree_leaves, tree_map
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device``, or the card when none is given; raises when that is a
-    CUDA device and PyTorch sees none (never falls back to the CPU)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch versions on the CPU")
-    return dev
 
 
 def quantize_params_int8(params):

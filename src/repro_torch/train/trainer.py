@@ -26,10 +26,10 @@ import torch
 from repro_torch.compile.config import LoweringConfig
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+from repro_torch.kernels.ops import resolve_device
 from repro_torch.models.registry import Model, get_model, replicating
 from repro_torch.optim import schedule as schedules
 from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state
-from repro_torch.serve.engine import resolve_device
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.fault_tolerance import FailureInjector, StragglerMonitor
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten

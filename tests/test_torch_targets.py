@@ -22,17 +22,23 @@ import numpy as np
 import pytest
 import torch
 
+from repro.compile.trace import trace_kind as jtrace_kind
+from repro.compile.trace import trace_term as jtrace_term
 from repro.core.offload import compile_program as jcompile
 from repro.targets import default_registry as jregistry
 from repro_torch.compile import Dispatcher, LoweringConfig, OpKey
+from repro_torch.compile.trace import trace_kind, trace_term
 from repro_torch.core import expr
 from repro_torch.core.expr import arr, const, for_, var
 from repro_torch.core.matching import ISAX, decompose
+from repro_torch.core import offload
 from repro_torch.core.offload import compile_program, evaluate
 from repro_torch.core.rewrites import internal_rules
 from repro_torch.core.tiling import down_pow2
-from repro_torch.kernels.ops import kernel_intrinsics
-from repro_torch.pointcloud.ops import pointcloud_intrinsics
+from repro_torch.kernels.ops import (kernel_intrinsics,
+                                     register_kernel_intrinsics)
+from repro_torch.pointcloud.ops import (pointcloud_intrinsics,
+                                        register_pointcloud_intrinsics)
 from repro_torch.targets import (cases, default_registry, isax_library,
                                  registry)
 from repro_torch.targets import llm as llm_domain
@@ -437,3 +443,48 @@ def test_offloaded_program_evaluates_as_the_software_program(kind):
     evaluate(prog, env)
     evaluate(res.program, hw, intrinsics=INTRINSICS)
     cases.compare(kind, env, hw)
+
+
+def test_trace_kind_and_term_equal_the_reference():
+    """``compile.trace.trace_kind`` for every dispatch op and
+    ``trace_term`` for every kind print as the reference's."""
+    reg = default_registry()
+    assert reg.ops() == jregistry().ops()
+    for op in reg.ops():
+        assert trace_kind(op) == jtrace_kind(op)
+    kinds = {trace_kind(op) for op in reg.ops()}
+    assert kinds == {"attention", "int8_matmul", "ssd_scan", "rmsnorm",
+                     "matmul", "fps", "ball_query", "group_aggregate"}
+    for kind in sorted(kinds):
+        assert repr(trace_term(kind)) == repr(jtrace_term(kind)), kind
+
+
+INTRINSIC_FACTORIES = (kernel_intrinsics, register_kernel_intrinsics,
+                       pointcloud_intrinsics, register_pointcloud_intrinsics)
+
+
+def test_intrinsics_default_to_the_card(monkeypatch):
+    """With no card visible the intrinsics refuse the default device (the
+    card) rather than compute on the CPU; asked for the CPU they register
+    the plain versions, which evaluate each offloaded program as the
+    software program."""
+    monkeypatch.setattr(offload, "_INTRINSICS", {})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for factory in INTRINSIC_FACTORIES:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            factory()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            factory("cuda")
+    assert offload._INTRINSICS == {}
+    register_kernel_intrinsics("cpu")
+    register_pointcloud_intrinsics("cpu")
+    assert set(offload._INTRINSICS) == set(INTRINSICS)
+    for kind in cases.CASES:
+        prog = default_registry().spec_for_kind(kind).trace_program()
+        res = compile_program(prog, default_registry().isaxes(), case=kind)
+        env = cases.environment(kind)
+        hw = cases.copy_env(env)
+        evaluate(prog, env)
+        evaluate(res.program, hw)
+        cases.compare(kind, env, hw)
+
