@@ -20,7 +20,9 @@ Invariants (the reference's, ``repro/compile/dispatch.py``):
 * **Cache key** — the cache is keyed on the full ``OpKey(op, shape, dtype,
   backend)``; equal keys return the same ``CompileRecord`` object.  An
   ``OpKey`` is a tuple, so a lookup may pass the raw tuple: a cached one
-  is a single probe of ``records``.
+  is a single probe of ``records``.  Only a miss records a span
+  (``lower.decide``, ``repro_torch.obs``, with the spec's e-graph run
+  where its first key triggers it); a hit records none.
 * **E-graph amortization** — saturation/matching outcomes are memoized per
   registry spec identity (attention prefill/decode/paged share one run);
   schedules and impl decisions are per key.
@@ -35,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+from repro_torch import obs
 from repro_torch.compile.trace import OpKey
 from repro_torch.core.offload import compile_program
 from repro_torch.targets import default_registry
@@ -129,7 +132,8 @@ class Dispatcher:
             return rec
         key = OpKey(*key)
         self.misses += 1
-        rec = self._decide(key)
+        with obs.span("lower.decide"):
+            rec = self._decide(key)
         self.records[key] = rec
         return rec
 

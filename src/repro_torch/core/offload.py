@@ -49,11 +49,6 @@ class CompileStats:
     saturated_enodes: int = 0
     matched_isaxes: list[str] = dataclasses.field(default_factory=list)
 
-    def row(self) -> str:
-        return (f"{self.case},{self.internal_rewrites},"
-                f"{self.external_rewrites},{self.initial_enodes},"
-                f"{self.saturated_enodes},{'+'.join(self.matched_isaxes) or '-'}")
-
 
 @dataclasses.dataclass
 class OffloadResult:

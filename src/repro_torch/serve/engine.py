@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.compile.config import LoweringConfig
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import resolve_device
@@ -133,24 +134,30 @@ class ServeEngine:
         reference's does."""
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
-        t0 = time.perf_counter()
-        logits, caches = self.model.prefill(self.params, batch, self.max_len)
-        _sync(self.device)
-        ttft = time.perf_counter() - t0
         n_prefix = self.cfg.n_prefix_tokens if self.cfg.family == "vlm" else 0
         pos = batch["tokens"].shape[1] + n_prefix
-        token = torch.argmax(logits, dim=-1).to(torch.int32)
-        out = [token.cpu().numpy()]
-        t1 = time.perf_counter()
-        for i in range(n_tokens - 1):
-            logits, caches = self.model.decode_step(self.params, token, caches,
-                                                    pos + i)
-            token = torch.argmax(logits, dim=-1).to(torch.int32)
-            out.append(token.cpu().numpy())
-        t2 = time.perf_counter()
-        itl = (t2 - t1) / max(n_tokens - 1, 1)
-        stats = ServeStats(ttft_s=ttft, itl_s=itl, tokens=n_tokens,
-                           tokens_per_s=n_tokens / (t2 - t0))
+        with obs.span("serve.generate"):
+            with obs.span("serve.prefill") as pre:
+                logits, caches = self.model.prefill(self.params, batch,
+                                                    self.max_len)
+            with obs.span("serve.prefill.wait") as wait:
+                _sync(self.device)
+            with obs.span("serve.first_token") as first:
+                token = torch.argmax(logits, dim=-1).to(torch.int32)
+                out = [token.cpu().numpy()]
+            last = first
+            for i in range(n_tokens - 1):
+                with obs.span("serve.decode.enqueue"):
+                    logits, caches = self.model.decode_step(
+                        self.params, token, caches, pos + i)
+                    token = torch.argmax(logits, dim=-1).to(torch.int32)
+                with obs.span("serve.decode.fetch") as last:
+                    out.append(token.cpu().numpy())
+        # TTFT: prefill → its sync; ITL: the first token's fetch → the last
+        itl = (last.t1 - first.t1) / max(n_tokens - 1, 1)
+        stats = ServeStats(ttft_s=wait.t1 - pre.t0, itl_s=itl,
+                           tokens=n_tokens,
+                           tokens_per_s=n_tokens / (last.t1 - pre.t0))
         return np.stack(out, axis=1), stats
 
 
@@ -275,23 +282,27 @@ class ContinuousEngine:
         return max(bucket, req.prompt_len + req.max_new_tokens)
 
     def _admit(self, req: Request) -> None:
-        slot = self.scheduler.bind(req)
-        bucket = pick_bucket(req.prompt_len, self.prompt_buckets)
-        self.cache.bind_slot(slot, self._lifetime_tokens(req, bucket))
-        tokens = np.zeros((1, bucket), np.int32)
-        tokens[0, :req.prompt_len] = req.prompt
-        logits, kv = self._prefill(
-            self.params, {"tokens": torch.from_numpy(tokens).to(self.device)},
-            req.prompt_len)
-        self.cache.write_prefill(slot, kv, req.prompt_len)
-        first = int(torch.argmax(logits[0]))
-        now = time.perf_counter()
-        req.out_tokens.append(first)
-        req.t_first_token = now
-        if len(req.out_tokens) >= req.max_new_tokens:
-            req.t_done = now
-        self._next_tokens[slot] = first
-        self._membership_dirty = True
+        with obs.span("serve.admit", rid=req.rid) as adm:
+            obs.record("serve.queued", req.t_submit, adm.t0, rid=req.rid)
+            slot = self.scheduler.bind(req)
+            bucket = pick_bucket(req.prompt_len, self.prompt_buckets)
+            self.cache.bind_slot(slot, self._lifetime_tokens(req, bucket))
+            tokens = np.zeros((1, bucket), np.int32)
+            tokens[0, :req.prompt_len] = req.prompt
+            logits, kv = self._prefill(
+                self.params,
+                {"tokens": torch.from_numpy(tokens).to(self.device)},
+                req.prompt_len)
+            self.cache.write_prefill(slot, kv, req.prompt_len)
+            # the host waits for the prefill here
+            with obs.span("serve.first_token", rid=req.rid) as fetch:
+                first = int(torch.argmax(logits[0]))
+            req.out_tokens.append(first)
+            req.t_first_token = fetch.t1
+            if len(req.out_tokens) >= req.max_new_tokens:
+                req.t_done = fetch.t1
+            self._next_tokens[slot] = first
+            self._membership_dirty = True
 
     def _retire_finished(self) -> None:
         for slot in self.scheduler.finished_slots():
@@ -301,53 +312,63 @@ class ContinuousEngine:
 
     def step(self) -> bool:
         """One scheduler iteration: retire → admit (+prefill) → decode.
-        Returns True iff a decode step actually ran."""
-        now = time.perf_counter()
-        self._retire_finished()
-        # Stamp eligibility (for TTFT) on everything that has arrived.
-        for r in self.queue:
-            if r.arrival_step <= self.step_count and r.t_eligible is None:
-                r.t_eligible = now
-        while self.scheduler.has_capacity():
-            head = self.queue.head()
-            if head is None or head.arrival_step > self.step_count:
-                break
-            bucket = pick_bucket(head.prompt_len, self.prompt_buckets)
-            if not self.cache.can_admit(self._lifetime_tokens(head, bucket)):
-                break  # FIFO head-of-line: wait for pages to free
-            req = self.queue.pop_eligible(self.step_count)
-            if req.t_eligible is None:
-                req.t_eligible = now
-            self._admit(req)
-        # A request whose budget was met at prefill (max_new_tokens == 1)
-        # must not ride through a decode dispatch.
-        self._retire_finished()
-        active = self.scheduler.active_slots
-        if active:
-            if self._membership_dirty or self._device_state is None:
-                pt, sl, act = self.cache.device_views(active)
-                # snapshot: _next_tokens is mutated after dispatch and the
-                # host→device copy may still be in flight (see device_views)
-                tokens_d = torch.from_numpy(self._next_tokens.copy()).to(
-                    self.device, non_blocking=True)
+        Returns True iff a decode step actually ran.  Recorded as span
+        ``serve.step`` with the lowering lookups it made; the
+        decode's token fetch is where the host waits for the device."""
+        disp = self.lowering.dispatcher
+        lookups0 = disp.hits + disp.misses
+        with obs.span("serve.step") as st:
+            now = st.t0
+            self._retire_finished()
+            # Stamp eligibility (for TTFT) on everything that has arrived.
+            for r in self.queue:
+                if r.arrival_step <= self.step_count and r.t_eligible is None:
+                    r.t_eligible = now
+            while self.scheduler.has_capacity():
+                head = self.queue.head()
+                if head is None or head.arrival_step > self.step_count:
+                    break
+                bucket = pick_bucket(head.prompt_len, self.prompt_buckets)
+                if not self.cache.can_admit(
+                        self._lifetime_tokens(head, bucket)):
+                    break  # FIFO head-of-line: wait for pages to free
+                req = self.queue.pop_eligible(self.step_count)
+                if req.t_eligible is None:
+                    req.t_eligible = now
+                self._admit(req)
+            # A request whose budget was met at prefill (max_new_tokens ==
+            # 1) must not ride through a decode dispatch.
+            self._retire_finished()
+            active = self.scheduler.active_slots
+            if active:
+                if self._membership_dirty or self._device_state is None:
+                    pt, sl, act = self.cache.device_views(active)
+                    # snapshot: _next_tokens is mutated after dispatch and
+                    # the host→device copy may still be in flight (see
+                    # device_views)
+                    tokens_d = torch.from_numpy(self._next_tokens.copy()).to(
+                        self.device, non_blocking=True)
+                    self._device_state = (tokens_d, pt, sl, act)
+                    self._membership_dirty = False
+                tokens_d, pt, sl, act = self._device_state
+                with obs.span("serve.decode.enqueue"):
+                    tokens_d, self.cache.k_pages, self.cache.v_pages, sl = \
+                        self._decode(self.params, tokens_d,
+                                     self.cache.k_pages, self.cache.v_pages,
+                                     pt, sl, act)
                 self._device_state = (tokens_d, pt, sl, act)
-                self._membership_dirty = False
-            tokens_d, pt, sl, act = self._device_state
-            tokens_d, self.cache.k_pages, self.cache.v_pages, sl = \
-                self._decode(self.params, tokens_d, self.cache.k_pages,
-                             self.cache.v_pages, pt, sl, act)
-            self._device_state = (tokens_d, pt, sl, act)
-            nxt = tokens_d.cpu().numpy()
-            now = time.perf_counter()
-            for slot in active:
-                req = self.scheduler.slots[slot]
-                self.cache.seq_lens[slot] += 1
-                if len(req.out_tokens) < req.max_new_tokens:
-                    req.out_tokens.append(int(nxt[slot]))
-                    if len(req.out_tokens) >= req.max_new_tokens:
-                        req.t_done = now
-                self._next_tokens[slot] = nxt[slot]
-        self.step_count += 1
+                with obs.span("serve.decode.fetch") as fetch:
+                    nxt = tokens_d.cpu().numpy()
+                for slot in active:
+                    req = self.scheduler.slots[slot]
+                    self.cache.seq_lens[slot] += 1
+                    if len(req.out_tokens) < req.max_new_tokens:
+                        req.out_tokens.append(int(nxt[slot]))
+                        if len(req.out_tokens) >= req.max_new_tokens:
+                            req.t_done = fetch.t1
+                    self._next_tokens[slot] = nxt[slot]
+            self.step_count += 1
+            st.attrs["lookups"] = disp.hits + disp.misses - lookups0
         return bool(active)
 
     # -- public API --------------------------------------------------------
@@ -367,6 +388,7 @@ class ContinuousEngine:
                 f"{self.cache.pages_needed(lifetime)} pages but the pool "
                 f"only has {self.cache.n_pages} — it could never be "
                 f"admitted")
+        req.t_submit = time.perf_counter()
         self.queue.push(req)
 
     def run(self, requests: list[Request]) -> WorkloadStats:

@@ -48,6 +48,7 @@ class Request:
     arrival_step: int = 0
     # Filled in by the engine:
     out_tokens: list = dataclasses.field(default_factory=list)
+    t_submit: Optional[float] = None   # queued (the port's own field)
     t_eligible: Optional[float] = None
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
