@@ -53,16 +53,32 @@ Phases (any failure exits non-zero; nothing is caught):
    fully masked query row checks it is exactly 0.
 4b. sync check: one ``layers.attention_decode_paged`` at llama110m's width
    with inactive slots under ``torch.cuda.set_sync_debug_mode("error")``
-   (any host sync raises), equal to the same call outside it; then a whole
+   (any host sync raises), equal to the same call outside it, and its
+   active rows held to backend "torch"'s gather path on the same pools
+   (fp32 2e-5 / 2e-4: backend "cuda" runs K14 there); then a whole
    ``decode_step_paged`` under that mode, reported.
+4c. paged decode: K14 at the granite cells' decode shapes (chat: 128 slots,
+   tables of 96 pages of 16; rag: 32 slots, 256 pages), bf16, H 32 / K 8 /
+   hd 128, with the cells' mean live lengths (436 and 3074 positions an
+   active slot; 69 and 56 % of slots active: the cells' kv_live_share over
+   their slot_occupancy, PERF.md §4), and at the serve phase's llama110m
+   decode (8 slots, tables of 34 pages, fp32, H = K = 12, hd 64: two key
+   splits and the merge pass; 272 positions, 75 % active), lengths drawn
+   0.5-1.5x the mean and the pages scattered over a pool of the cell's
+   size; each row holds K14 to ``ref.paged_decode_ref`` (bf16 2e-2, fp32
+   2e-5 / 2e-4) and carries warm and cold µs, the
+   plain gather path's (``k_pages[page_table]`` + ``_sdpa_xla``, what
+   backend torch runs), the bound (the live K/V, q and the output once at
+   3.35 TB/s), the split plan and ptxas's registers.  No PyTorch call
+   computes paged attention: ``library_ms`` is null.
 4. serve: llama110m (12 layers, d 768, 12 heads, vocab 32000, fp32, random
    weights from seed 0) through ``ContinuousEngine`` on backend "cuda":
    16 Poisson requests, prompts up to 512, buckets 16..512, 8 slots, pages
    of 16.  Launch counts are zeroed just before the run and read just after
    and must be exactly what the compile records name: K1 at every norm,
-   and per prefill layer the attention kernel (K2 or K3) of its bucket's
-   record.  First-token logits of one request per
-   bucket are held against backend "torch" on the same card (atol = rtol =
+   per prefill layer the attention kernel (K2 or K3) of its bucket's
+   record, and K14 once a layer of every decode step.  First-token logits
+   of one request per bucket are held against backend "torch" on the same card (atol = rtol =
    1e-4: twelve full-width fp32 layers, where the reference's 1e-5 is for
    two narrow ones).
 5. pointcloud: K9 fps, K10/K11 ball query, K12/K13 grouped aggregation
@@ -765,6 +781,88 @@ def family_flash_rows(gen) -> list[dict]:
     return rows
 
 
+#: K14's rows: the granite cells' decode, and llama110m's in the serve
+#: phase (8 slots, fp32, two key splits): slots, query heads, KV heads,
+#: head dim, pages a table, dtype, mean live positions of an active slot,
+#: share of slots active (granite's: PERF.md §4).
+PAGED_DECODE_CELLS = {
+    "granite chat": (128, 32, 8, 128, 96, "bfloat16", 436, 0.69),
+    "granite rag": (32, 32, 8, 128, 256, "bfloat16", 3074, 0.56),
+    "llama110m serve": (8, 12, 12, 64, 34, "float32", 272, 0.75)}
+PAGED_DECODE_MAIN = "granite chat B=128 P=96 page=16 H=32 K=8 hd=128 bfloat16"
+
+
+def paged_decode_phase() -> list[dict]:
+    """K14 at the granite cells' and llama110m's decode shapes against its
+    plain version, warm and cold, beside the gather path it replaces and
+    its bound."""
+    import torch
+    from repro_torch.kernels import paged_decode as pdk
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers
+    page = 16
+    regs = ptxas_report("paged_decode_attention")
+    rows = []
+    for cell, (B, H, K, hd, P, dtype, mean, share) in \
+            PAGED_DECODE_CELLS.items():
+        dt = getattr(torch, dtype)
+        item = torch.empty((), dtype=dt).element_size()
+        gen = torch.Generator().manual_seed(14)
+        N = B * P
+        span = P * page
+        act = torch.rand(B, generator=gen) < share
+        lens = ((0.5 + torch.rand(B, generator=gen)) * mean).int().clamp(
+            0, span - 1)
+        table = torch.randperm(N, generator=gen).reshape(B, P).int()
+        g = torch.Generator(device="cuda")
+        g.manual_seed(14)
+        q = torch.randn((B, 1, H, hd), generator=g, device="cuda").to(dt)
+        kp = torch.randn((N + 1, page, K, hd), generator=g,
+                         device="cuda").to(dt)
+        vp = torch.randn((N + 1, page, K, hd), generator=g,
+                         device="cuda").to(dt)
+        pt, sl, ac = table.cuda(), lens.cuda(), act.cuda()
+        scale = hd ** -0.5
+        kern = lambda *a: pdk.paged_decode_attention(  # noqa: E731
+            *a, sm_scale=scale)
+        args = (q, kp, vp, pt, sl, ac)
+        got = kern(*args)
+        want = ref.paged_decode_ref(*args, sm_scale=scale)
+        err = _check(f"paged_decode {cell}", got, want, dtype)
+
+        def plain():
+            kg = kp[pt.long()].reshape(B, span, K, hd)
+            vg = vp[pt.long()].reshape(B, span, K, hd)
+            mask = (torch.arange(span, device="cuda")[None, None, :]
+                    <= sl[:, None, None])
+            return layers._sdpa_xla(q, kg, vg, mask, hd)
+        keys = int(((lens + 1) * act).sum())
+        n_act = int(act.sum())
+        nbytes = (keys * 2 * K + n_act * 2 * H) * hd * item
+        flops = 4 * hd * H * keys
+        splits, chunk = pdk.split_plan(B, K, span, hd, item)
+        group = 1 << (H // K - 1).bit_length()
+        tag = f"paged_decode_kernelI{mangled_t(dtype)}Li{hd}ELi{group}E"
+        ms = device_ms(lambda: kern(*args), 50)
+        row = _row("paged_decode", f"{cell} B={B} P={P} page={page} "
+                   f"H={H} K={K} hd={hd} {dtype}", err, ms,
+                   device_ms(plain, 5), None, nbytes, flops, dtype)
+        row.update(
+            cold_ms=cold_ms(kern, list(args), iters=20),
+            library_note="no PyTorch call computes attention over a page "
+                         "table",
+            mean_live=float(((lens + 1) * act).sum() / max(n_act, 1)),
+            active=n_act, keys=keys, split=splits, chunk=chunk,
+            registers=next((r for name, (r, _) in regs.items()
+                            if tag in name), None))
+        row["roofline_share"] = row["bound_ms"] / row["ms"]
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del kp, vp, q
+        torch.cuda.empty_cache()
+    return rows
+
+
 def serve_phase() -> dict:
     import numpy as np
     import torch
@@ -802,6 +900,7 @@ def serve_phase() -> dict:
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
     want = {n: 0 for n in launches}
     want["rmsnorm"] = (2 * L + 1) * (len(reqs) + stats.decode_steps)
+    want["paged_decode"] = L * stats.decode_steps
     for r in reqs:
         b = pick_bucket(r.prompt_len, BUCKETS)
         want[scheduled(eng.lowering, "attention", (1, b, H, K, b, hd),
@@ -860,7 +959,9 @@ def sync_check_phase() -> dict:
     """One call of ``layers.attention_decode_paged`` at llama110m's full
     width (8 slots, 3 of them inactive) under
     ``torch.cuda.set_sync_debug_mode("error")``, which raises at any host
-    sync; its output must equal the same call's outside that mode.  Then
+    sync; its output must equal the same call's outside that mode, and on
+    the active slots backend "torch"'s (the gather path, where backend
+    "cuda" runs K14) on the same pools.  Then
     one whole ``decode_step_paged`` under the same mode, reported (not
     required): whether the step could be captured in a CUDA graph as it
     stands."""
@@ -903,6 +1004,12 @@ def sync_check_phase() -> dict:
             and torch.equal(vp[:-1], pools[1][:-1])):
         raise AssertionError("attention_decode_paged under sync-debug "
                              "differs from the same call outside it")
+    plain, _, _ = layers.attention_decode_paged(
+        attn, x, cfg, pools[0].clone(), pools[1].clone(), pt, sl, act,
+        lowering=LoweringConfig("torch"))
+    rows = act.nonzero().flatten()
+    _check("attention_decode_paged cuda against torch", got[rows],
+           plain[rows], "float32")
     tokens = torch.randint(0, cfg.vocab, (8,), generator=gen, device="cuda")
     model.decode_paged(params, tokens, cache.k_pages, cache.v_pages, pt, sl,
                        act)
@@ -2081,6 +2188,7 @@ def families_phase() -> dict:
             hd = cfg.resolved_head_dim()
             want = {n: 0 for n in launches}
             want["rmsnorm"] = (2 * L + 1) * (len(reqs) + stats.decode_steps)
+            want["paged_decode"] = L * stats.decode_steps
             for r in reqs:
                 b = pick_bucket(r.prompt_len, BUCKETS)
                 want[scheduled(lw, "attention", (1, b, H, K, b, hd),
@@ -3881,7 +3989,9 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                  "int8_matmul": "M=512 K=768 N=32000 float32",
                  "int8_matmul_pipelined": "M=8 K=768 N=32000 float32",
                  "flash_attention_int8kv":
-                     "S=512 T=512 H=12 K=12 hd=64 float32 causal"}
+                     "S=512 T=512 H=12 K=12 hd=64 float32 causal",
+                 # granite's chat decode, the cell with the most slots
+                 "paged_decode": PAGED_DECODE_MAIN}
     out = []
     for name, kern in _build.KERNELS.items():
         row = next(r for r in rows if r["kernel"] == name
@@ -3904,7 +4014,8 @@ def kernel_summary(rows: list[dict], launches: dict) -> list[dict]:
                     "bound_cuda_core_ms", "bound_tensor_core_ms",
                     "dequant_mm_ms", "dequant_sdpa_ms", "plan",
                     "gathered_bytes", "reuse", "l2_bound_us",
-                    "registers", "spill_store_bytes"):
+                    "registers", "spill_store_bytes", "mean_live", "keys",
+                    "chunk", "roofline_share"):
             if key in row:
                 out[-1][key] = row[key]
     return out
@@ -3940,6 +4051,7 @@ def main() -> int:
     rows = timed("kernels", kernel_phase)
     launches = timed("serve", serve_phase)
     timed("sync_check", sync_check_phase)
+    rows += timed("paged_decode", paged_decode_phase)
     rows += timed("pointcloud_kernels", pointcloud_kernel_phase)
     timed("fps_sweep", fps_sweep_phase)
     timed("ball_sweep", ball_sweep_phase)

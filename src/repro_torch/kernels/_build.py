@@ -180,12 +180,13 @@ def load(name: str) -> ctypes.CDLL:
 class CudaKernel:
     """One hand-written kernel: its C entry point and its launch count.
 
-    ``replaces`` names the TPU kernel it ports (file:line of its ``def``);
-    ``source`` is its CUDA file in the repo.
+    ``replaces`` names the TPU kernel it ports (file:line of its ``def``),
+    None for a kernel that ports none; ``source`` is its CUDA file in the
+    repo.
     """
 
     def __init__(self, name: str, *, lib: str, symbol: str, argtypes,
-                 replaces: str):
+                 replaces: str | None):
         self.name = name
         self.lib = lib
         self.symbol = symbol

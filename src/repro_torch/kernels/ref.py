@@ -31,6 +31,24 @@ def flash_attention_ref(q, k, v, mask, *, sm_scale: float):
     return o.reshape(B, S, H, hd).to(q.dtype)
 
 
+def paged_decode_ref(q, k_pages, v_pages, page_table, seq_lens, active, *,
+                     sm_scale: float):
+    """q: (B,1,H,hd), k_pages/v_pages: (N+1,page,K,hd), page_table: (B,P),
+    seq_lens/active: (B,) → (B,1,H,hd): slot b attends positions 0 ..
+    min(seq_lens[b], P·page − 1) of its pages (logical page p at physical
+    ``page_table[b, p]``), ``flash_attention_ref``'s fp32 math; an inactive
+    slot's rows are 0."""
+    B, P = page_table.shape
+    page = k_pages.shape[1]
+    pt = page_table.long()
+    kg = k_pages[pt].reshape(B, P * page, *k_pages.shape[2:])
+    vg = v_pages[pt].reshape(B, P * page, *v_pages.shape[2:])
+    mask = (torch.arange(P * page, device=q.device)[None, None, :]
+            <= seq_lens[:, None, None])
+    out = flash_attention_ref(q, kg, vg, mask, sm_scale=sm_scale)
+    return torch.where(active[:, None, None, None], out, 0)
+
+
 def flash_attention_int8kv_ref(q, k8, v8, k_scale, v_scale, mask, *,
                                sm_scale: float):
     """q: (B,S,H,hd) float, k8/v8: (B,T,K,hd) int8, k_scale/v_scale: (K,)

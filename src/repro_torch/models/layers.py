@@ -43,6 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.compile.config import LoweringConfig, default_lowering
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_decode import paged_decode_attention
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -509,6 +510,15 @@ def attention_decode_paged(params, x, cfg: ModelConfig, k_pages, v_pages,
     active row can name the same slot).  The spare page's contents are
     never read unmasked.
     The pools are updated in place.  Returns (out (B,1,d), k_pages, v_pages).
+
+    On backend "cuda" with pools on the card, the attention is K14
+    (``kernels/paged_decode.py``), which reads each slot's live positions
+    in place through the page table (no compile-record lookup: the
+    ``attention_paged`` record names the plain version, the reference's
+    XLA fallback); an inactive slot's attention rows are then zeros, which
+    the engine never reads.  Elsewhere it gathers every slot's whole page
+    range and runs ``sdpa`` under that record, the plain version K14 is
+    held to.
     """
     lw = lowering or default_lowering()
     hd = cfg.resolved_head_dim()
@@ -524,13 +534,19 @@ def attention_decode_paged(params, x, cfg: ModelConfig, k_pages, v_pages,
     slot = sl % page
     k_pages[phys, slot] = k[:, 0].to(k_pages.dtype)
     v_pages[phys, slot] = v[:, 0].to(v_pages.dtype)
-    pt = page_table.long()
-    kg = k_pages[pt].reshape(B, P * page, *k_pages.shape[2:])
-    vg = v_pages[pt].reshape(B, P * page, *v_pages.shape[2:])
-    mask = (torch.arange(P * page, device=x.device)[None, None, :]
-            <= seq_lens[:, None, None])
-    out = sdpa(q, kg.to(q.dtype), vg.to(q.dtype), mask, hd, lw,
-               kind="attention_paged")
+    if lw.backend == "cuda" and k_pages.device.type == "cuda" \
+            and not is_dtensor(k_pages):
+        out = paged_decode_attention(q.contiguous(), k_pages, v_pages,
+                                     page_table, seq_lens, active,
+                                     sm_scale=hd ** -0.5)
+    else:
+        pt = page_table.long()
+        kg = k_pages[pt].reshape(B, P * page, *k_pages.shape[2:])
+        vg = v_pages[pt].reshape(B, P * page, *v_pages.shape[2:])
+        mask = (torch.arange(P * page, device=x.device)[None, None, :]
+                <= seq_lens[:, None, None])
+        out = sdpa(q, kg.to(q.dtype), vg.to(q.dtype), mask, hd, lw,
+                   kind="attention_paged")
     cd = dtype_of(cfg.compute_dtype)
     return _out_proj(out, params["wo"].to(cd)), k_pages, v_pages
 

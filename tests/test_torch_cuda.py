@@ -28,6 +28,7 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_int8kv)
 from repro_torch.kernels.int8_matmul import INT8_MATMUL, int8_matmul
+from repro_torch.kernels import paged_decode as pdk
 from repro_torch.kernels import pipeline, schedule
 from repro_torch.kernels.pipeline import flash_attention_pipelined
 from repro_torch.kernels.ssd_scan import ssd_scan
@@ -1452,3 +1453,220 @@ def test_guard_raises_at_a_real_k1_launch(gen):
     tokens = torch.zeros((2, 16), dtype=torch.int32, device="cuda")
     with pytest.raises(RuntimeError, match="no gradient"):
         model.loss(params, {"tokens": tokens, "labels": tokens})
+
+
+# ---------------------------------------------------------------------------
+# K14: paged decode attention
+# ---------------------------------------------------------------------------
+
+def _paged_inputs(gen, B, H, K, hd, page, P, dtype, lens, active,
+                  shared=False):
+    """Pools of B·P pages (+ the spare), each slot's table row a random
+    set of them (with ``shared``, every other slot's row names the pages
+    of the slot before it, in another order)."""
+    N = B * P
+    q = torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((N + 1, page, K, hd), generator=gen,
+                     device="cuda").to(dtype)
+    vp = torch.randn((N + 1, page, K, hd), generator=gen,
+                     device="cuda").to(dtype)
+    pt = torch.randperm(N, generator=gen, device="cuda").reshape(B, P)
+    if shared:
+        for b in range(1, B, 2):
+            pt[b] = pt[b - 1][torch.randperm(P, generator=gen,
+                                             device="cuda")]
+    sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    act = torch.tensor(active, dtype=torch.bool, device="cuda")
+    return q, kp, vp, pt.int().contiguous(), sl, act
+
+
+def _gather_sdpa(q, kp, vp, pt, sl):
+    """The plain path (layers.attention_decode_paged on CPU tensors):
+    every slot's whole page range gathered, masked, ``_sdpa_xla``."""
+    from repro_torch.models import layers
+    B, P = pt.shape
+    page, hd = kp.shape[1], kp.shape[3]
+    kg = kp[pt.long()].reshape(B, P * page, *kp.shape[2:])
+    vg = vp[pt.long()].reshape(B, P * page, *vp.shape[2:])
+    mask = (torch.arange(P * page, device=q.device)[None, None, :]
+            <= sl[:, None, None])
+    return layers._sdpa_xla(q, kg, vg, mask, hd)
+
+
+def _lens(span, B, gen):
+    """0, 15, 16, 17, one short of the table, the last position, past the
+    table, then random lengths."""
+    fixed = [0, 15, 16, 17, span - 2, span - 1, span + 40]
+    rest = torch.randint(0, span, (max(0, B - len(fixed)),), generator=gen,
+                         device="cuda").tolist()
+    return (fixed + rest)[:B]
+
+
+PAGED_CASES = [
+    # name, B, H, K, hd, page, P, dtype
+    ("granite-chat", 128, 32, 8, 128, 16, 96, torch.bfloat16),
+    ("granite-rag", 32, 32, 8, 128, 16, 256, torch.bfloat16),
+    ("llama110m", 8, 12, 12, 64, 16, 34, torch.float32),
+    ("fp16-gqa", 12, 16, 2, 128, 16, 40, torch.float16),
+    ("hd256-fp32", 6, 8, 1, 256, 8, 20, torch.float32),
+    ("hd16-page4", 10, 4, 1, 16, 4, 9, torch.float32),
+    # groups that are not a power of two run a padded group of query rows
+    ("group6-bf16", 16, 48, 8, 128, 16, 40, torch.bfloat16),
+    ("group3-fp32", 9, 12, 4, 64, 16, 20, torch.float32),
+    ("group7-fp16", 7, 28, 4, 128, 16, 24, torch.float16),
+]
+
+
+@pytest.mark.parametrize("case", PAGED_CASES, ids=[c[0] for c in PAGED_CASES])
+def test_paged_decode_kernel_matches_the_gather_path(gen, case):
+    """K14 against the plain gather + ``_sdpa_xla`` path at the reference's
+    tolerances (fp32 2e-5 / 2e-4, 16-bit 2e-2), over lengths 0, 15, 16,
+    17, one short of the table and past it, table rows that name other
+    slots' pages, and inactive slots, whose rows must be zero; and within
+    the same tolerance of the plain version's fp32 arithmetic."""
+    _, B, H, K, hd, page, P, dtype = case
+    span = P * page
+    lens = _lens(span, B, gen)
+    active = [b % 5 != 3 for b in range(B)]
+    q, kp, vp, pt, sl, act = _paged_inputs(gen, B, H, K, hd, page, P, dtype,
+                                           lens, active, shared=True)
+    before = pdk.PAGED_DECODE.launches
+    got = pdk.paged_decode_attention(q, kp, vp, pt, sl, act,
+                                     sm_scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert pdk.PAGED_DECODE.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    rows = act.nonzero().flatten()
+    want = _gather_sdpa(q, kp, vp, pt, sl)
+    torch.testing.assert_close(got[rows], want[rows], **_tol(dtype))
+    plain = ref.paged_decode_ref(q, kp, vp, pt, sl, act, sm_scale=hd ** -0.5)
+    torch.testing.assert_close(got, plain, **_tol(dtype))
+    assert bool((got[~act] == 0).all())
+
+
+#: (name, H, K, hd, page, P, dtype) of the split-count test: a range of
+#: 4096 positions, long enough for every split count the planner has.
+SPLIT_CASES = [("granite", 32, 8, 128, 16, 256, torch.bfloat16),
+               ("llama110m", 12, 12, 64, 16, 256, torch.float32),
+               ("group6-fp16", 48, 8, 128, 16, 256, torch.float16)]
+
+
+def _slots_for(splits, K, span, hd, itemsize, sms):
+    """A slot count (up to 256) for which ``split_plan`` picks ``splits``
+    on this card, the one next to the planner's boundary (the fewest for
+    one split, else the most), or None."""
+    Bs = [B for B in range(1, 257)
+          if pdk.split_plan(B, K, span, hd, itemsize, sms)[0] == splits]
+    return (min(Bs) if splits == 1 else max(Bs)) if Bs else None
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 16])
+def test_paged_decode_every_split_count(gen, case, splits):
+    """Every split count the planner can choose, reached by the number of
+    slots alone (the planner's own chunks): right against the plain
+    version, and the same bits over 20 runs (a fixed merge order, no
+    atomics)."""
+    from repro_torch.kernels.pipeline import sm_count
+    _, H, K, hd, page, P, dtype = case
+    span = P * page
+    item = torch.empty((), dtype=dtype).element_size()
+    B = _slots_for(splits, K, span, hd, item, sm_count(torch.device("cuda")))
+    assert B is not None, f"no slot count gives {splits} splits"
+    lens = _lens(span, B, gen)
+    active = [b % 4 != 2 for b in range(B)]
+    args = _paged_inputs(gen, B, H, K, hd, page, P, dtype, lens, active)
+    first = pdk.paged_decode_attention(*args, sm_scale=hd ** -0.5)
+    torch.testing.assert_close(
+        first, ref.paged_decode_ref(*args, sm_scale=hd ** -0.5),
+        **_tol(dtype))
+    for _ in range(20):
+        again = pdk.paged_decode_attention(*args, sm_scale=hd ** -0.5)
+        assert torch.equal(again, first)
+
+
+def test_paged_decode_planner_picks_at_the_cells(gen):
+    """The plan the wrapper runs at the granite cells' shapes."""
+    from repro_torch.kernels.pipeline import sm_count
+    sms = sm_count(torch.device("cuda"))
+    assert pdk.split_plan(128, 8, 1536, 128, 2, sms) == (1, 1536)
+    assert pdk.split_plan(32, 8, 4096, 128, 2, sms)[0] > 1
+
+
+def test_paged_decode_captures_in_a_cuda_graph(gen):
+    """One call captured in a CUDA graph (which refuses a host sync) and
+    replayed after the lengths, the table and the active set changed in
+    place: the replay equals a fresh call."""
+    B, H, K, hd, page, P = 32, 32, 8, 128, 16, 256
+    lens = _lens(P * page, B, gen)
+    q, kp, vp, pt, sl, act = _paged_inputs(
+        gen, B, H, K, hd, page, P, torch.bfloat16, lens,
+        [True] * B)
+    pdk.paged_decode_attention(q, kp, vp, pt, sl, act, sm_scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pdk.paged_decode_attention(q, kp, vp, pt, sl, act,
+                                         sm_scale=hd ** -0.5)
+    sl.copy_(torch.flip(sl, (0,)))
+    act.copy_(torch.arange(B, device="cuda") % 3 != 0)
+    pt.copy_(torch.flip(pt, (0,)))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = pdk.paged_decode_attention(q, kp, vp, pt, sl, act,
+                                      sm_scale=hd ** -0.5)
+    assert torch.equal(out, want)
+
+
+def test_paged_decode_refuses_before_launching(gen):
+    args = list(_paged_inputs(gen, 4, 8, 2, 80, 16, 4, torch.bfloat16,
+                              [3, 5, 7, 9], [True] * 4))
+    before = pdk.PAGED_DECODE.launches
+    with pytest.raises(ValueError, match="head dim"):
+        pdk.paged_decode_attention(*args, sm_scale=0.1)
+    args = list(_paged_inputs(gen, 4, 8, 2, 64, 16, 4, torch.bfloat16,
+                              [3, 5, 7, 9], [True] * 4))
+    args[3] = args[3].long()
+    with pytest.raises(ValueError, match="int32"):
+        pdk.paged_decode_attention(*args, sm_scale=0.1)
+    assert pdk.PAGED_DECODE.launches == before
+
+
+@pytest.mark.parametrize("arch", ["llama110m", "granite-3-8b"])
+def test_paged_decode_layer_routes_to_k14(gen, arch):
+    """``attention_decode_paged`` on backend cuda launches K14 once and
+    matches backend torch's gather path on the active slots (reduced
+    widths, the config's dtype); the pools' writes are the same."""
+    import dataclasses
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.serve.kv_cache import PagedKVCache
+    cfg = reduced(get_config(arch))
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16") \
+        if arch != "llama110m" else cfg
+    lw = LoweringConfig("cuda")
+    params = get_model(cfg, lowering=lw).init(0, "cuda")
+    cache = PagedKVCache(cfg, max_batch=6, page_size=16, n_pages=24,
+                         max_len=64, device=torch.device("cuda"))
+    for slot, n in ((0, 0), (1, 17), (3, 63), (4, 30)):
+        cache.bind_slot(slot, n + 1)
+        cache.seq_lens[slot] = n
+    pt, sl, act = cache.device_views({0, 1, 3, 4})
+    x = torch.randn((6, 1, cfg.d_model), generator=gen, device="cuda")
+    attn = layer_params(params["blocks"], 0)["attn"]
+    kp, vp = cache.k_pages[0], cache.v_pages[0]
+    pools = (kp.clone(), vp.clone())
+    before = pdk.PAGED_DECODE.launches
+    got, _, _ = layers.attention_decode_paged(attn, x, cfg, kp, vp, pt, sl,
+                                              act, lowering=lw)
+    torch.cuda.synchronize()
+    assert pdk.PAGED_DECODE.launches == before + 1
+    want, _, _ = layers.attention_decode_paged(
+        attn, x, cfg, *pools, pt, sl, act, lowering=LoweringConfig("torch"))
+    torch.cuda.synchronize()
+    assert pdk.PAGED_DECODE.launches == before + 1
+    rows = act.nonzero().flatten()
+    torch.testing.assert_close(got[rows], want[rows],
+                               **_tol(layers.dtype_of(cfg.compute_dtype)))
+    assert torch.equal(kp[:-1], pools[0][:-1])
+    assert torch.equal(vp[:-1], pools[1][:-1])
